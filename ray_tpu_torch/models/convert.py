@@ -1,0 +1,67 @@
+"""Weights for the port's Llama: from a flax param tree, or from a seed.
+
+`flax_to_state_dict` turns the JAX package's param tree, given as nested
+dicts of numpy arrays (for example `jax.device_get(server.params)`), into
+the state_dict of `ray_tpu_torch.models.llama.Llama`:
+
+- the key is the flax path with "/" as "." (`layers_0/attn/wq/kernel` ->
+  `layers_0.attn.wq.weight`);
+- a flax Dense kernel is [in, out] and the port's Dense weight is
+  [out, in], so kernels are transposed;
+- embeddings (`embed/embedding`, used by `attend` as x @ E^T for a tied
+  head) and norm scales keep their layout.
+
+`init_params` fills a model from a `torch.Generator` the way the flax
+initializers do (normal with std 0.02 for kernels and the embedding, ones
+for norm scales), for runs with no JAX params.
+"""
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def _flatten(tree: Mapping, prefix: str = ""):
+    for name, value in tree.items():
+        path = f"{prefix}/{name}" if prefix else str(name)
+        if isinstance(value, Mapping):
+            yield from _flatten(value, path)
+        else:
+            yield path, value
+
+
+def _to_tensor(arr) -> torch.Tensor:
+    arr = np.array(arr, copy=True, order="C")  # owned and writable
+    if arr.dtype.name == "bfloat16":  # ml_dtypes bfloat16: move the raw bits
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax Llama params (with or without the top-level "params" key) ->
+    the port's state_dict, on the CPU, in the params' own dtype."""
+    tree = params["params"] if "params" in params else params
+    out = {}
+    for path, value in _flatten(tree):
+        t = _to_tensor(value)
+        if path.endswith("/kernel"):
+            key = path[:-len("/kernel")].replace("/", ".") + ".weight"
+            t = t.t().contiguous()
+        else:
+            key = path.replace("/", ".")
+        out[key] = t
+    return out
+
+
+@torch.no_grad()
+def init_params(model: nn.Module, generator: torch.Generator, std: float = 0.02):
+    """Seeded init: normal(0, std) for Dense weights and the embedding,
+    ones for norm scales. The generator must live on the model's device."""
+    for name, p in model.named_parameters():
+        if name.endswith("scale"):
+            p.fill_(1.0)
+        else:
+            p.normal_(0.0, std, generator=generator)
+    return model
