@@ -8,19 +8,36 @@ Phases, in order; a failing phase raises and the script exits non-zero:
 1. device  - the card's name and power limit (nvidia-smi) and torch's view.
 2. build   - nvcc builds every kernel under ray_tpu_torch/ops/csrc/.
 3. kernels - each hand kernel against its plain PyTorch version on the
-             card, on numpy-seeded inputs, with stated tolerances; then
-             each is timed on the device (CUDA events around a CUDA-graph
-             replay of back-to-back calls, host cost excluded; the eager
-             per-call time is logged beside it) with its plain version, the
-             least time the card could take (bound) and, where one exists,
-             a single PyTorch call computing the same function.
+             card, on numpy-seeded inputs, with stated tolerances (the
+             flash forward, its dQ and dK/dV backward kernels, paged
+             decode), the backward ones also against a control without
+             the bf16 roundings that their limit must reject; a
+             grad-tracking call launches forward, dQ and dK/dV once each.
+             The flash kernels are checked again at the training shape.
+             Then each is timed on the device (CUDA events
+             around a CUDA-graph replay of back-to-back calls, host cost
+             excluded; the eager per-call time is logged beside it) with
+             its plain version, the least time the card could take (bound)
+             and, where one exists, a single PyTorch call computing the
+             same function.
 4. model   - the llama_1b decoder in f32: logits through the kernels (paged
              prefill and decode) against logits through the plain dense
              cache path, on one prompt.
 5. slice   - the paged LLMServer at llama_1b width and depth, seeded random
              weights, serving requests through generate and generate_stream
              under asyncio; the kernel launch counters are reset just
-             before and read just after, and must match layers x calls.
+             before and read just after, and must match layers x calls
+             (no backward launch). One more wave runs under torch.profiler.
+6. train   - the training step (ray_tpu_torch.train): (a) llama_1b width
+             with 2 layers in f32, every parameter's gradient through the
+             kernels against the plain attention path (and a TF32 control
+             that the limit must reject), and the bf16 loss head at B=4,
+             T=2048 against the same head widened to f32; (b) train_llama at
+             llama_1b width and depth, B=4, T=2048, bf16, 2 warm-up and
+             10 timed steps, counters reset before and read after (forward,
+             dQ and dK/dV each 16 per step), finite losses and params; (c)
+             one step with remat (forward 32 per step) whose loss matches
+             (b)'s first; (d) one step under torch.profiler.
 
 It prints a `kernels` JSON line, the nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}. Details go to chip_smoke_out/chip_smoke.json.
@@ -36,10 +53,16 @@ from pathlib import Path
 
 import numpy as np
 
+H100_SXM = "NVIDIA H100 80GB HBM3"      # the card the rates below are for
 HBM_BYTES_PER_S = 3.35e12               # H100 SXM device memory
-PEAK_FLOPS = {"bfloat16": 989e12,       # dense tensor-core rate
+PEAK_FLOPS = {"bfloat16": 989e12,       # dense tensor-core rate (bounds and MFU)
               "float32": 67e12}         # f32 outside the tensor cores
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # max-abs vs the plain version in f32
+# backward kernels vs their plain version, per gradient: max |err| over max
+# |grad|, and mean |err| over mean |grad|. The mean limit is the one that
+# a backward without the dS and P roundings (the control) must exceed.
+BWD_TOL = {"float32": 1e-5, "bfloat16": 5e-3}
+BWD_MEAN_TOL = {"float32": 1e-6, "bfloat16": 1e-4}
 OUT_DIR = Path(__file__).resolve().parent / "chip_smoke_out"
 
 
@@ -136,18 +159,192 @@ def check_flash(rng, record, device="cuda"):
                            T=100, head_dim=d, max_abs_err=err, ok=err <= TOL["bfloat16"]))
         if err > TOL["bfloat16"]:
             raise AssertionError(f"flash_fwd head_dim {d}: err {err}")
-    if device == "cuda":  # no backward kernel yet: a grad-tracking call raises
-        q, k, v = flash_inputs(rng, 1, 16, 32, 8, 64, torch.bfloat16, device)
-        try:
-            fa.flash_attention(q.requires_grad_(), k, v)
-        except NotImplementedError:
-            pass
-        else:
-            raise AssertionError("flash_attention ran a grad-tracking call")
+    if device == "cuda":  # a grad-tracking call: forward, dQ, dK/dV once each
+        q, k, v = (x.requires_grad_() for x in
+                   flash_inputs(rng, 1, 100, 32, 8, 64, torch.bfloat16, device))
+        before = flash_counts()
+        fa.flash_attention(q, k, v).float().square().sum().backward()
+        torch.cuda.synchronize()
+        launched = [a - b for a, b in zip(flash_counts(), before)]
+        if launched != [1, 1, 1]:
+            raise AssertionError(f"grad-tracking call launched fwd/dq/dkv {launched}")
     log(f"[kernels] flash_fwd: {len([r for r in record if r['kernel'] == 'flash_fwd'])} "
         f"cases within tolerance (f32 {TOL['float32']}, bf16 {TOL['bfloat16']}), "
         f"worst {worst:.3e}")
     return worst
+
+
+def flash_counts():
+    from ray_tpu_torch.ops import flash_attention as fa
+    return [fa.LAUNCHES, fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES]
+
+
+def reset_flash_counts():
+    from ray_tpu_torch.ops import flash_attention as fa
+    fa.LAUNCHES = fa.BWD_DQ_LAUNCHES = fa.BWD_DKV_LAUNCHES = 0
+
+
+def rel_err(got, want):
+    """max |got - want| over the largest |want| (f32)."""
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+def mean_rel_err(got, want):
+    """mean |got - want| over the mean |want| (f32)."""
+    return ((got.float() - want.float()).abs().mean() / want.float().abs().mean()).item()
+
+
+def check_bwd(tag, name, got, want, control=None):
+    """dq, dk, dv of the kernels (`got`) against the plain backward
+    (`want`): each gradient's max error over its largest |grad| within
+    BWD_TOL and its mean error over its mean |grad| within BWD_MEAN_TOL.
+    `control`, for bf16: the plain backward without the dS and P roundings
+    (f32 operands, outputs rounded once), which must miss the mean limit on
+    at least one gradient, so that the limit would catch a kernel that
+    drops them. Returns the readings; raises on a miss."""
+    errs = [rel_err(a, b) for a, b in zip(got, want)]
+    means = [mean_rel_err(a, b) for a, b in zip(got, want)]
+    out = dict(rel_err=errs, mean_rel_err=means,
+               max_abs_err=[(a.float() - b.float()).abs().max().item()
+                            for a, b in zip(got, want)])
+    ok = max(errs) <= BWD_TOL[name] and max(means) <= BWD_MEAN_TOL[name]
+    if control is not None:
+        out["control_rel_err"] = [rel_err(a, b) for a, b in zip(control, want)]
+        out["control_mean_rel_err"] = [mean_rel_err(a, b) for a, b in zip(control, want)]
+        ok = ok and max(out["control_mean_rel_err"]) > BWD_MEAN_TOL[name]
+    if not ok:
+        raise AssertionError(f"flash_bwd {tag}: dq/dk/dv readings {out} (limits max "
+                             f"{BWD_TOL[name]}, mean {BWD_MEAN_TOL[name]})")
+    return out
+
+
+def bwd_control(q, k, v, out, lse, do, causal):
+    """The plain backward without the dS and P roundings: every operand in
+    f32, each gradient rounded to the input dtype once at the end."""
+    from ray_tpu_torch.ops import flash_attention as fa
+    f = lambda x: x.float()
+    return [g.to(q.dtype) for g in fa.flash_attention_bwd_reference(
+        f(q), f(k), f(v), f(out), lse, f(do), causal)]
+
+
+def check_flash_bwd(rng, record, device="cuda"):
+    """B2 (dQ) and B3 (dK/dV) against flash_attention_bwd_reference on the
+    same q, k, v, out, lse and dO, within the limits of `check_bwd`; f32
+    differs in summation order only, bf16 also by the bf16 outputs."""
+    import torch
+    from ray_tpu_torch.ops import flash_attention as fa
+    worst = {"float32": [0.0, 0.0], "bfloat16": [0.0, 0.0]}   # max, mean
+    control = [1.0, 1.0]     # the control's smallest readings over the bf16 cases
+    max_abs = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    cases = [(dt, causal, g, t, 64) for dt in (torch.float32, torch.bfloat16)
+             for causal in (True, False) for g in (1, 4) for t in (16, 100, 128, 2048)]
+    cases += [(torch.bfloat16, True, 4, 100, d) for d in (16, 32, 128)]
+    for dtype, causal, g, t, d in cases:
+        name = str(dtype).split(".")[1]
+        h = 32 if d == 64 else 8
+        q, k, v = flash_inputs(rng, 1 if t == 2048 else 2, t, h, h // g, d, dtype, device)
+        do = flash_inputs(rng, q.shape[0], t, h, 1, d, dtype, device)[0]
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal)
+        want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, causal)
+        ctl = bwd_control(q, k, v, out, lse, do, causal) if name == "bfloat16" else None
+        r = check_bwd(f"{name} causal={causal} G={g} T={t} D={d}", name, got, want, ctl)
+        record.append(dict(kernel="flash_bwd", dtype=name, causal=causal, group=g, T=t,
+                           head_dim=d, ok=True, **r))
+        worst[name] = [max(worst[name][0], *r["rel_err"]),
+                       max(worst[name][1], *r["mean_rel_err"])]
+        if ctl is not None:
+            control = [min(control[0], max(r["control_rel_err"])),
+                       min(control[1], max(r["control_mean_rel_err"]))]
+        max_abs["flash_bwd_dq"] = max(max_abs["flash_bwd_dq"], r["max_abs_err"][0])
+        max_abs["flash_bwd_dkv"] = max(max_abs["flash_bwd_dkv"], *r["max_abs_err"][1:])
+    log(f"[kernels] flash_bwd dq + dkv: {len(cases)} cases within tolerance (max / mean "
+        f"error over max / mean |grad|: f32 {BWD_TOL['float32']} / "
+        f"{BWD_MEAN_TOL['float32']}, bf16 {BWD_TOL['bfloat16']} / "
+        f"{BWD_MEAN_TOL['bfloat16']}); worst f32 {worst['float32']}, bf16 "
+        f"{worst['bfloat16']}; control without dS/P roundings, least over the bf16 "
+        f"cases: {control}; max-abs {max_abs}")
+    return max_abs, dict(worst=worst, control_least=control)
+
+
+def time_flash_train(rng, record):
+    """B1, B2, B3 at the training shape: B=4, T=2048, H=32, Kh=8, D=64,
+    bf16, causal. First each is held against its plain version on these
+    inputs (B1 at TOL, B2 and B3 as in `check_bwd`). Bounds count each
+    input read once and each output written once, and the matrix products'
+    flops inside the causal area (exp and elementwise work not counted).
+    The plain backward computes dQ, dK and dV together; so does the
+    library yardstick, the aten flash-attention backward on kv heads
+    expanded to 32 (its dK/dV are per query head: the sum over the group of
+    4 is not in its time)."""
+    import torch
+    import torch.nn.functional as F
+    from ray_tpu_torch.ops import flash_attention as fa
+    b, t, h, kh, d = 4, 2048, 32, 8, 64
+    scale = 1.0 / d ** 0.5
+    q, k, v = flash_inputs(rng, b, t, h, kh, d, torch.bfloat16)
+    do = flash_inputs(rng, b, t, h, 1, d, torch.bfloat16)[0]
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    ref, ref_lse = fa.flash_attention_reference(q.float(), k.float(), v.float(), True,
+                                                return_lse=True)
+    err = (out.float() - ref).abs().max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    record.append(dict(kernel="flash_fwd", dtype="bfloat16", causal=True, group=4, B=b,
+                       T=t, max_abs_err=err, lse_max_abs_err=lse_err,
+                       ok=err <= TOL["bfloat16"] and lse_err <= TOL["float32"] * 10))
+    if not record[-1]["ok"]:
+        raise AssertionError(f"flash_fwd train shape: err {err}, lse err {lse_err}")
+    del ref, ref_lse
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, True)
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, True)
+    bwd = check_bwd("train shape", "bfloat16", got, want,
+                    bwd_control(q, k, v, out, lse, do, True))
+    record.append(dict(kernel="flash_bwd", dtype="bfloat16", causal=True, group=4, B=b,
+                       T=t, head_dim=d, ok=True, **bwd))
+    fmt = lambda xs: [f"{x:.3e}" for x in xs]
+    log(f"[kernels] train shape vs plain: flash_fwd max-abs {err:.3e} (lse {lse_err:.3e}); "
+        f"dq/dk/dv max {fmt(bwd['rel_err'])}, mean {fmt(bwd['mean_rel_err'])} (control "
+        f"max {fmt(bwd['control_rel_err'])}, mean {fmt(bwd['control_mean_rel_err'])})")
+    del got, want
+    delta = fa.bwd_delta(out, do)
+    fwd = lambda: fa.flash_attention_fwd(q, k, v, causal=True)
+    dq = lambda: fa.launch_bwd_dq(q, k, v, do, lse, delta, True, scale)
+    dkv = lambda: fa.launch_bwd_dkv(q, k, v, do, lse, delta, True, scale)
+    plain_fwd = time_ms(lambda: fa.flash_attention_reference(q, k, v, True), iters=3)
+    plain_bwd = time_eager_ms(
+        lambda: fa.flash_attention_bwd_reference(q, k, v, out, lse, do, True), iters=3,
+        warmup=1)
+    qt, dot = q.transpose(1, 2), do.transpose(1, 2)
+    kt = k.transpose(1, 2).repeat_interleave(h // kh, dim=1)
+    vt = v.transpose(1, 2).repeat_interleave(h // kh, dim=1)
+    sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+                       iters=20)
+    o, l, cq, ck, mq, mk, seed, offset, _ = torch.ops.aten._scaled_dot_product_flash_attention(
+        qt, kt, vt, 0.0, True, False, scale=scale)
+    sdpa_bwd = time_ms(lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+        dot, qt, kt, vt, o, l, cq, ck, mq, mk, 0.0, True, seed, offset, scale=scale),
+        iters=20)
+    n_q, n_kv = b * t * h * d, b * t * kh * d       # elements of q (= out, do) and k (= v)
+    pairs = b * h * t * (t + 1) // 2                # (query, key) pairs in the causal area
+    stats = 4 * b * h * t                           # bytes of lse (and of delta)
+    rows = {}
+    for name, fn, nbytes, flops, plain, lib, max_abs in (
+            ("flash_fwd", fwd, 2 * (2 * n_q + 2 * n_kv) + stats, 4 * d * pairs,
+             plain_fwd, sdpa_fwd, err),
+            ("flash_bwd_dq", dq, 2 * (3 * n_q + 2 * n_kv) + 2 * stats, 6 * d * pairs,
+             plain_bwd, sdpa_bwd, bwd["max_abs_err"][0]),
+            ("flash_bwd_dkv", dkv, 2 * (2 * n_q + 4 * n_kv) + 2 * stats, 8 * d * pairs,
+             plain_bwd, sdpa_bwd, max(bwd["max_abs_err"][1:]))):
+        bound_ms, bound_by = bound(nbytes, flops, "bfloat16")
+        rows[name] = dict(shape="B=4 T=2048 H=32 Kh=8 D=64 bf16 causal",
+                          ms=time_ms(fn, iters=20), eager_ms=time_eager_ms(fn, iters=20),
+                          plain_ms=plain, library_ms=lib, bound_ms=bound_ms,
+                          bound_by=bound_by, max_abs_err=max_abs)
+        r = rows[name]
+        log(f"[kernels] {name} train shape: {r['ms']:.4f} ms (eager call "
+            f"{r['eager_ms']:.4f}), plain {plain:.4f} ms, library {lib:.4f} ms, bound "
+            f"{bound_ms:.5f} ms ({bound_by})")
+    return rows
 
 
 def paged_inputs(rng, b, kh, g, d, page, max_pages, lengths, dtype, device="cuda"):
@@ -324,7 +521,6 @@ async def serve_wave(server, prompts, max_tokens):
 def run_slice(preset="llama_1b", device="cuda"):
     import torch
     from ray_tpu_torch.models.llama import llama_param_count
-    from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.ops import paged_attention as pa
     from ray_tpu_torch.serve.llm import LLMConfig, LLMServer
 
@@ -345,7 +541,7 @@ def run_slice(preset="llama_1b", device="cuda"):
     wave1, wave2 = slice_prompts(mc.vocab_size)
     max_tokens = 32
 
-    fa.LAUNCHES = 0
+    reset_flash_counts()
     pa.LAUNCHES = 0
     t0 = time.perf_counter()
     res = asyncio.run(serve_wave(server, wave1, max_tokens))
@@ -353,7 +549,8 @@ def run_slice(preset="llama_1b", device="cuda"):
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_fwd": fa.LAUNCHES, "paged_decode": pa.LAUNCHES}
+    launches = dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), flash_counts()),
+                    paged_decode=pa.LAUNCHES)
     after = server.stats()
 
     dec_a, dec_b = after["decode"], before["decode"]
@@ -375,6 +572,8 @@ def run_slice(preset="llama_1b", device="cuda"):
         "every fresh prompt took the chunk-local path": fresh == n_req - 1,
         "paged launches == layers x decode steps": launches["paged_decode"] == L * steps,
         "both kernels launched": launches["flash_fwd"] > 0 and launches["paged_decode"] > 0,
+        "no backward kernel launched (no grad in serving)":
+            launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == 0,
         "radix prefix hit of the shared 256 tokens": hit >= 256,
         "host syncs below tokens (fused chunks)": syncs < tokens,
     }
@@ -403,42 +602,210 @@ def run_slice(preset="llama_1b", device="cuda"):
     return summary
 
 
-def profile_wave(server, vocab, max_tokens=16):
-    """One more wave of 8 fresh prompts under torch.profiler: the device's
-    busy share of the wall time and the kernels that fill it. The
-    profiler's own cost is inside the wall time."""
+def profile_call(fn, device="cuda"):
+    """fn() under torch.profiler: wall time, the device's busy share of it
+    (summed kernel time over wall time; the profiler's own cost is inside
+    the wall time) and the kernels that fill it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # device rows, less the ranges that annotate host calls on the device
+    # timeline (such as Optimizer.step#AdamW.step), which would count twice
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:10]
+    return dict(wall_s=wall, device_kernel_s=device_us / 1e6,
+                busy_share=(device_us / 1e6 / wall) if device_us else "not measured",
+                launches=sum(e.count for e in kernels),
+                top=[dict(name=e.key[:90], calls=e.count,
+                          device_ms=e.self_device_time_total / 1e3) for e in top])
+
+
+def log_profile(tag, what, out):
+    share = (f"{out['busy_share']:.4f}" if out["device_kernel_s"] else "not measured")
+    log(f"[{tag}] {what} under torch.profiler: wall {out['wall_s']:.3f} s, device "
+        f"kernels {out['device_kernel_s']:.3f} s (busy share {share}), "
+        f"{out['launches']} kernel launches")
+    for row in out["top"]:
+        log(f"[{tag}]   {row['device_ms']:9.3f} ms {row['calls']:6d} x {row['name']}")
+
+
+def profile_wave(server, vocab, max_tokens=16):
+    """One more wave of 8 fresh prompts under torch.profiler."""
     rng = np.random.default_rng(99)
     prompts = [rng.integers(1, vocab, n).tolist()
                for n in (17, 40, 64, 100, 128, 129, 200, 300)]
     before = server.stats()["decode"]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        asyncio.run(serve_wave(server, prompts, max_tokens))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    out = profile_call(lambda: asyncio.run(serve_wave(server, prompts, max_tokens)))
     after = server.stats()["decode"]
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    device_us = sum(e.self_device_time_total for e in kernels)
-    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:10]
-    steps = sum(int(k) * (v - before["chunk_sizes"].get(k, 0))
-                for k, v in after["chunk_sizes"].items())
-    out = dict(wall_s=wall, device_kernel_s=device_us / 1e6,
-               busy_share=(device_us / 1e6 / wall) if device_us else "not measured",
-               launches=sum(e.count for e in kernels), decode_steps=steps,
-               decode_s=after["chunk_s_total"] - before["chunk_s_total"],
-               top=[dict(name=e.key[:90], calls=e.count,
-                         device_ms=e.self_device_time_total / 1e3) for e in top])
-    share = f"{out['busy_share']:.4f}" if device_us else "not measured"
-    log(f"[profile] 8 requests x {max_tokens} tokens under torch.profiler: wall "
-        f"{wall:.3f} s, device kernels {device_us / 1e6:.3f} s (busy share {share}), "
-        f"{out['launches']} kernel launches, {steps} decode steps")
-    for row in out["top"]:
-        log(f"[profile]   {row['device_ms']:9.3f} ms {row['calls']:6d} x {row['name']}")
+    out["decode_steps"] = sum(int(k) * (v - before["chunk_sizes"].get(k, 0))
+                              for k, v in after["chunk_sizes"].items())
+    out["decode_s"] = after["chunk_s_total"] - before["chunk_s_total"]
+    log_profile("profile", f"8 requests x {max_tokens} tokens ({out['decode_steps']} "
+                f"decode steps)", out)
+    return out
+
+
+# ------------------------------------------------------------------ train
+def check_train_grads(device="cuda", tol=1e-4):
+    """llama_1b width with 2 layers, f32, B=2, T=256: every parameter's
+    gradient with attention through the kernels (forward, dQ, dK/dV)
+    against the plain path (attn_impl="xla", autograd through
+    mha_reference) on the same weights and batch. Tolerance: max error
+    over the parameter's largest |grad| <= tol (the two paths differ in
+    summation order only). Control: the plain path again with TF32 matrix
+    products (10-bit mantissas), a lower-precision f32 path that must miss
+    the limit."""
+    import torch
+    from ray_tpu_torch.models.convert import init_params
+    from ray_tpu_torch.models.llama import Llama, LlamaConfig
+    from ray_tpu_torch.ops.losses import chunked_cross_entropy
+
+    grads, losses = [], []
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(0, 32000, (2, 257))).to(device)
+    for impl, tf32 in (("flash", False), ("xla", False), ("xla", True)):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        cfg = LlamaConfig.llama_1b(n_layers=2, dtype=torch.float32,
+                                   param_dtype=torch.float32, attn_impl=impl)
+        model = Llama(cfg, device=device)
+        init_params(model, torch.Generator(device=device).manual_seed(3))
+        before = flash_counts()
+        hidden, _ = model(tokens[:, :-1], return_hidden=True)
+        loss, _ = chunked_cross_entropy(hidden, model.lm_head.weight, tokens[:, 1:],
+                                        chunk_size=256)
+        loss.backward()
+        launched = [a - b for a, b in zip(flash_counts(), before)]
+        want = [2, 2, 2] if impl == "flash" else [0, 0, 0]
+        if launched != want:
+            raise AssertionError(f"attn_impl={impl}: fwd/dq/dkv launched {launched}")
+        losses.append(loss.item())
+        grads.append({n: p.grad for n, p in model.named_parameters()})
+        del model, hidden
+    torch.backends.cuda.matmul.allow_tf32 = False
+    errs = {n: rel_err(grads[0][n], g) for n, g in grads[1].items()}
+    ctl = {n: rel_err(grads[2][n], g) for n, g in grads[1].items()}
+    worst, ctl_worst = max(errs, key=errs.get), max(ctl, key=ctl.get)
+    log(f"[train] llama_1b x 2 layers f32 B=2 T=256: loss kernels {losses[0]:.6f} vs "
+        f"plain {losses[1]:.6f}; {len(errs)} parameter grads, worst {errs[worst]:.3e} "
+        f"relative ({worst}; tol {tol}); control (plain path, TF32 products): loss "
+        f"{losses[2]:.6f}, worst {ctl[ctl_worst]:.3e} ({ctl_worst})")
+    if (errs[worst] > tol or abs(losses[0] - losses[1]) > 1e-5 * abs(losses[1])
+            or ctl[ctl_worst] <= tol):
+        raise AssertionError(f"train grads: {worst} err {errs[worst]}, control "
+                             f"{ctl[ctl_worst]}, losses {losses}")
+    return dict(loss_kernels=losses[0], loss_plain=losses[1], worst_param=worst,
+                worst_rel_err=errs[worst], tol=tol, control_loss=losses[2],
+                control_worst_param=ctl_worst, control_worst_rel_err=ctl[ctl_worst])
+
+
+def check_head_bf16(device="cuda", b=4, t=2048, tol=1e-2):
+    """The llama_1b step's loss head in bf16, B=4, T=2048, chunk 512:
+    chunked_cross_entropy on bf16 hidden states and a bf16 lm_head weight
+    (logits from a bf16 product with f32 output, dlogits cast to bf16
+    before both backward products) against the same function on the
+    operands widened to f32 (f32 products throughout). Limits: the loss
+    within 1e-5 relative (the forward differs in summation order only), each
+    gradient within tol of its largest |grad| (dlogits and both gradients
+    rounded to bf16)."""
+    import torch
+    from ray_tpu_torch.ops.losses import chunked_cross_entropy
+
+    gen = torch.Generator(device=device).manual_seed(11)
+    hidden = torch.randn((b, t, 2048), generator=gen, device=device).bfloat16()
+    w_head = (0.02 * torch.randn((32000, 2048), generator=gen, device=device)).bfloat16()
+    labels = torch.randint(0, 32000, (b, t), generator=gen, device=device)
+    res = []
+    for dt in (torch.bfloat16, torch.float32):
+        h = hidden.detach().to(dt).requires_grad_()
+        w = w_head.detach().to(dt).requires_grad_()
+        loss, aux = chunked_cross_entropy(h, w, labels, chunk_size=512)
+        loss.backward()
+        res.append((loss.item(), aux["accuracy"].item(), h.grad, w.grad))
+        del h, w
+    (loss16, acc16, dh16, dw16), (loss32, acc32, dh32, dw32) = res
+    loss_err = abs(loss16 - loss32) / abs(loss32)
+    dh_err, dw_err = rel_err(dh16, dh32), rel_err(dw16, dw32)
+    log(f"[train] loss head bf16 vs f32-widened, B={b} T={t} chunk 512: loss {loss16:.6f} "
+        f"vs {loss32:.6f} (rel {loss_err:.2e}, tol 1e-5), accuracy {acc16} vs {acc32}, "
+        f"d hidden {dh_err:.3e}, d lm_head {dw_err:.3e} of max |grad| (tol {tol})")
+    if loss_err > 1e-5 or dh_err > tol or dw_err > tol:
+        raise AssertionError(f"bf16 head: loss rel {loss_err}, dh {dh_err}, dw {dw_err}")
+    return dict(loss_bf16=loss16, loss_f32=loss32, loss_rel_err=loss_err,
+                dhidden_rel_err=dh_err, dw_head_rel_err=dw_err, tol=tol)
+
+
+def run_train(device="cuda", steps=10, warmup=2):
+    """The training slice: train_llama("llama_1b", 4, 2048), its launch
+    counts, throughput and peak memory; then one step under remat; then one
+    step under torch.profiler."""
+    import torch
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.train import train_llama
+    from ray_tpu_torch.train.llm_step import build_llama_trainer
+
+    layers = LlamaConfig.llama_1b().n_layers
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash_counts()
+    res = train_llama("llama_1b", 4, 2048, steps=steps, warmup_steps=warmup, device=device)
+    launches = dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), flash_counts()))
+    peak = torch.cuda.max_memory_allocated()
+    n = steps + warmup
+    # MFU only on the card whose dense bf16 rate PEAK_FLOPS holds
+    peak_flops = PEAK_FLOPS["bfloat16"] if torch.cuda.get_device_name() == H100_SXM else None
+    mfu = res["tflops_per_s"] * 1e12 / peak_flops if peak_flops else "not measured"
+    checks = {
+        f"fwd, dq, dkv each launched {layers} x {n} steps":
+            all(c == layers * n for c in launches.values()),
+        "every loss finite": all(np.isfinite(res["losses"])),
+        "params finite": res["params_finite"],
+        "remat off (bench.py default at B=4)": res["remat"] is False,
+    }
+    for what, ok in checks.items():
+        log(f"[train] {'ok  ' if ok else 'FAIL'} {what}")
+    log(f"[train] llama_1b B=4 T=2048 bf16: {res['ms_per_step']:.1f} ms/step, "
+        f"{res['tokens_per_s']:.0f} tokens/s, {res['tflops_per_s']:.2f} TFLOP/s, MFU "
+        f"{mfu if isinstance(mfu, str) else f'{mfu:.4f}'} (peak bf16 "
+        f"{peak_flops}), peak memory {peak / 2**30:.2f} GiB, losses "
+        f"{[round(x, 4) for x in res['losses']]}")
+    if not all(checks.values()):
+        raise AssertionError(f"train checks failed: launches {launches}, res {res}")
+    out = dict(res, launches=launches, peak_memory_bytes=peak, mfu=mfu,
+               peak_bf16_flops=peak_flops)
+
+    # (c) remat: the block forward runs again in the backward
+    torch.cuda.empty_cache()
+    reset_flash_counts()
+    rem = train_llama("llama_1b", 4, 2048, steps=1, warmup_steps=0, remat=True,
+                      device=device)
+    rem_launches = flash_counts()
+    rem_err = abs(rem["losses"][0] - res["losses"][0]) / abs(res["losses"][0])
+    log(f"[train] remat step: fwd/dq/dkv launched {rem_launches} (want "
+        f"[{2 * layers}, {layers}, {layers}]), loss {rem['losses'][0]:.6f} vs "
+        f"{res['losses'][0]:.6f} without remat (rel {rem_err:.2e}, tol 1e-5), "
+        f"{rem['ms_per_step']:.1f} ms/step")
+    if rem_launches != [2 * layers, layers, layers] or rem_err > 1e-5:
+        raise AssertionError(f"remat step: launches {rem_launches}, loss err {rem_err}")
+    out["remat_step"] = dict(launches=rem_launches, loss=rem["losses"][0], rel_err=rem_err,
+                        ms_per_step=rem["ms_per_step"])
+
+    # (d) one step under the profiler, after one warm step
+    torch.cuda.empty_cache()
+    model, _, step, batches, dev = build_llama_trainer("llama_1b", 4, 2048, device=device)
+    feed = lambda i: torch.from_numpy(batches[i]).to(dev)
+    step(feed(0))
+    prof = profile_call(lambda: step(feed(1)))
+    log_profile("train", "one llama_1b step (B=4, T=2048)", prof)
+    out["profile"] = prof
+    del model, step
     return out
 
 
@@ -465,12 +832,14 @@ def main() -> int:
     rng = np.random.default_rng(0)
     cases = []
     flash_err = check_flash(rng, cases)
+    bwd_err, bwd_readings = check_flash_bwd(rng, cases)  # max-abs error of each kernel
     paged_err = check_paged(rng, cases)
     flash_t = {t: time_flash(rng, t) for t in (16, 128, 2048)}
     for t, r in flash_t.items():
         log(f"[kernels] flash_fwd T={t}: {r['ms']:.4f} ms (eager call {r['eager_ms']:.4f}), "
             f"plain {r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
+    train_t = time_flash_train(rng, cases)
 
     summary = run_slice()
     # B4 timed at the slice's decode batch: prompt lengths + 16 generated
@@ -480,13 +849,28 @@ def main() -> int:
         f"{paged_t['plain_ms']:.4f} ms, bound {paged_t['bound_ms']:.5f} ms "
         f"({paged_t['bound_by']})")
 
-    main_t = flash_t[128]  # the default prefill_chunk bucket
+    train = dict(grads=check_train_grads(), head_bf16=check_head_bf16(), **run_train())
+
+    # one row per kernel; launches counted on each main path that was driven
+    # (serve slice and train slice), timings at the training shape for the
+    # flash kernels (the serving shapes are in chip_smoke.json and PERF.md),
+    # max-abs error over the checked cases and the training shape
+    def flash_row(name, source, replaces, err):
+        t = train_t[name]
+        by_path = {"serve": summary["launches"][name], "train": train["launches"][name]}
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
+                    launches=sum(by_path.values()), launches_by_path=by_path,
+                    max_abs_err=max(err, t["max_abs_err"]), ms=t["ms"], plain_ms=t["plain_ms"],
+                    bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                    library_ms=t["library_ms"])
+
     kernels = [
-        dict(name="flash_fwd", route="cuda", source="ray_tpu_torch/ops/csrc/flash_fwd.cu",
-             replaces="ray_tpu/ops/flash_attention.py:37",
-             launches=summary["launches"]["flash_fwd"], max_abs_err=flash_err,
-             ms=main_t["ms"], plain_ms=main_t["plain_ms"], bound_ms=main_t["bound_ms"],
-             bound_by=main_t["bound_by"], library_ms=main_t["library_ms"]),
+        flash_row("flash_fwd", "ray_tpu_torch/ops/csrc/flash_fwd.cu",
+                  "ray_tpu/ops/flash_attention.py:37", flash_err),
+        flash_row("flash_bwd_dq", "ray_tpu_torch/ops/csrc/flash_bwd.cu",
+                  "ray_tpu/ops/flash_attention.py:138", bwd_err["flash_bwd_dq"]),
+        flash_row("flash_bwd_dkv", "ray_tpu_torch/ops/csrc/flash_bwd.cu",
+                  "ray_tpu/ops/flash_attention.py:175", bwd_err["flash_bwd_dkv"]),
         dict(name="paged_decode", route="cuda",
              source="ray_tpu_torch/ops/csrc/paged_decode.cu",
              replaces="ray_tpu/ops/paged_attention.py:38",
@@ -496,9 +880,10 @@ def main() -> int:
     ]
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
         device=smi, torch=torch.__version__, cuda=torch.version.cuda,
-        build_seconds=_build.build_seconds, cases=cases,
-        flash_timing=list(flash_t.values()), paged_timing=paged_t,
-        slice=summary, kernels=kernels), indent=1, default=str))
+        build_seconds=_build.build_seconds, cases=cases, bwd_readings=bwd_readings,
+        flash_timing=list(flash_t.values()), train_kernel_timing=train_t,
+        paged_timing=paged_t, slice=summary, train=train, kernels=kernels),
+        indent=1, default=str))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

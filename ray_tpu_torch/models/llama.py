@@ -14,6 +14,12 @@ Counterpart of `ray_tpu/models/llama.py` (flax). Design points kept:
   on CUDA and the plain versions on the CPU.
 - The dense and paged caches are updated IN PLACE; `forward` still returns
   the cache with its lengths advanced, as the JAX decoder does.
+- `remat=True` recomputes each block in the backward
+  (`torch.utils.checkpoint`) when there is no cache and a gradient is
+  being taken, where the JAX decoder wraps Block in `nn.remat`. The JAX
+  policy keeps the projections' outputs; the port keeps only each block's
+  input and recomputes the whole block, so the flash forward kernel runs
+  twice per layer and step under remat.
 
 `n_experts > 0` (MoE) and `attn_impl="ring"` belong to later slices.
 """
@@ -24,6 +30,7 @@ from typing import Any, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch.ops.attention import apply_rope, decode_attention, mha_reference
 from ray_tpu_torch.ops.flash_attention import flash_attention
@@ -331,9 +338,14 @@ class Llama(nn.Module):
 
         x = self.embed(tokens)
         paged = isinstance(cache, PagedKVCache)
+        remat = cfg.remat and cache is None and torch.is_grad_enabled()
         new_k, new_v = [], []
         for block in self.blocks():
-            x, new_kv = block(x, positions, cache, paged_chunk_local)
+            if remat:
+                x, new_kv = checkpoint(block, x, positions, cache, paged_chunk_local,
+                                       use_reentrant=False)
+            else:
+                x, new_kv = block(x, positions, cache, paged_chunk_local)
             if paged:
                 cache = new_kv
             elif new_kv is not None:

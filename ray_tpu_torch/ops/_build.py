@@ -102,6 +102,12 @@ def _declare(lib):
                                   ll, ll, ll, ll, ll, ll, ll, ll, ll, ll, ll, ll,
                                   f, i, vp]
     lib.rtt_flash_fwd.restype = i
+    lib.rtt_flash_bwd_dq.argtypes = [i, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i,
+                                     *[ll] * 15, f, i, vp]
+    lib.rtt_flash_bwd_dq.restype = i
+    lib.rtt_flash_bwd_dkv.argtypes = [i, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i,
+                                      *[ll] * 18, f, i, vp]
+    lib.rtt_flash_bwd_dkv.restype = i
     lib.rtt_paged_decode.argtypes = [i, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i,
                                      ll, ll, ll, ll, ll, ll, ll, ll, ll, ll, f, vp]
     lib.rtt_paged_decode.restype = i

@@ -1,0 +1,465 @@
+// Flash-attention backward, CUDA C++ for Hopper (sm_90a): dQ and dK/dV.
+//
+// Replaces, in ray_tpu/ops/flash_attention.py (both launched by _flash_bwd):
+// - _bwd_dq_kernel (grid (B, H, nq, nk)): dQ summed over key tiles;
+// - _bwd_dkv_kernel (grid (B, Kh, nk, G, nq)): dK and dV summed over query
+//   tiles and over the G query heads of each kv head.
+// Same arithmetic, in the same order and with the same rounding points:
+// S = Q K^T * scale and dP = dO V^T with f32 sums, P = exp(S - lse) in f32
+// (lse from the forward kernel), dS = P (dP - delta) scale cast to the input
+// dtype, P cast to the input dtype before dV; dQ = dS K, dK = dS^T Q,
+// dV = P^T dO with f32 sums, each cast to the input dtype once at the end.
+// delta = rowsum(dO * O) in f32 is computed by the caller once per backward.
+//
+// Design. The TPU kernels carry their f32 sums in scratch along sequential
+// grid axes (nk for dQ; G and nq for dK/dV). Hopper runs blocks in parallel
+// with nothing carried between them, so each sum is a loop inside one CTA
+// and stays in registers: no atomics, and the sums are deterministic.
+// - dQ: one CTA per (b, h, 64-row query tile); Q and dO tiles stay in shared
+//   memory while the CTA walks 64-key tiles up to the causal diagonal.
+// - dK/dV: one CTA per (b, kv head, 64-key tile); K and V tiles stay in
+//   shared memory while the CTA walks the G query heads and, for each, the
+//   query tiles from the diagonal down. Key tile 0 has the most work, so it
+//   is launched first.
+// Both use the forward kernel's thread layout: 256 threads as a 16 x 16
+// grid, each owning a 4 x 4 piece of the 64 x 64 score tile and a
+// 4 x D/16 piece of its f32 accumulators; the streamed tiles are stored
+// transposed ([D][65]) so transposed stores and column reads are free of
+// bank conflicts. Rows past T and keys past S are masked in the kernel
+// (P = 0; lse and delta of a row past T are never read), and inputs are
+// read through their strides.
+//
+// Bound on the H100: compute. Per (query, key) pair the dQ kernel does
+// three D-long products and the dK/dV kernel four, against two bytes per
+// element read once. The products are scalar f32 FMAs on the CUDA cores,
+// a small fraction of the tensor-core rate; mma.sync/wgmma tiles, TMA loads
+// into a multi-stage ring and a wider dQ CTA are for later.
+
+#include "common.cuh"
+
+namespace {
+
+using rtt::from_float;
+using rtt::to_float;
+
+constexpr int BQ = 64;        // query rows per tile
+constexpr int BK = 64;        // keys per tile
+constexpr int NT = 256;       // threads: 16 x 16 grid (ty, tx)
+constexpr int RPT = 4;        // tile rows per thread: ty + 16 * i
+constexpr int CPT = 4;        // tile columns per thread: tx + 16 * j
+constexpr int LDT = 65;       // transposed tiles [D][LDT] (64 columns + 1)
+constexpr int LDP = BK + 16;  // score tiles [64][LDP]: a warp's two row groups hit other banks
+static_assert(BQ == 64 && BK == 64 && RPT * 16 == BQ && CPT * 16 == BK, "tile layout");
+
+struct Strides {
+  long long b, t, h;  // batch, sequence and head strides (the last axis is contiguous)
+};
+
+// x as the input dtype holds it: the cast before a product in the TPU kernels
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_float(from_float<T>(x));
+}
+
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  return sizeof(float) * (2 * BQ * (D + 1) + 2 * D * LDT + BQ * LDP);
+}
+
+template <int D>
+constexpr size_t dkv_smem_bytes() {
+  return sizeof(float) * (2 * BK * (D + 1) + 2 * D * LDT + 2 * BK * LDP);
+}
+// D = 128: dQ 153,088 bytes, dK/dV 173,568 bytes (of the 232,448 a block may use)
+static_assert(dkv_smem_bytes<128>() <= 232448, "dK/dV tiles exceed shared memory");
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    T* __restrict__ dq, int seq_q, int seq_k, int n_heads, int group,
+                    Strides qs, Strides ks, Strides vs, Strides os, Strides gs,
+                    float scale, int causal) {
+  constexpr int LDQ = D + 1;
+  constexpr int DPT = D / 16;  // dQ columns per thread: tx + 16 * c
+  extern __shared__ float smem[];
+  float* Qs = smem;             // [BQ][LDQ]
+  float* dOs = Qs + BQ * LDQ;   // [BQ][LDQ]
+  float* Kt = dOs + BQ * LDQ;   // [D][LDT]
+  float* Vt = Kt + D * LDT;     // [D][LDT]
+  float* dSs = Vt + D * LDT;    // [BQ][LDP]
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const int iq = gridDim.x - 1 - blockIdx.x;  // the longest causal rows start first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / group;
+  const int q0 = iq * BQ;
+
+  const T* qb = q + b * qs.b + h * qs.h;
+  const T* ob = dout + b * os.b + h * os.h;
+  const T* kb = k + b * ks.b + kvh * ks.h;
+  const T* vb = v + b * vs.b + kvh * vs.h;
+
+  for (int e = tid; e < BQ * D; e += NT) {
+    const int r = e / D, d = e % D;
+    const bool ok = q0 + r < seq_q;
+    Qs[r * LDQ + d] = ok ? to_float(qb[(long long)(q0 + r) * qs.t + d]) : 0.f;
+    dOs[r * LDQ + d] = ok ? to_float(ob[(long long)(q0 + r) * os.t + d]) : 0.f;
+  }
+  float row_lse[RPT], row_delta[RPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int row = q0 + ty + 16 * i;
+    const long long at = ((long long)b * n_heads + h) * seq_q + row;
+    row_lse[i] = row < seq_q ? lse[at] : 0.f;
+    row_delta[i] = row < seq_q ? delta[at] : 0.f;
+  }
+
+  float acc[RPT][DPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int c = 0; c < DPT; ++c) acc[i][c] = 0.f;
+
+  // causal: keys past the tile's last query row are masked for every row
+  const int kv_end = causal ? min(seq_k, q0 + BQ) : seq_k;
+  for (int k0 = 0; k0 < kv_end; k0 += BK) {
+    __syncthreads();  // the previous tile's readers are done
+    for (int e = tid; e < BK * D; e += NT) {
+      const int j = e / D, d = e % D;
+      const bool ok = k0 + j < seq_k;
+      Kt[d * LDT + j] = ok ? to_float(kb[(long long)(k0 + j) * ks.t + d]) : 0.f;
+      Vt[d * LDT + j] = ok ? to_float(vb[(long long)(k0 + j) * vs.t + d]) : 0.f;
+    }
+    __syncthreads();
+
+    float s[RPT][CPT], dp[RPT][CPT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float qv[RPT], ov[RPT], kv[CPT], vv[CPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        qv[i] = Qs[(ty + 16 * i) * LDQ + d];
+        ov[i] = dOs[(ty + 16 * i) * LDQ + d];
+      }
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        kv[j] = Kt[d * LDT + tx + 16 * j];
+        vv[j] = Vt[d * LDT + tx + 16 * j];
+      }
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) {
+          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
+        }
+    }
+
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int row = q0 + ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        const int col = k0 + tx + 16 * j;
+        const bool keep = row < seq_q && col < seq_k && (!causal || col <= row);
+        const float p = keep ? expf(s[i][j] * scale - row_lse[i]) : 0.f;
+        dSs[(ty + 16 * i) * LDP + tx + 16 * j] =
+            round_to<T>(p * (dp[i][j] - row_delta[i]) * scale);
+      }
+    }
+    __syncthreads();
+
+    // dQ += dS K: K's rows are Kt's columns
+#pragma unroll 4
+    for (int j = 0; j < BK; ++j) {
+      float sv[RPT], kc[DPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) sv[i] = dSs[(ty + 16 * i) * LDP + j];
+#pragma unroll
+      for (int c = 0; c < DPT; ++c) kc[c] = Kt[(tx + 16 * c) * LDT + j];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int c = 0; c < DPT; ++c) acc[i][c] = fmaf(sv[i], kc[c], acc[i][c]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row >= seq_q) continue;
+    T* o = dq + b * gs.b + (long long)row * gs.t + h * gs.h;
+#pragma unroll
+    for (int c = 0; c < DPT; ++c) o[tx + 16 * c] = from_float<T>(acc[i][c]);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     T* __restrict__ dk, T* __restrict__ dv, int seq_q, int seq_k,
+                     int n_heads, int group, Strides qs, Strides ks, Strides vs,
+                     Strides os, Strides dks, Strides dvs, float scale, int causal) {
+  constexpr int LDK = D + 1;
+  constexpr int DPT = D / 16;  // dK/dV columns per thread: tx + 16 * c
+  extern __shared__ float smem[];
+  float* Ks = smem;             // [BK][LDK]
+  float* Vs = Ks + BK * LDK;    // [BK][LDK]
+  float* Qt = Vs + BK * LDK;    // [D][LDT]
+  float* dOt = Qt + D * LDT;    // [D][LDT]
+  float* Ps = dOt + D * LDT;    // [BK][LDP], P^T as the input dtype holds it
+  float* dSs = Ps + BK * LDP;   // [BK][LDP], dS^T
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const int k0 = blockIdx.x * BK;  // key tile 0 sees every query tile: it starts first
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+
+  const T* kb = k + b * ks.b + kvh * ks.h;
+  const T* vb = v + b * vs.b + kvh * vs.h;
+  for (int e = tid; e < BK * D; e += NT) {
+    const int r = e / D, d = e % D;
+    const bool ok = k0 + r < seq_k;
+    Ks[r * LDK + d] = ok ? to_float(kb[(long long)(k0 + r) * ks.t + d]) : 0.f;
+    Vs[r * LDK + d] = ok ? to_float(vb[(long long)(k0 + r) * vs.t + d]) : 0.f;
+  }
+
+  float acc_k[RPT][DPT], acc_v[RPT][DPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int c = 0; c < DPT; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
+
+  // causal: query rows before k0 see none of these keys (BQ == BK, so the
+  // first tile that does is the diagonal one)
+  const int q_begin = causal ? k0 : 0;
+  for (int g = 0; g < group; ++g) {
+    const int h = kvh * group + g;
+    const T* qb = q + b * qs.b + h * qs.h;
+    const T* ob = dout + b * os.b + h * os.h;
+    const long long stat = ((long long)b * n_heads + h) * seq_q;
+    for (int q0 = q_begin; q0 < seq_q; q0 += BQ) {
+      __syncthreads();  // the previous tile's readers are done (and K, V are stored)
+      for (int e = tid; e < BQ * D; e += NT) {
+        const int r = e / D, d = e % D;
+        const bool ok = q0 + r < seq_q;
+        Qt[d * LDT + r] = ok ? to_float(qb[(long long)(q0 + r) * qs.t + d]) : 0.f;
+        dOt[d * LDT + r] = ok ? to_float(ob[(long long)(q0 + r) * os.t + d]) : 0.f;
+      }
+      float col_lse[CPT], col_delta[CPT];
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        const int col = q0 + tx + 16 * j;
+        col_lse[j] = col < seq_q ? lse[stat + col] : 0.f;
+        col_delta[j] = col < seq_q ? delta[stat + col] : 0.f;
+      }
+      __syncthreads();
+
+      // transposed scores: rows are keys, columns are query rows
+      float s[RPT][CPT], dp[RPT][CPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < D; ++d) {
+        float kr[RPT], vr[RPT], qc[CPT], oc[CPT];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+          kr[i] = Ks[(ty + 16 * i) * LDK + d];
+          vr[i] = Vs[(ty + 16 * i) * LDK + d];
+        }
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) {
+          qc[j] = Qt[d * LDT + tx + 16 * j];
+          oc[j] = dOt[d * LDT + tx + 16 * j];
+        }
+#pragma unroll
+        for (int i = 0; i < RPT; ++i)
+#pragma unroll
+          for (int j = 0; j < CPT; ++j) {
+            s[i][j] = fmaf(kr[i], qc[j], s[i][j]);
+            dp[i][j] = fmaf(vr[i], oc[j], dp[i][j]);
+          }
+      }
+
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const int key = k0 + ty + 16 * i;
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) {
+          const int row = q0 + tx + 16 * j;
+          const bool keep = row < seq_q && key < seq_k && (!causal || key <= row);
+          const float p = keep ? expf(s[i][j] * scale - col_lse[j]) : 0.f;
+          Ps[(ty + 16 * i) * LDP + tx + 16 * j] = round_to<T>(p);
+          dSs[(ty + 16 * i) * LDP + tx + 16 * j] =
+              round_to<T>(p * (dp[i][j] - col_delta[j]) * scale);
+        }
+      }
+      __syncthreads();
+
+      // dV += P^T dO and dK += dS^T Q: dO's and Q's rows are the columns of dOt, Qt
+#pragma unroll 4
+      for (int j = 0; j < BQ; ++j) {
+        float pv[RPT], sv[RPT], oc[DPT], qc[DPT];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+          pv[i] = Ps[(ty + 16 * i) * LDP + j];
+          sv[i] = dSs[(ty + 16 * i) * LDP + j];
+        }
+#pragma unroll
+        for (int c = 0; c < DPT; ++c) {
+          oc[c] = dOt[(tx + 16 * c) * LDT + j];
+          qc[c] = Qt[(tx + 16 * c) * LDT + j];
+        }
+#pragma unroll
+        for (int i = 0; i < RPT; ++i)
+#pragma unroll
+          for (int c = 0; c < DPT; ++c) {
+            acc_v[i][c] = fmaf(pv[i], oc[c], acc_v[i][c]);
+            acc_k[i][c] = fmaf(sv[i], qc[c], acc_k[i][c]);
+          }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int key = k0 + ty + 16 * i;
+    if (key >= seq_k) continue;
+    T* ko = dk + b * dks.b + (long long)key * dks.t + kvh * dks.h;
+    T* vo = dv + b * dvs.b + (long long)key * dvs.t + kvh * dvs.h;
+#pragma unroll
+    for (int c = 0; c < DPT; ++c) {
+      ko[tx + 16 * c] = from_float<T>(acc_k[i][c]);
+      vo[tx + 16 * c] = from_float<T>(acc_v[i][c]);
+    }
+  }
+}
+
+struct Args {
+  const void *q, *k, *v, *dout;
+  const float *lse, *delta;
+  void *g0, *g1;  // dq; or dk, dv
+  int B, Tq, S, H, Kh;
+  Strides qs, ks, vs, os, gs0, gs1;
+  float scale;
+  int causal;
+  cudaStream_t stream;
+};
+
+template <typename T, int D>
+cudaError_t launch_dq(const Args& a) {
+  auto kernel = flash_bwd_dq_kernel<T, D>;
+  const size_t smem = dq_smem_bytes<D>();
+  static size_t allowed = 48 * 1024;  // per (T, D) instantiation
+  cudaError_t err = rtt::allow_smem(kernel, smem, allowed);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Tq + BQ - 1) / BQ, a.H, a.B);
+  kernel<<<grid, NT, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(a.g0), a.Tq, a.S,
+      a.H, a.H / a.Kh, a.qs, a.ks, a.vs, a.os, a.gs0, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dkv(const Args& a) {
+  auto kernel = flash_bwd_dkv_kernel<T, D>;
+  const size_t smem = dkv_smem_bytes<D>();
+  static size_t allowed = 48 * 1024;  // per (T, D) instantiation
+  cudaError_t err = rtt::allow_smem(kernel, smem, allowed);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.S + BK - 1) / BK, a.Kh, a.B);
+  kernel<<<grid, NT, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(a.g0),
+      static_cast<T*>(a.g1), a.Tq, a.S, a.H, a.H / a.Kh, a.qs, a.ks, a.vs, a.os, a.gs0,
+      a.gs1, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+template <bool DQ, typename T>
+cudaError_t dispatch_d(int D, const Args& a) {
+#define RTT_BWD_CASE(DD) \
+  case DD:               \
+    return DQ ? launch_dq<T, DD>(a) : launch_dkv<T, DD>(a);
+  switch (D) {
+    RTT_BWD_CASE(16)
+    RTT_BWD_CASE(32)
+    RTT_BWD_CASE(64)
+    RTT_BWD_CASE(128)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef RTT_BWD_CASE
+}
+
+template <bool DQ>
+int dispatch(int dtype, int D, const Args& a) {
+  if (a.B <= 0 || a.Tq <= 0 || a.S <= 0 || a.Kh <= 0 || a.H % a.Kh != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  if (dtype == rtt::kFloat32)
+    err = dispatch_d<DQ, float>(D, a);
+  else if (dtype == rtt::kBFloat16)
+    err = dispatch_d<DQ, __nv_bfloat16>(D, a);
+  else
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
+
+}  // namespace
+
+// Plain C entry points (loaded with ctypes). Each launches one kernel on
+// `stream` and returns cudaGetLastError(); 0 means the launch was accepted.
+// q, dout, dq: [B, Tq, H, D]; k, v, dk, dv: [B, S, Kh, D], each with its own
+// batch/sequence/head strides and a contiguous last axis; lse, delta:
+// contiguous [B, H, Tq] f32.
+extern "C" int rtt_flash_bwd_dq(int dtype, const void* q, const void* k, const void* v,
+                                const void* dout, const void* lse, const void* delta,
+                                void* dq, int B, int Tq, int S, int H, int Kh, int D,
+                                long long qsb, long long qst, long long qsh,
+                                long long ksb, long long kst, long long ksh,
+                                long long vsb, long long vst, long long vsh,
+                                long long osb, long long ost, long long osh,
+                                long long gsb, long long gst, long long gsh,
+                                float scale, int causal, void* stream) {
+  const Args a{q, k, v, dout, static_cast<const float*>(lse),
+               static_cast<const float*>(delta), dq, nullptr, B, Tq, S, H, Kh,
+               {qsb, qst, qsh}, {ksb, kst, ksh}, {vsb, vst, vsh}, {osb, ost, osh},
+               {gsb, gst, gsh}, {0, 0, 0}, scale, causal,
+               static_cast<cudaStream_t>(stream)};
+  return dispatch<true>(dtype, D, a);
+}
+
+extern "C" int rtt_flash_bwd_dkv(int dtype, const void* q, const void* k, const void* v,
+                                 const void* dout, const void* lse, const void* delta,
+                                 void* dk, void* dv, int B, int Tq, int S, int H, int Kh,
+                                 int D, long long qsb, long long qst, long long qsh,
+                                 long long ksb, long long kst, long long ksh,
+                                 long long vsb, long long vst, long long vsh,
+                                 long long osb, long long ost, long long osh,
+                                 long long dksb, long long dkst, long long dksh,
+                                 long long dvsb, long long dvst, long long dvsh,
+                                 float scale, int causal, void* stream) {
+  const Args a{q, k, v, dout, static_cast<const float*>(lse),
+               static_cast<const float*>(delta), dk, dv, B, Tq, S, H, Kh,
+               {qsb, qst, qsh}, {ksb, kst, ksh}, {vsb, vst, vsh}, {osb, ost, osh},
+               {dksb, dkst, dksh}, {dvsb, dvst, dvsh}, scale, causal,
+               static_cast<cudaStream_t>(stream)};
+  return dispatch<false>(dtype, D, a);
+}

@@ -2,10 +2,14 @@
 attention (interpret mode) on the CPU. A CPU tensor takes the port's plain
 version, which repeats the CUDA kernel's arithmetic (f32 scores, softmax
 and P.V); the kernel itself is held to it on the card by chip_smoke.py.
-Tolerances: f32 2e-5, bf16 2e-2 max-abs."""
+Forward tolerances: f32 2e-5, bf16 2e-2 max-abs. The backward (the plain
+version of the dQ and dK/dV kernels, and autograd through flash_attention)
+is held to `_flash_bwd` and to jax.grad with the tolerances at BWD_TOL and
+BWD_MEAN_TOL."""
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -87,3 +91,107 @@ def test_wrapper_rejects_mixed_and_foreign_devices():
         tflash.flash_attention(q, k.to("meta"), v)
     with pytest.raises(ValueError):
         tflash.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+
+
+# ---------------------------------------------------------------- backward
+# The plain backward repeats the two backward kernels' arithmetic (chip_smoke.py
+# holds the kernels to it on the card). Tolerances per gradient, max-abs over
+# the largest |grad| (BWD_TOL) and mean-abs over the mean |grad|
+# (BWD_MEAN_TOL): f32 differs in summation order only, bf16 by a few flips of
+# the bf16 outputs. A backward that skips the dS and P casts to bf16 stays
+# under the max limit but misses the mean limit by more than 10x; the bf16
+# cases check that it does.
+BWD_TOL = {"float32": 1e-5, "bfloat16": 5e-3}
+BWD_MEAN_TOL = {"float32": 1e-6, "bfloat16": 1e-4}
+
+
+def _rel_err(got, want):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    return np.abs(got - want).max() / np.abs(want).max()
+
+
+def _mean_rel_err(got, want):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    return np.abs(got - want).mean() / np.abs(want).mean()
+
+
+@pytest.mark.parametrize("kh", [4, 2], ids=["gqa1", "gqa2"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_reference_matches_pallas_bwd(dtype, causal, kh):
+    """Plain backward vs `_flash_bwd` (both Pallas kernels, interpret mode)
+    on the same q, k, v, out, lse and dO: 32 rows in two 16-row blocks."""
+    q, k, v = _inputs(6, 32, 4, kh)
+    do = np.random.default_rng(7).standard_normal(q.shape, dtype=np.float32)
+    jdt = jnp.dtype(dtype)
+    sw = lambda x: jnp.swapaxes(jnp.asarray(x, jdt), 1, 2)
+    scale = 0.25
+    out, lse = jflash._flash_fwd(sw(q), sw(k), sw(v), causal=causal, scale=scale,
+                                 block_q=16, block_kv=16, interpret=True)
+    want = jflash._flash_bwd(sw(q), sw(k), sw(v), out, lse, sw(do), causal=causal,
+                             scale=scale, block_q=16, block_kv=16, interpret=True)
+    tdt = getattr(torch, dtype)
+    tt = lambda x: torch.from_numpy(np.array(x, np.float32)).to(tdt)
+    back = lambda x: np.swapaxes(np.asarray(x.astype(jnp.float32)), 1, 2)
+    args = (tt(q), tt(k), tt(v), tt(back(out)), torch.from_numpy(np.array(lse)), tt(do))
+    got = tflash.flash_attention_bwd_reference(*args, causal=causal, scale=scale)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == tdt
+        assert _rel_err(g.float().numpy(), back(w)) <= BWD_TOL[dtype], name
+        assert _mean_rel_err(g.float().numpy(), back(w)) <= BWD_MEAN_TOL[dtype], name
+    if dtype == "bfloat16":  # the control: no dS/P casts, gradients rounded once
+        unrounded = tflash.flash_attention_bwd_reference(
+            *(x.float() for x in args), causal=causal, scale=scale)
+        misses = [_mean_rel_err(g.to(tdt).float().numpy(), back(w))
+                  for g, w in zip(unrounded, want)]
+        assert max(misses) > BWD_MEAN_TOL[dtype], misses
+
+
+@pytest.mark.parametrize("kh", [4, 2], ids=["gqa1", "gqa2"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_autograd_matches_jax_grad(causal, kh):
+    """d/d(q, k, v) of sum(out**2) (the loss of tests/test_ops.py:39) through
+    the port's flash_attention (the autograd Function with the plain forward
+    and backward on the CPU) vs jax.grad of the Pallas flash attention."""
+    q, k, v = _inputs(8, 32, 4, kh)
+    loss = lambda *a: jnp.sum(jflash.flash_attention(
+        *a, causal=causal, block_q=16, block_kv=16, interpret=True) ** 2)
+    want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    (tflash.flash_attention(tq, tk, tv, causal=causal) ** 2).sum().backward()
+    for name, g, w in zip("qkv", (tq.grad, tk.grad, tv.grad), want):
+        assert _rel_err(g.numpy(), w) <= BWD_TOL["float32"], name
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_ragged_grads_match_mha_reference(causal):
+    """T=100 does not tile: the port's backward masks the ragged edge the way
+    its kernels do; jax.grad of mha_reference is the oracle."""
+    from ray_tpu.ops.attention import mha_reference
+    q, k, v = _inputs(9, 100, 4, 2)
+    loss = lambda *a: jnp.sum(mha_reference(*a, causal=causal) ** 2)
+    want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    (tflash.flash_attention(tq, tk, tv, causal=causal) ** 2).sum().backward()
+    for name, g, w in zip("qkv", (tq.grad, tk.grad, tv.grad), want):
+        assert _rel_err(g.numpy(), w) <= BWD_TOL["float32"], name
+
+
+def test_cpu_grad_call_launches_no_kernel():
+    q, k, v = (torch.from_numpy(x).requires_grad_() for x in _inputs(10, 16, 4, 2))
+    counts = lambda: (tflash.LAUNCHES, tflash.BWD_DQ_LAUNCHES, tflash.BWD_DKV_LAUNCHES)
+    before = counts()
+    out = tflash.flash_attention(q, k, v)
+    assert out.grad_fn is not None
+    out.sum().backward()
+    assert counts() == before
+    assert q.grad.shape == q.shape and k.grad.shape == k.shape
+
+
+def test_bwd_rejects_mixed_devices():
+    q, k, v = (torch.from_numpy(x) for x in _inputs(11, 16, 4, 2))
+    out, lse = tflash.flash_attention_fwd(q, k, v)
+    with pytest.raises(ValueError):
+        tflash.flash_attention_bwd(q, k, v, out, lse.to("meta"), out)
