@@ -6,14 +6,22 @@
 Phases, in order; a failing phase raises and the script exits non-zero:
 
 1. device  - the card's name and power limit (nvidia-smi) and torch's view.
-2. build   - nvcc builds every kernel under ray_tpu_torch/ops/csrc/.
+2. build   - nvcc builds every kernel under ray_tpu_torch/ops/csrc/; then
+             cuobjdump -sass counts the tensor-core instructions (HMMA,
+             HGMMA) of every kernel: the bf16 flash forward and dK/dV
+             kernels must have some, the f32 ones and dQ none, and no bf16
+             instantiation of the scalar forward or dK/dV body may exist.
 3. kernels - each hand kernel against its plain PyTorch version on the
              card, on numpy-seeded inputs, with stated tolerances (the
              flash forward, its dQ and dK/dV backward kernels, paged
-             decode), the backward ones also against a control without
-             the bf16 roundings that their limit must reject; a
-             grad-tracking call launches forward, dQ and dK/dV once each.
-             The flash kernels are checked again at the training shape.
+             decode); the bf16 forward on the same bf16 inputs, with a
+             mean limit that a control (scores rounded to bf16 before the
+             softmax) must miss at long T; the backward ones also against
+             a control without the bf16 roundings that their limit must
+             reject; a grad-tracking call launches forward, dQ and dK/dV
+             once each. The flash kernels are checked again at the
+             training shape, and dK/dV twice on the same inputs must be
+             bit-equal.
              Then each is timed on the device (CUDA events
              around a CUDA-graph replay of back-to-back calls, host cost
              excluded; the eager per-call time is logged beside it) with
@@ -37,7 +45,9 @@ Phases, in order; a failing phase raises and the script exits non-zero:
              10 timed steps, counters reset before and read after (forward,
              dQ and dK/dV each 16 per step), finite losses and params; (c)
              one step with remat (forward 32 per step) whose loss matches
-             (b)'s first; (d) one step under torch.profiler.
+             (b)'s first; (d) one step under torch.profiler, in which the
+             flash forward's and dK/dV's device time must be the
+             tensor-core kernels', 16 calls each.
 
 It prints a `kernels` JSON line, the nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}. Details go to chip_smoke_out/chip_smoke.json.
@@ -46,6 +56,8 @@ It needs one CUDA card and exits non-zero without one.
 
 import asyncio
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -57,7 +69,14 @@ H100_SXM = "NVIDIA H100 80GB HBM3"      # the card the rates below are for
 HBM_BYTES_PER_S = 3.35e12               # H100 SXM device memory
 PEAK_FLOPS = {"bfloat16": 989e12,       # dense tensor-core rate (bounds and MFU)
               "float32": 67e12}         # f32 outside the tensor cores
-TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # max-abs vs the plain version in f32
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # max-abs vs the plain version
+# bf16 forward vs its plain version on the same bf16 inputs: mean |err| over
+# mean |out|. The kernel rounds P to bf16 before P V; a control that rounds
+# the scores to bf16 before the softmax must miss this limit where rows are
+# long (T >= FWD_CONTROL_MIN_T): at short T the scores stay near 1 in size
+# and their rounding is no larger than P's.
+FWD_MEAN_TOL = 2e-3
+FWD_CONTROL_MIN_T = 1024
 # backward kernels vs their plain version, per gradient: max |err| over max
 # |grad|, and mean |err| over mean |grad|. The mean limit is the one that
 # a backward without the dS and P roundings (the control) must exceed.
@@ -119,6 +138,61 @@ def bound(bytes_moved, flops, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# ------------------------------------------------------------------ build
+def kernel_label(symbol):
+    """(kernel, dtype, head dim) from a mangled kernel symbol, e.g.
+    ...19flash_fwd_tc_kernelILi64EE... -> ("flash_fwd_tc_kernel", "bfloat16", 64).
+    The tensor-core kernels take bf16 only; the scalar ones name their
+    element type first (f = float)."""
+    m = re.search(r"(?<=\d)((?:flash|paged)_[a-z_]*?_kernel)I(.*)", symbol)
+    if m is None:
+        return symbol, None, None
+    name, args = m.groups()
+    d = re.search(r"Li(\d+)E", args)
+    dtype = ("float32" if args.startswith("f") else
+             "bfloat16" if args.startswith("13__nv_bfloat16") or "_tc_" in name else None)
+    return name, dtype, int(d.group(1)) if d else None
+
+
+def tensor_core_counts(lib_path):
+    """Tensor-core instructions (HMMA or HGMMA) per kernel of the built
+    library, from cuobjdump -sass: {(kernel, dtype, head dim): count}."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib_path)], check=True, capture_output=True,
+                          text=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = kernel_label(line.split("Function :", 1)[1].strip())
+            counts[fn] = 0
+        elif fn is not None and re.search(r"\bH(?:G)?MMA\b", line):
+            counts[fn] += 1
+    return counts
+
+
+def check_tensor_cores(lib_path):
+    """The bf16 flash forward and dK/dV kernels run on the tensor cores;
+    the f32 routes and dQ do not; no bf16 instantiation of the scalar
+    forward or dK/dV body exists. Returns the counts; raises on a miss."""
+    counts = tensor_core_counts(lib_path)
+    flash = {k: n for k, n in counts.items() if k[0].startswith("flash_")}
+    tc = {k: n for k, n in flash.items() if k[0] in ("flash_fwd_tc_kernel",
+                                                     "flash_bwd_dkv_tc_kernel")}
+    for (name, dtype, d), n in sorted(flash.items(), key=lambda kv: str(kv[0])):
+        log(f"[build]   {n:5d} HMMA/HGMMA in {name}<{dtype}, D={d}>")
+    problems = [k for k, n in tc.items() if n == 0 or k[1] != "bfloat16"]
+    problems += [k for k, n in flash.items() if k not in tc and n > 0]
+    problems += [k for k in flash if k[0] in ("flash_fwd_kernel", "flash_bwd_dkv_kernel")
+                 and k[1] != "float32"]
+    for want in ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel"):
+        have = sorted(k[2] for k in tc if k[0] == want)
+        if have != [16, 32, 64, 128]:
+            problems.append((want, "head dims", tuple(have)))
+    if problems:
+        raise AssertionError(f"tensor-core evidence failed for {problems}")
+    return {f"{k[0]}<{k[1]},{k[2]}>": n for k, n in counts.items()}
+
+
 # ---------------------------------------------------------------- kernels
 def flash_inputs(rng, b, t, h, kh, d, dtype, device="cuda"):
     import torch
@@ -127,38 +201,68 @@ def flash_inputs(rng, b, t, h, kh, d, dtype, device="cuda"):
     return mk(b, t, h, d), mk(b, t, kh, d), mk(b, t, kh, d)
 
 
+def fwd_control(q, k, v, causal):
+    """The plain forward with the scores rounded to bf16 before the softmax
+    (f32 softmax and P V after it, out rounded to q's dtype once)."""
+    import torch
+    from ray_tpu_torch.ops import flash_attention as fa
+    b, t, h, d = q.shape
+    s = fa._grouped_scores(q, k, causal, 1.0 / d ** 0.5).to(torch.bfloat16).float()
+    out = torch.einsum("bkgts,bskd->btkgd", torch.softmax(s, dim=-1), v.float())
+    return out.reshape(b, t, h, d).to(q.dtype)
+
+
+def check_fwd(tag, q, k, v, causal, out, lse):
+    """The forward kernel's out and lse against the plain version on the
+    same inputs: out within TOL max-abs (both round out once), lse within
+    1e-3; in bf16 also the mean error over the mean |out| within
+    FWD_MEAN_TOL, with the control's reading beside it, which must miss that
+    limit where T >= FWD_CONTROL_MIN_T. Returns the readings; raises on a
+    miss."""
+    from ray_tpu_torch.ops import flash_attention as fa
+    name = str(q.dtype).split(".")[1]
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, causal, return_lse=True)
+    r = dict(max_abs_err=(out.float() - ref.float()).abs().max().item(),
+             lse_max_abs_err=(lse - ref_lse).abs().max().item())
+    ok = r["max_abs_err"] <= TOL[name] and r["lse_max_abs_err"] <= TOL["float32"] * 10
+    if name == "bfloat16":
+        r["mean_rel_err"] = mean_rel_err(out, ref)
+        ctl = fwd_control(q, k, v, causal)
+        r["control_max_abs_err"] = (ctl.float() - ref.float()).abs().max().item()
+        r["control_mean_rel_err"] = mean_rel_err(ctl, ref)
+        ok = ok and r["mean_rel_err"] <= FWD_MEAN_TOL
+        if q.shape[1] >= FWD_CONTROL_MIN_T:
+            ok = ok and r["control_mean_rel_err"] > FWD_MEAN_TOL
+        del ctl
+    if not ok:
+        raise AssertionError(f"flash_fwd {tag}: readings {r} (limits max-abs {TOL[name]}, "
+                             f"lse {TOL['float32'] * 10}, bf16 mean {FWD_MEAN_TOL})")
+    return r
+
+
 def check_flash(rng, record, device="cuda"):
     import torch
     from ray_tpu_torch.ops import flash_attention as fa
     worst = 0.0
-    for dtype in (torch.float32, torch.bfloat16):
+    cases = [(dt, causal, g, kh, t, 64) for dt in (torch.float32, torch.bfloat16)
+             for causal in (True, False) for g, kh in ((1, 32), (4, 8))
+             for t in (16, 100, 128, 2048)]
+    # the other head dims the kernel is built for
+    cases += [(torch.bfloat16, True, 4, 2, 100, d) for d in (16, 32, 128)]
+    for dtype, causal, g, kh, t, d in cases:
         name = str(dtype).split(".")[1]
-        for causal in (True, False):
-            for g, kh in ((1, 32), (4, 8)):
-                for t in (16, 100, 128, 2048):
-                    q, k, v = flash_inputs(rng, 1, t, 32, kh, 64, dtype, device)
-                    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
-                    ref, ref_lse = fa.flash_attention_reference(
-                        q.float(), k.float(), v.float(), causal, return_lse=True)
-                    err = (out.float() - ref).abs().max().item()
-                    lse_err = (lse - ref_lse).abs().max().item()
-                    ok = err <= TOL[name] and lse_err <= TOL["float32"] * 10
-                    record.append(dict(kernel="flash_fwd", dtype=name, causal=causal,
-                                       group=g, T=t, max_abs_err=err,
-                                       lse_max_abs_err=lse_err, ok=ok))
-                    if not ok:
-                        raise AssertionError(f"flash_fwd {name} causal={causal} G={g} "
-                                             f"T={t}: err {err}, lse err {lse_err}")
-                    worst = max(worst, err)
-    for d in (16, 32, 128):  # the other head dims the kernel is built for
-        q, k, v = flash_inputs(rng, 2, 100, 8, 2, d, torch.bfloat16, device)
-        out = fa.flash_attention(q, k, v, causal=True)
-        ref = fa.flash_attention_reference(q.float(), k.float(), v.float(), True)
-        err = (out.float() - ref).abs().max().item()
-        record.append(dict(kernel="flash_fwd", dtype="bfloat16", causal=True, group=4,
-                           T=100, head_dim=d, max_abs_err=err, ok=err <= TOL["bfloat16"]))
-        if err > TOL["bfloat16"]:
-            raise AssertionError(f"flash_fwd head_dim {d}: err {err}")
+        if d == 64:
+            q, k, v = flash_inputs(rng, 1, t, 32, kh, 64, dtype, device)
+        else:
+            q, k, v = flash_inputs(rng, 2, t, 8, kh, d, dtype, device)
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        r = check_fwd(f"{name} causal={causal} G={g} T={t} D={d}", q, k, v, causal, out,
+                      lse)
+        record.append(dict(kernel="flash_fwd", dtype=name, causal=causal, group=g, T=t,
+                           head_dim=d, ok=True, **r))
+        worst = max(worst, r["max_abs_err"])
+    bf = [r for r in record if r["kernel"] == "flash_fwd" and r["dtype"] == "bfloat16"]
+    long_rows = [r for r in bf if r["T"] >= FWD_CONTROL_MIN_T]
     if device == "cuda":  # a grad-tracking call: forward, dQ, dK/dV once each
         q, k, v = (x.requires_grad_() for x in
                    flash_inputs(rng, 1, 100, 32, 8, 64, torch.bfloat16, device))
@@ -168,9 +272,12 @@ def check_flash(rng, record, device="cuda"):
         launched = [a - b for a, b in zip(flash_counts(), before)]
         if launched != [1, 1, 1]:
             raise AssertionError(f"grad-tracking call launched fwd/dq/dkv {launched}")
-    log(f"[kernels] flash_fwd: {len([r for r in record if r['kernel'] == 'flash_fwd'])} "
-        f"cases within tolerance (f32 {TOL['float32']}, bf16 {TOL['bfloat16']}), "
-        f"worst {worst:.3e}")
+    log(f"[kernels] flash_fwd: {len(cases)} cases within tolerance (max-abs f32 "
+        f"{TOL['float32']}, bf16 {TOL['bfloat16']}; bf16 mean {FWD_MEAN_TOL}), worst "
+        f"max-abs {worst:.3e}; bf16 mean worst {max(r['mean_rel_err'] for r in bf):.3e}; "
+        f"control (scores rounded to bf16) mean least {min(r['control_mean_rel_err'] for r in bf):.3e} "
+        f"over all bf16 cases, {min(r['control_mean_rel_err'] for r in long_rows):.3e} "
+        f"where T >= {FWD_CONTROL_MIN_T}")
     return worst
 
 
@@ -270,13 +377,15 @@ def check_flash_bwd(rng, record, device="cuda"):
 def time_flash_train(rng, record):
     """B1, B2, B3 at the training shape: B=4, T=2048, H=32, Kh=8, D=64,
     bf16, causal. First each is held against its plain version on these
-    inputs (B1 at TOL, B2 and B3 as in `check_bwd`). Bounds count each
+    inputs (B1 as in `check_fwd`, B2 and B3 as in `check_bwd`), and dK/dV
+    computed twice must be bit-equal. Bounds count each
     input read once and each output written once, and the matrix products'
     flops inside the causal area (exp and elementwise work not counted).
     The plain backward computes dQ, dK and dV together; so does the
     library yardstick, the aten flash-attention backward on kv heads
     expanded to 32 (its dK/dV are per query head: the sum over the group of
-    4 is not in its time)."""
+    4 is not in its time). The f32 routes (scalar FMAs, off both main
+    paths) are timed on the same inputs widened to f32."""
     import torch
     import torch.nn.functional as F
     from ray_tpu_torch.ops import flash_attention as fa
@@ -285,27 +394,28 @@ def time_flash_train(rng, record):
     q, k, v = flash_inputs(rng, b, t, h, kh, d, torch.bfloat16)
     do = flash_inputs(rng, b, t, h, 1, d, torch.bfloat16)[0]
     out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
-    ref, ref_lse = fa.flash_attention_reference(q.float(), k.float(), v.float(), True,
-                                                return_lse=True)
-    err = (out.float() - ref).abs().max().item()
-    lse_err = (lse - ref_lse).abs().max().item()
+    fwd_r = check_fwd("train shape", q, k, v, True, out, lse)
     record.append(dict(kernel="flash_fwd", dtype="bfloat16", causal=True, group=4, B=b,
-                       T=t, max_abs_err=err, lse_max_abs_err=lse_err,
-                       ok=err <= TOL["bfloat16"] and lse_err <= TOL["float32"] * 10))
-    if not record[-1]["ok"]:
-        raise AssertionError(f"flash_fwd train shape: err {err}, lse err {lse_err}")
-    del ref, ref_lse
+                       T=t, head_dim=d, ok=True, **fwd_r))
     got = fa.flash_attention_bwd(q, k, v, out, lse, do, True)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do, True)
+    bit_equal = all(torch.equal(a, b_) for a, b_ in zip(got[1:], again[1:]))
+    if not bit_equal:
+        raise AssertionError("flash_bwd_dkv: two runs on the same inputs differ")
+    del again
     want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, True)
     bwd = check_bwd("train shape", "bfloat16", got, want,
                     bwd_control(q, k, v, out, lse, do, True))
     record.append(dict(kernel="flash_bwd", dtype="bfloat16", causal=True, group=4, B=b,
-                       T=t, head_dim=d, ok=True, **bwd))
+                       T=t, head_dim=d, ok=True, dkv_bit_equal_rerun=bit_equal, **bwd))
     fmt = lambda xs: [f"{x:.3e}" for x in xs]
-    log(f"[kernels] train shape vs plain: flash_fwd max-abs {err:.3e} (lse {lse_err:.3e}); "
-        f"dq/dk/dv max {fmt(bwd['rel_err'])}, mean {fmt(bwd['mean_rel_err'])} (control "
-        f"max {fmt(bwd['control_rel_err'])}, mean {fmt(bwd['control_mean_rel_err'])})")
+    log(f"[kernels] train shape vs plain: flash_fwd max-abs {fwd_r['max_abs_err']:.3e}, "
+        f"mean {fwd_r['mean_rel_err']:.3e} (control mean {fwd_r['control_mean_rel_err']:.3e}, "
+        f"lse {fwd_r['lse_max_abs_err']:.3e}); dq/dk/dv max {fmt(bwd['rel_err'])}, mean "
+        f"{fmt(bwd['mean_rel_err'])} (control max {fmt(bwd['control_rel_err'])}, mean "
+        f"{fmt(bwd['control_mean_rel_err'])}); dK/dV rerun bit-equal {bit_equal}")
     del got, want
+    err = fwd_r["max_abs_err"]
     delta = fa.bwd_delta(out, do)
     fwd = lambda: fa.flash_attention_fwd(q, k, v, causal=True)
     dq = lambda: fa.launch_bwd_dq(q, k, v, do, lse, delta, True, scale)
@@ -344,6 +454,19 @@ def time_flash_train(rng, record):
         log(f"[kernels] {name} train shape: {r['ms']:.4f} ms (eager call "
             f"{r['eager_ms']:.4f}), plain {plain:.4f} ms, library {lib:.4f} ms, bound "
             f"{bound_ms:.5f} ms ({bound_by})")
+    # the f32 routes, off both main paths
+    q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
+    out32, lse32 = fa.flash_attention_fwd(q32, k32, v32, causal=True)
+    delta32 = fa.bwd_delta(out32, do32)
+    rows["f32_route"] = dict(
+        shape="B=4 T=2048 H=32 Kh=8 D=64 f32 causal",
+        flash_fwd_ms=time_ms(lambda: fa.flash_attention_fwd(q32, k32, v32, causal=True),
+                             iters=5),
+        flash_bwd_dkv_ms=time_ms(lambda: fa.launch_bwd_dkv(q32, k32, v32, do32, lse32,
+                                                           delta32, True, scale), iters=5))
+    log(f"[kernels] f32 routes (scalar FMAs) at the train shape: flash_fwd "
+        f"{rows['f32_route']['flash_fwd_ms']:.4f} ms, flash_bwd_dkv "
+        f"{rows['f32_route']['flash_bwd_dkv_ms']:.4f} ms")
     return rows
 
 
@@ -622,11 +745,12 @@ def profile_call(fn, device="cuda"):
                and not getattr(e, "is_user_annotation", False)]
     device_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:10]
+    row = lambda e: dict(name=e.key[:90], calls=e.count,
+                         device_ms=e.self_device_time_total / 1e3)
     return dict(wall_s=wall, device_kernel_s=device_us / 1e6,
                 busy_share=(device_us / 1e6 / wall) if device_us else "not measured",
-                launches=sum(e.count for e in kernels),
-                top=[dict(name=e.key[:90], calls=e.count,
-                          device_ms=e.self_device_time_total / 1e3) for e in top])
+                launches=sum(e.count for e in kernels), top=[row(e) for e in top],
+                flash=[row(e) for e in kernels if "flash_" in e.key])
 
 
 def log_profile(tag, what, out):
@@ -805,6 +929,19 @@ def run_train(device="cuda", steps=10, warmup=2):
     prof = profile_call(lambda: step(feed(1)))
     log_profile("train", "one llama_1b step (B=4, T=2048)", prof)
     out["profile"] = prof
+    # the step's flash kernels by name: forward and dK/dV are the tensor-core
+    # kernels, 16 calls each, and the scalar bodies do not run
+    by_kernel = {}
+    for r in prof["flash"]:
+        name = re.search(r"flash_\w+_kernel", r["name"]).group(0)
+        calls, ms = by_kernel.get(name, (0, 0.0))
+        by_kernel[name] = (calls + r["calls"], ms + r["device_ms"])
+    for name, (calls, ms) in sorted(by_kernel.items()):
+        log(f"[train]   {ms:9.3f} ms {calls:6d} x {name}")
+    want = {"flash_fwd_tc_kernel": layers, "flash_bwd_dkv_tc_kernel": layers,
+            "flash_bwd_dq_kernel": layers}
+    if {n: c for n, (c, _) in by_kernel.items()} != want:
+        raise AssertionError(f"profiled step's flash kernels {by_kernel}, want calls {want}")
     del model, step
     return out
 
@@ -825,9 +962,11 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.load_library()
+    build_seconds = _build.build_seconds
     log(f"[build] kernels built in {time.perf_counter() - t0:.1f} s")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "build_log.txt").write_text(_build.build_log)
+    mma_counts = check_tensor_cores(_build.build())
 
     rng = np.random.default_rng(0)
     cases = []
@@ -880,7 +1019,8 @@ def main() -> int:
     ]
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
         device=smi, torch=torch.__version__, cuda=torch.version.cuda,
-        build_seconds=_build.build_seconds, cases=cases, bwd_readings=bwd_readings,
+        build_seconds=build_seconds, tensor_core_instructions=mma_counts,
+        cases=cases, bwd_readings=bwd_readings,
         flash_timing=list(flash_t.values()), train_kernel_timing=train_t,
         paged_timing=paged_t, slice=summary, train=train, kernels=kernels),
         indent=1, default=str))

@@ -4,36 +4,55 @@
 // - _bwd_dq_kernel (grid (B, H, nq, nk)): dQ summed over key tiles;
 // - _bwd_dkv_kernel (grid (B, Kh, nk, G, nq)): dK and dV summed over query
 //   tiles and over the G query heads of each kv head.
-// Same arithmetic, in the same order and with the same rounding points:
-// S = Q K^T * scale and dP = dO V^T with f32 sums, P = exp(S - lse) in f32
-// (lse from the forward kernel), dS = P (dP - delta) scale cast to the input
-// dtype, P cast to the input dtype before dV; dQ = dS K, dK = dS^T Q,
-// dV = P^T dO with f32 sums, each cast to the input dtype once at the end.
-// delta = rowsum(dO * O) in f32 is computed by the caller once per backward.
+// Same arithmetic, with the same rounding points: S = Q K^T * scale and
+// dP = dO V^T with f32 sums, P = exp(S - lse) in f32 (lse from the forward
+// kernel), dS = P (dP - delta) scale cast to the input dtype, P cast to the
+// input dtype before dV; dQ = dS K, dK = dS^T Q, dV = P^T dO with f32 sums,
+// each cast to the input dtype once at the end. delta = rowsum(dO * O) in
+// f32 is computed by the caller once per backward.
 //
-// Design. The TPU kernels carry their f32 sums in scratch along sequential
-// grid axes (nk for dQ; G and nq for dK/dV). Hopper runs blocks in parallel
-// with nothing carried between them, so each sum is a loop inside one CTA
-// and stays in registers: no atomics, and the sums are deterministic.
+// The TPU kernels carry their f32 sums in scratch along sequential grid
+// axes (nk for dQ; G and nq for dK/dV). Hopper runs blocks in parallel with
+// nothing carried between them, so each sum is a loop inside one CTA and
+// stays in registers: no atomics, and the sums are deterministic.
+//
+// dK/dV, bf16 (flash_bwd_dkv_tc_kernel): tensor cores. One CTA of 4 warps
+// per (b, kv head, 64-key tile); each warp owns 16 keys. K and V stay in
+// shared memory for the whole CTA, while the CTA walks the G query heads
+// and, for each, the query tiles from the diagonal down; Q, dO and each
+// tile's lse and delta stream through a 2-stage cp.async ring. Per query
+// tile and warp: S^T = K Q^T and dP^T = V dO^T on mma.sync m16n8k16 (K and
+// V rows are the A operand, Q and dO rows the B operand through ldmatrix);
+// P^T = exp(S^T scale - lse) masked, in f32 registers; P^T rounded to bf16
+// is the A operand of dV += P^T dO, and dS^T = P^T (dP^T - delta) scale
+// rounded to bf16 that of dK += dS^T Q (dO and Q through ldmatrix.trans).
+// Both roundings are the TPU kernel's own, and every other operand is
+// bf16 already, so the route computes _bwd_dkv_kernel's function up to
+// summation order. The query tile is 64 rows at D <= 64 and 32 at D = 128,
+// which keeps the f32 tiles and the dK/dV sums in registers. Key tile 0
+// sees every query tile, so it is launched first.
+//
+// dK/dV, f32, and dQ in both dtypes (flash_bwd_dkv_kernel,
+// flash_bwd_dq_kernel): scalar f32 FMAs (f32 is held to 1e-5, which TF32
+// products cannot meet; dQ's tensor-core route is the next kernel step).
 // - dQ: one CTA per (b, h, 64-row query tile); Q and dO tiles stay in shared
 //   memory while the CTA walks 64-key tiles up to the causal diagonal.
-// - dK/dV: one CTA per (b, kv head, 64-key tile); K and V tiles stay in
-//   shared memory while the CTA walks the G query heads and, for each, the
-//   query tiles from the diagonal down. Key tile 0 has the most work, so it
-//   is launched first.
+// - dK/dV: one CTA per (b, kv head, 64-key tile), looping as above.
 // Both use the forward kernel's thread layout: 256 threads as a 16 x 16
 // grid, each owning a 4 x 4 piece of the 64 x 64 score tile and a
 // 4 x D/16 piece of its f32 accumulators; the streamed tiles are stored
 // transposed ([D][65]) so transposed stores and column reads are free of
-// bank conflicts. Rows past T and keys past S are masked in the kernel
-// (P = 0; lse and delta of a row past T are never read), and inputs are
-// read through their strides.
+// bank conflicts.
+//
+// All routes mask rows past T and keys past S in the kernel (P = 0; lse
+// and delta of a row past T are never used) and read inputs through their
+// strides.
 //
 // Bound on the H100: compute. Per (query, key) pair the dQ kernel does
 // three D-long products and the dK/dV kernel four, against two bytes per
-// element read once. The products are scalar f32 FMAs on the CUDA cores,
-// a small fraction of the tensor-core rate; mma.sync/wgmma tiles, TMA loads
-// into a multi-stage ring and a wider dQ CTA are for later.
+// element read once. Not done yet: wgmma with TMA loads and a producer warp.
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -51,9 +70,7 @@ constexpr int LDT = 65;       // transposed tiles [D][LDT] (64 columns + 1)
 constexpr int LDP = BK + 16;  // score tiles [64][LDP]: a warp's two row groups hit other banks
 static_assert(BQ == 64 && BK == 64 && RPT * 16 == BQ && CPT * 16 == BK, "tile layout");
 
-struct Strides {
-  long long b, t, h;  // batch, sequence and head strides (the last axis is contiguous)
-};
+using rtt::Strides;
 
 // x as the input dtype holds it: the cast before a product in the TPU kernels
 template <typename T>
@@ -203,6 +220,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// instantiated for T = float only: bf16 takes flash_bwd_dkv_tc_kernel
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -350,6 +368,203 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---- dK/dV, bf16 route: tensor cores
+using bf16 = __nv_bfloat16;
+constexpr int TC_BK = 64;   // keys per CTA, 16 per warp
+constexpr int TC_NT = 128;  // 4 warps
+using rtt::kLog2e;
+
+// query rows per streamed tile: the S^T and dP^T tiles (2 x BQ / 2 f32
+// registers a thread) and the dK, dV sums (2 x D / 2) share the registers
+template <int D>
+__host__ __device__ constexpr int dkv_tc_bq() {
+  return D <= 64 ? 64 : 32;
+}
+
+// K, V, then 2 stages of Q and dO (rows padded by 16 bytes), then 2 stages
+// of lse and delta
+template <int D>
+constexpr size_t dkv_tc_smem_bytes() {
+  return sizeof(bf16) * (2 * TC_BK + 4 * dkv_tc_bq<D>()) * (D + 8) +
+         sizeof(float) * 4 * dkv_tc_bq<D>();
+}
+
+template <int D>
+__global__ void __launch_bounds__(TC_NT)
+flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        bf16* __restrict__ dk, bf16* __restrict__ dv, int seq_q, int seq_k,
+                        int n_heads, int group, Strides qs, Strides ks, Strides vs,
+                        Strides os, Strides dks, Strides dvs, float scale, int causal) {
+  constexpr int BQ = dkv_tc_bq<D>();
+  constexpr int LDS = D + 8;     // shared row stride (elements)
+  constexpr int NQT = BQ / 8;    // S^T / dP^T C tiles per warp (8 query rows each)
+  constexpr int NDT = D / 8;     // dK / dV C tiles per warp (8 columns each)
+  constexpr int KD = D / 16;     // k-steps of K Q^T and V dO^T
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [BK][LDS]
+  bf16* Vs = Ks + TC_BK * LDS;                    // [BK][LDS]
+  bf16* Qs = Vs + TC_BK * LDS;                    // [2][BQ][LDS]
+  bf16* Os = Qs + 2 * BQ * LDS;                   // [2][BQ][LDS], dO
+  float* Ls = reinterpret_cast<float*>(Os + 2 * BQ * LDS);  // [2][BQ], lse
+  float* Ds = Ls + 2 * BQ;                                    // [2][BQ], delta
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int k0 = blockIdx.x * TC_BK;  // key tile 0 sees every query tile: it starts first
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+
+  rtt::load_tile_async<TC_BK, D, LDS, TC_NT>(Ks, k + b * ks.b + kvh * ks.h, k0, seq_k, ks.t,
+                                             tid);
+  rtt::load_tile_async<TC_BK, D, LDS, TC_NT>(Vs, v + b * vs.b + kvh * vs.h, k0, seq_k, vs.t,
+                                             tid);
+
+  // causal: query rows before the first multiple of BQ at or below k0 see
+  // none of these keys. The work is G x n_q query tiles, walked in order.
+  const int q_begin = causal ? (k0 / BQ) * BQ : 0;
+  const int n_q = q_begin < seq_q ? (seq_q - q_begin + BQ - 1) / BQ : 0;
+  const int total = group * n_q;
+  auto load_query_tile = [&](int it, int st) {
+    const int h = kvh * group + it / n_q;
+    const int q0 = q_begin + (it % n_q) * BQ;
+    rtt::load_tile_async<BQ, D, LDS, TC_NT>(Qs + st * BQ * LDS, q + b * qs.b + h * qs.h, q0,
+                                            seq_q, qs.t, tid);
+    rtt::load_tile_async<BQ, D, LDS, TC_NT>(Os + st * BQ * LDS, dout + b * os.b + h * os.h,
+                                            q0, seq_q, os.t, tid);
+    if (tid < BQ) {
+      const int row = q0 + tid;
+      const bool valid = row < seq_q;
+      const long long at = ((long long)b * n_heads + h) * seq_q + (valid ? row : seq_q - 1);
+      rtt::cp_async_4(rtt::smem_addr(Ls + st * BQ + tid), lse + at, valid);
+      rtt::cp_async_4(rtt::smem_addr(Ds + st * BQ + tid), delta + at, valid);
+    }
+  };
+  if (total > 0) load_query_tile(0, 0);
+  rtt::cp_async_commit();  // K, V and the first query tile
+
+  // this lane's ldmatrix row addresses, as element offsets into a tile: A
+  // operand (this warp's 16 K or V rows), B operand from Q or dO rows, and
+  // B operand from Q or dO rows through the transposing load
+  const int a_off = (warp * 16 + (lane & 15)) * LDS + (lane >> 4) * 8;
+  const int b_off = ((lane & 7) + ((lane >> 4) << 3)) * LDS + ((lane >> 3) & 1) * 8;
+  const int bt_off = ((lane & 7) + (((lane >> 3) & 1) << 3)) * LDS + (lane >> 4) * 8;
+  const int key0 = k0 + warp * 16 + g;  // this lane's keys: key0 and key0 + 8
+  const float scale_log2 = scale * kLog2e;
+
+  float acc_k[NDT][4], acc_v[NDT][4];
+#pragma unroll
+  for (int j = 0; j < NDT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[j][e] = acc_v[j][e] = 0.f;
+
+  for (int it = 0; it < total; ++it) {
+    const int st = it & 1;
+    if (it + 1 < total) {
+      load_query_tile(it + 1, st ^ 1);
+      rtt::cp_async_commit();
+      rtt::cp_async_wait<1>();
+    } else {
+      rtt::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int q0 = q_begin + (it % n_q) * BQ;
+    const bf16* Qt = Qs + st * BQ * LDS;
+    const bf16* Ot = Os + st * BQ * LDS;
+    const float* Lt = Ls + st * BQ;
+    const float* Dt = Ds + st * BQ;
+
+    // S^T = K Q^T and dP^T = V dO^T: 16 keys x BQ query rows per warp
+    float s[NQT][4], dp[NQT][4];
+#pragma unroll
+    for (int j = 0; j < NQT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t kf[4], vf[4];
+      rtt::ldmatrix_x4(kf, rtt::smem_addr(Ks + a_off + kk * 16));
+      rtt::ldmatrix_x4(vf, rtt::smem_addr(Vs + a_off + kk * 16));
+#pragma unroll
+      for (int jj = 0; jj < NQT / 2; ++jj) {
+        uint32_t qf[4], of[4];
+        rtt::ldmatrix_x4(qf, rtt::smem_addr(Qt + b_off + jj * 16 * LDS + kk * 16));
+        rtt::ldmatrix_x4(of, rtt::smem_addr(Ot + b_off + jj * 16 * LDS + kk * 16));
+        rtt::mma_bf16(s[2 * jj], kf, qf[0], qf[1]);
+        rtt::mma_bf16(s[2 * jj + 1], kf, qf[2], qf[3]);
+        rtt::mma_bf16(dp[2 * jj], vf, of[0], of[1]);
+        rtt::mma_bf16(dp[2 * jj + 1], vf, of[2], of[3]);
+      }
+    }
+
+    // P^T = exp(S^T scale - lse) in f32, 0 where masked; then
+    // dS^T = P^T (dP^T - delta) scale. Only tiles that cross the diagonal
+    // or a ragged edge need the mask.
+    const bool edge = q0 + BQ > seq_q || k0 + TC_BK > seq_k || (causal && k0 + TC_BK - 1 > q0);
+#pragma unroll
+    for (int j = 0; j < NQT; ++j) {
+      const int c = 8 * j + 2 * t4;  // this lane's query rows in the tile: c, c + 1
+      const float2 lz = *reinterpret_cast<const float2*>(Lt + c);
+      const float2 dz = *reinterpret_cast<const float2*>(Dt + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float row_lse = (e & 1) ? lz.y : lz.x;
+        float p = exp2f(s[j][e] * scale_log2 - row_lse * kLog2e);
+        if (edge) {
+          const int row = q0 + c + (e & 1);
+          const int key = key0 + (e >> 1) * 8;
+          if (row >= seq_q || key >= seq_k || (causal && key > row)) p = 0.f;
+        }
+        s[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - ((e & 1) ? dz.y : dz.x)) * scale;
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T Q: the bf16-rounded C tiles of P^T and
+    // dS^T are the A fragments; the k dimension is the tile's query rows
+#pragma unroll
+    for (int kk = 0; kk < NQT / 2; ++kk) {
+      const uint32_t pa[4] = {rtt::pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              rtt::pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              rtt::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              rtt::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      const uint32_t da[4] = {rtt::pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
+                              rtt::pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
+                              rtt::pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
+                              rtt::pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+#pragma unroll
+      for (int dd = 0; dd < D / 16; ++dd) {
+        uint32_t of[4], qf[4];
+        rtt::ldmatrix_x4_trans(of, rtt::smem_addr(Ot + bt_off + kk * 16 * LDS + dd * 16));
+        rtt::ldmatrix_x4_trans(qf, rtt::smem_addr(Qt + bt_off + kk * 16 * LDS + dd * 16));
+        rtt::mma_bf16(acc_v[2 * dd], pa, of[0], of[1]);
+        rtt::mma_bf16(acc_v[2 * dd + 1], pa, of[2], of[3]);
+        rtt::mma_bf16(acc_k[2 * dd], da, qf[0], qf[1]);
+        rtt::mma_bf16(acc_k[2 * dd + 1], da, qf[2], qf[3]);
+      }
+    }
+    __syncthreads();  // this stage's readers are done before it is refilled
+  }
+  rtt::cp_async_wait<0>();  // (a CTA with no query tile still loaded K and V)
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    if (key >= seq_k) continue;
+    bf16* ko = dk + b * dks.b + (long long)key * dks.t + kvh * dks.h;
+    bf16* vo = dv + b * dvs.b + (long long)key * dvs.t + kvh * dvs.h;
+#pragma unroll
+    for (int j = 0; j < NDT; ++j) {
+      *reinterpret_cast<uint32_t*>(ko + 8 * j + 2 * t4) =
+          rtt::pack_bf16(acc_k[j][2 * r], acc_k[j][2 * r + 1]);
+      *reinterpret_cast<uint32_t*>(vo + 8 * j + 2 * t4) =
+          rtt::pack_bf16(acc_v[j][2 * r], acc_v[j][2 * r + 1]);
+    }
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
@@ -392,11 +607,39 @@ cudaError_t launch_dkv(const Args& a) {
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_dkv_tc(const Args& a) {
+  auto kernel = flash_bwd_dkv_tc_kernel<D>;
+  const size_t smem = dkv_tc_smem_bytes<D>();
+  static size_t allowed = 48 * 1024;  // per D instantiation
+  cudaError_t err = rtt::allow_smem(kernel, smem, allowed);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.S + TC_BK - 1) / TC_BK, a.Kh, a.B);
+  kernel<<<grid, TC_NT, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse, a.delta,
+      static_cast<bf16*>(a.g0), static_cast<bf16*>(a.g1), a.Tq, a.S, a.H, a.H / a.Kh, a.qs,
+      a.ks, a.vs, a.os, a.gs0, a.gs1, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+// dQ: the scalar body in both dtypes; dK/dV: the scalar body in f32 and the
+// tensor-core body in bf16
+template <bool DQ, typename T, int D>
+cudaError_t launch(const Args& a) {
+  if constexpr (DQ)
+    return launch_dq<T, D>(a);
+  else if constexpr (std::is_same<T, float>::value)
+    return launch_dkv<float, D>(a);
+  else
+    return launch_dkv_tc<D>(a);
+}
+
 template <bool DQ, typename T>
 cudaError_t dispatch_d(int D, const Args& a) {
 #define RTT_BWD_CASE(DD) \
   case DD:               \
-    return DQ ? launch_dq<T, DD>(a) : launch_dkv<T, DD>(a);
+    return launch<DQ, T, DD>(a);
   switch (D) {
     RTT_BWD_CASE(16)
     RTT_BWD_CASE(32)

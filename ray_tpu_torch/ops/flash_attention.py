@@ -4,23 +4,29 @@ their plain versions.
 Counterpart of `ray_tpu/ops/flash_attention.py`: the three Pallas kernels
 and the `_flash` custom_vjp that ties them together.
 
-Kernels (CUDA C++, sm_90a):
+Kernels (CUDA C++, sm_90a), each with one route per dtype:
 - `csrc/flash_fwd.cu` replaces `_fwd_kernel` (launched by `_flash_fwd`) and
   returns out and the f32 logsumexp, as that kernel does. One CTA per
   (b, h, 64-row query tile) loops over 64-key tiles up to the causal
-  diagonal with an online f32 softmax.
+  diagonal with an online f32 softmax. bf16 runs on the tensor cores
+  (wgmma products, K and V through a cp.async ring, P rounded to bf16 in
+  registers before P·V: the one rounding point `_fwd_kernel` does not
+  have); f32 runs scalar FMAs.
 - `csrc/flash_bwd.cu` replaces `_bwd_dq_kernel` and `_bwd_dkv_kernel`
   (launched by `_flash_bwd`): dQ with one CTA per (b, h, query tile)
   looping over key tiles, dK/dV with one CTA per (b, kv head, key tile)
   looping over the G query heads and the query tiles. Sums stay in
-  registers: no atomics, deterministic results.
+  registers: no atomics, deterministic results. bf16 dK/dV runs on the
+  tensor cores (mma.sync) with the TPU kernel's own roundings (P and dS to
+  bf16); f32 dK/dV and dQ in both dtypes run scalar FMAs.
 Rows and columns past T and S are masked in the kernels, so any T runs on
 them: the port has no counterpart of the JAX wrapper's O(T^2) fallback.
+The bf16 routes copy rows with 16-byte cp.async, so a bf16 CUDA call needs
+the layout `check_bf16_layout` accepts, and raises otherwise.
 
 Bound on the H100: compute at long T (forward 4, dQ 6, dK/dV 8 flops per
 head dim and (query, key) pair inside the causal area), and at the serving
-prefill chunks (T <= 128) launch latency. All three use scalar f32 FMAs;
-tensor-core products (mma.sync or wgmma) and TMA loads are left for later.
+prefill chunks (T <= 128) launch latency.
 
 `flash_attention` routes a call that needs a gradient through
 `_FlashAttention`, whose backward computes delta = rowsum(dO * O) once and
@@ -123,6 +129,28 @@ def _check_inputs(q, k, v):
         raise ValueError("flash kernel needs a contiguous last (head_dim) axis")
     if q.shape[1] == 0 or k.shape[1] == 0:
         raise ValueError("flash kernel needs T >= 1 and S >= 1")
+    if q.dtype == torch.bfloat16:
+        check_bf16_layout(q=q, k=k, v=v)
+
+
+def _bf16_layout_ok(x) -> bool:
+    return x.data_ptr() % 16 == 0 and all(
+        x.stride(i) % 8 == 0 for i in range(3) if x.shape[i] > 1)
+
+
+def check_bf16_layout(**tensors):
+    """The bf16 kernels copy each row of q, k, v and dO with 16-byte
+    cp.async: every tensor needs a 16-byte aligned base pointer and batch,
+    sequence and head strides that are multiples of 8 elements (a stride of
+    an axis of size 1 is never used). Raises ValueError naming the first
+    tensor that has neither; the model's q, k, v and autograd's dO have
+    both."""
+    for name, x in tensors.items():
+        if not _bf16_layout_ok(x):
+            raise ValueError(
+                f"bf16 flash kernel needs 16-byte aligned {name} with batch, sequence "
+                f"and head strides a multiple of 8 elements, got data_ptr % 16 = "
+                f"{x.data_ptr() % 16}, strides {tuple(x.stride())}")
 
 
 def _device_of(*xs) -> torch.device:
@@ -211,7 +239,8 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = True,
     """(dq, dk, dv) from the forward's inputs, out and lse and the gradient
     dO of out. CUDA tensors: delta once, then the dQ and the dK/dV kernels.
     dO is read through its strides; it is copied only when its last axis
-    is not contiguous."""
+    is not contiguous or, in bf16, its layout is not one
+    `check_bf16_layout` accepts."""
     if _device_of(q, k, v, out, lse, do).type == "cpu":
         return flash_attention_bwd_reference(q, k, v, out, lse, do, causal, scale)
     _check_inputs(q, k, v)
@@ -223,8 +252,8 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = True,
     if lse.shape != (b, h, t) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be [B, H, T] f32, got {tuple(lse.shape)} {lse.dtype}")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    if do.stride(-1) != 1:
-        do = do.contiguous()
+    if do.stride(-1) != 1 or (do.dtype == torch.bfloat16 and not _bf16_layout_ok(do)):
+        do = torch.empty_like(do, memory_format=torch.contiguous_format).copy_(do)
     lse = lse.contiguous()
     delta = bwd_delta(out, do)
     dq = launch_bwd_dq(q, k, v, do, lse, delta, causal, scale)

@@ -2,12 +2,16 @@
 attention (interpret mode) on the CPU. A CPU tensor takes the port's plain
 version, which repeats the CUDA kernel's arithmetic (f32 scores, softmax
 and P.V); the kernel itself is held to it on the card by chip_smoke.py.
-Forward tolerances: f32 2e-5, bf16 2e-2 max-abs. The backward (the plain
+Forward tolerances: f32 2e-5, bf16 2e-2 max-abs. The bf16 kernel's one
+extra rounding point (P to bf16 before P.V) is emulated here and held to
+the Pallas forward with chip_smoke.py's bf16 limits (FWD_BF16_MAX,
+FWD_BF16_MEAN), which a control must miss. The backward (the plain
 version of the dQ and dK/dV kernels, and autograd through flash_attention)
 is held to `_flash_bwd` and to jax.grad with the tolerances at BWD_TOL and
 BWD_MEAN_TOL."""
 
 import importlib
+import math
 
 import jax
 import jax.numpy as jnp
@@ -91,6 +95,102 @@ def test_wrapper_rejects_mixed_and_foreign_devices():
         tflash.flash_attention(q, k.to("meta"), v)
     with pytest.raises(ValueError):
         tflash.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+
+
+# ------------------------------------------------- bf16 forward on the card
+# The bf16 kernel rounds P to bf16 before P.V (the Pallas kernel multiplies
+# f32 P by f32 V); the row sum l and lse use the f32 P. chip_smoke.py holds
+# the kernel to the plain version on the same bf16 inputs with these limits:
+# max-abs, and mean |err| over mean |out|. A forward that rounds the scores
+# to bf16 before the softmax (the control) must miss the mean limit at long
+# rows; at T of a few dozen, scores of size ~1 round no worse than P does.
+FWD_BF16_MAX = 2e-2
+FWD_BF16_MEAN = 2e-3
+
+
+def _bf16_fwd_emulated(q, k, v, causal, round_scores=False):
+    """The bf16 kernel's arithmetic in plain PyTorch: f32 scores of the bf16
+    inputs, f32 softmax statistics, P rounded to bf16 before an f32-summed
+    P.V, divided by the f32 row sum, out rounded to bf16 once. With
+    round_scores, the control instead: scores rounded to bf16 before an f32
+    softmax and f32 P.V."""
+    b, t, h, d = q.shape
+    kh = k.shape[2]
+    s = tflash._grouped_scores(q, k, causal, 1.0 / math.sqrt(d))   # [B, Kh, G, T, S]
+    if round_scores:
+        s = s.to(torch.bfloat16).float()
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    pv = p if round_scores else p.to(torch.bfloat16).float()
+    out = torch.einsum("bkgts,bskd->bkgtd", pv, v.float()) / l
+    return out.permute(0, 3, 1, 2, 4).reshape(b, t, h, d).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("kh", [4, 1], ids=["gqa1", "gqa4"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_bf16_p_rounding_within_fwd_limits(causal, kh):
+    """The emulated bf16 kernel against the Pallas forward (interpret mode)
+    on the same bf16 inputs, T=512: within FWD_BF16_MAX and FWD_BF16_MEAN;
+    the control, scores rounded to bf16, misses the mean limit."""
+    rng = np.random.default_rng(13)
+    mk = lambda *s: rng.standard_normal(s, dtype=np.float32)
+    q, k, v = mk(1, 512, 4, 64), mk(1, 512, kh, 64), mk(1, 512, kh, 64)
+    want = jflash.flash_attention(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
+                                  causal=causal, block_q=128, block_kv=128,
+                                  interpret=True)
+    want = np.asarray(want.astype(jnp.float32))
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    err = lambda got: np.abs(got.float().numpy() - want)
+    kernel = err(_bf16_fwd_emulated(tq, tk, tv, causal))
+    control = err(_bf16_fwd_emulated(tq, tk, tv, causal, round_scores=True))
+    assert kernel.max() <= FWD_BF16_MAX
+    assert kernel.mean() / np.abs(want).mean() <= FWD_BF16_MEAN
+    assert control.mean() / np.abs(want).mean() > FWD_BF16_MEAN
+
+
+def test_bf16_layout_check_rejects_what_cp_async_cannot_copy():
+    """A bf16 CUDA call raises (and never falls back) for a head stride that
+    is not a multiple of 8 elements or a base pointer off 16 bytes; the f32
+    route reads any stride."""
+    padded = torch.zeros(2, 16, 4, 20, dtype=torch.bfloat16)[..., :16]  # head stride 20
+    ok = torch.zeros(2, 16, 4, 16, dtype=torch.bfloat16)
+    shifted = torch.zeros(2 * 16 * 4 * 16 + 1, dtype=torch.bfloat16)[1:].view(2, 16, 4, 16)
+    assert shifted.data_ptr() % 16 != 0
+    for bad in (padded, shifted):
+        with pytest.raises(ValueError, match="bf16 flash kernel"):
+            tflash.check_bf16_layout(q=bad)
+        with pytest.raises(ValueError, match="bf16 flash kernel"):
+            tflash._check_inputs(bad, ok[:, :, :2], ok[:, :, :2])
+    tflash.check_bf16_layout(q=ok, k=ok[:, :, :2].contiguous())
+    tflash._check_inputs(padded.float(), ok[:, :, :2].float(), ok[:, :, :2].float())
+
+
+def test_bf16_layout_check_accepts_model_qkv_and_autograd_do(monkeypatch):
+    """The tiny Llama in bf16: the q, k, v its attention hands to
+    flash_attention, and the dO autograd hands back, pass the check."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.models.convert import init_params
+    cfg = llama.LlamaConfig.tiny(dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                                 attn_impl="flash")
+    model = llama.Llama(cfg, device="cpu")
+    init_params(model, torch.Generator().manual_seed(0))
+    seen, grads = [], []
+
+    def recorder(q, k, v, causal=True, scale=None):
+        seen.append((q, k, v))
+        out = tflash.flash_attention(q, k, v, causal=causal, scale=scale)
+        out.register_hook(grads.append)
+        return out
+
+    monkeypatch.setattr(llama, "flash_attention", recorder)
+    tokens = torch.from_numpy(np.random.default_rng(12).integers(0, 256, (2, 32)))
+    logits, _ = model(tokens)
+    logits.float().square().mean().backward()
+    assert len(seen) == len(grads) == cfg.n_layers
+    for (q, k, v), do in zip(seen, reversed(grads)):
+        assert q.dtype == do.dtype == torch.bfloat16
+        tflash.check_bf16_layout(q=q, k=k, v=v, do=do)
+        tflash._check_inputs(q, k, v)
 
 
 # ---------------------------------------------------------------- backward
