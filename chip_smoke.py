@@ -8,26 +8,31 @@ Phases, in order; a failing phase raises and the script exits non-zero:
 1. device  - the card's name and power limit (nvidia-smi) and torch's view.
 2. build   - nvcc builds every kernel under ray_tpu_torch/ops/csrc/; then
              cuobjdump -sass counts the tensor-core instructions (HMMA,
-             HGMMA) of every kernel: the bf16 flash forward and dK/dV
-             kernels must have some, the f32 ones and dQ none, and no bf16
-             instantiation of the scalar forward or dK/dV body may exist.
+             HGMMA) of every kernel: the bf16 flash forward and dQ kernels
+             must have HGMMA (wgmma) and dK/dV HMMA (mma.sync) at every
+             head dim, the f32 ones none, and no bf16 instantiation of a
+             scalar flash body may exist; ptxas's registers and spill bytes
+             per kernel are kept, and the bf16 dQ kernel must not spill.
 3. kernels - each hand kernel against its plain PyTorch version on the
              card, on numpy-seeded inputs, with stated tolerances (the
              flash forward, its dQ and dK/dV backward kernels, paged
-             decode); the bf16 forward on the same bf16 inputs, with a
+             decode's split and combine passes, with splits that hold no
+             token); the bf16 forward on the same bf16 inputs, with a
              mean limit that a control (scores rounded to bf16 before the
              softmax) must miss at long T; the backward ones also against
              a control without the bf16 roundings that their limit must
              reject; a grad-tracking call launches forward, dQ and dK/dV
              once each. The flash kernels are checked again at the
-             training shape, and dK/dV twice on the same inputs must be
-             bit-equal.
+             training shape, and dQ, dK and dV twice on the same inputs
+             must be bit-equal.
              Then each is timed on the device (CUDA events
              around a CUDA-graph replay of back-to-back calls, host cost
              excluded; the eager per-call time is logged beside it) with
              its plain version, the least time the card could take (bound)
              and, where one exists, a single PyTorch call computing the
-             same function.
+             same function. Paged decode is timed at the serving batch and
+             at a long shape (B=8, lengths 2048), and at both under the
+             split plans that aim at 2, 3, 4 and 8 CTAs an SM.
 4. model   - the llama_1b decoder in f32: logits through the kernels (paged
              prefill and decode) against logits through the plain dense
              cache path, on one prompt.
@@ -35,7 +40,9 @@ Phases, in order; a failing phase raises and the script exits non-zero:
              weights, serving requests through generate and generate_stream
              under asyncio; the kernel launch counters are reset just
              before and read just after, and must match layers x calls
-             (no backward launch). One more wave runs under torch.profiler.
+             (no backward launch; a combine pass after every split pass
+             whose plan has several splits). One more wave runs under
+             torch.profiler.
 6. train   - the training step (ray_tpu_torch.train): (a) llama_1b width
              with 2 layers in f32, every parameter's gradient through the
              kernels against the plain attention path (and a TF32 control
@@ -46,7 +53,7 @@ Phases, in order; a failing phase raises and the script exits non-zero:
              dQ and dK/dV each 16 per step), finite losses and params; (c)
              one step with remat (forward 32 per step) whose loss matches
              (b)'s first; (d) one step under torch.profiler, in which the
-             flash forward's and dK/dV's device time must be the
+             flash forward's, dQ's and dK/dV's device time must be the
              tensor-core kernels', 16 calls each.
 
 It prints a `kernels` JSON line, the nvidia-smi line, and as its last line
@@ -155,8 +162,8 @@ def kernel_label(symbol):
 
 
 def tensor_core_counts(lib_path):
-    """Tensor-core instructions (HMMA or HGMMA) per kernel of the built
-    library, from cuobjdump -sass: {(kernel, dtype, head dim): count}."""
+    """Tensor-core instructions per kernel of the built library, from
+    cuobjdump -sass: {(kernel, dtype, head dim): {"HMMA": n, "HGMMA": n}}."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(lib_path)], check=True, capture_output=True,
                           text=True, timeout=300).stdout
@@ -164,33 +171,72 @@ def tensor_core_counts(lib_path):
     for line in sass.splitlines():
         if "Function :" in line:
             fn = kernel_label(line.split("Function :", 1)[1].strip())
-            counts[fn] = 0
-        elif fn is not None and re.search(r"\bH(?:G)?MMA\b", line):
-            counts[fn] += 1
+            counts[fn] = {"HMMA": 0, "HGMMA": 0}
+        elif fn is not None and (m := re.search(r"\b(HG?MMA)\b", line)):
+            counts[fn][m.group(1)] += 1
     return counts
 
 
+# the bf16 flash kernels and the tensor-core instruction each must use
+TC_KERNELS = {"flash_fwd_tc_kernel": "HGMMA", "flash_bwd_dq_tc_kernel": "HGMMA",
+              "flash_bwd_dkv_tc_kernel": "HMMA"}
+SCALAR_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+
+
 def check_tensor_cores(lib_path):
-    """The bf16 flash forward and dK/dV kernels run on the tensor cores;
-    the f32 routes and dQ do not; no bf16 instantiation of the scalar
-    forward or dK/dV body exists. Returns the counts; raises on a miss."""
+    """The bf16 flash kernels run on the tensor cores (forward and dQ
+    wgmma, dK/dV mma.sync) at every head dim; the f32 routes do not; no
+    bf16 instantiation of a scalar flash body exists. Returns the counts;
+    raises on a miss."""
     counts = tensor_core_counts(lib_path)
     flash = {k: n for k, n in counts.items() if k[0].startswith("flash_")}
-    tc = {k: n for k, n in flash.items() if k[0] in ("flash_fwd_tc_kernel",
-                                                     "flash_bwd_dkv_tc_kernel")}
     for (name, dtype, d), n in sorted(flash.items(), key=lambda kv: str(kv[0])):
-        log(f"[build]   {n:5d} HMMA/HGMMA in {name}<{dtype}, D={d}>")
-    problems = [k for k, n in tc.items() if n == 0 or k[1] != "bfloat16"]
-    problems += [k for k, n in flash.items() if k not in tc and n > 0]
-    problems += [k for k in flash if k[0] in ("flash_fwd_kernel", "flash_bwd_dkv_kernel")
-                 and k[1] != "float32"]
-    for want in ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel"):
-        have = sorted(k[2] for k in tc if k[0] == want)
+        log(f"[build]   {n['HMMA']:5d} HMMA {n['HGMMA']:5d} HGMMA in {name}<{dtype}, D={d}>")
+    problems = [k for k, n in flash.items() if k[0] in TC_KERNELS
+                and (n[TC_KERNELS[k[0]]] == 0 or k[1] != "bfloat16")]
+    problems += [k for k, n in flash.items() if k[0] not in TC_KERNELS and sum(n.values())]
+    problems += [k for k in flash if k[0] in SCALAR_KERNELS and k[1] != "float32"]
+    for want in TC_KERNELS:
+        have = sorted(k[2] for k in flash if k[0] == want)
         if have != [16, 32, 64, 128]:
             problems.append((want, "head dims", tuple(have)))
     if problems:
         raise AssertionError(f"tensor-core evidence failed for {problems}")
     return {f"{k[0]}<{k[1]},{k[2]}>": n for k, n in counts.items()}
+
+
+def ptxas_report(build_log):
+    """Registers and spill bytes per kernel from the build's ptxas -v
+    report: {"kernel<dtype,D[,G]>": {"registers": n, "spill_stores": n,
+    "spill_loads": n}} (G: the paged kernel's group bucket)."""
+    report, fn = {}, None
+    for line in build_log.splitlines():
+        if m := re.search(r"Function properties for (\S+)", line):
+            name, dtype, _ = kernel_label(m.group(1))
+            ints = re.findall(r"Li(\d+)E", m.group(1))
+            fn = report.setdefault(f"{name}<{','.join([str(dtype)] + ints)}>", {})
+        elif fn is not None and (m := re.search(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            fn.update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif fn is not None and (m := re.search(r"Used (\d+) registers", line)):
+            fn["registers"] = int(m.group(1))
+            fn = None
+    return report
+
+
+def check_spills(report):
+    """The bf16 dQ kernel keeps its tiles and sums in registers: 0 spill
+    bytes at every head dim. Logs the tensor-core and paged kernels'
+    registers; raises on a spill."""
+    rows = {k: v for k, v in report.items()
+            if any(k.startswith(n + "<") for n in TC_KERNELS) or k.startswith("paged_")}
+    for k, v in sorted(rows.items()):
+        log(f"[build]   {v.get('registers')} registers, {v.get('spill_stores')} / "
+            f"{v.get('spill_loads')} spill bytes (stores / loads) in {k}")
+    dq = {k: v for k, v in rows.items() if k.startswith("flash_bwd_dq_tc_kernel<")}
+    if len(dq) != 4 or any(v.get("spill_stores") or v.get("spill_loads") for v in dq.values()):
+        raise AssertionError(f"flash_bwd_dq_tc_kernel registers/spills: {dq}")
+    return rows
 
 
 # ---------------------------------------------------------------- kernels
@@ -377,8 +423,8 @@ def check_flash_bwd(rng, record, device="cuda"):
 def time_flash_train(rng, record):
     """B1, B2, B3 at the training shape: B=4, T=2048, H=32, Kh=8, D=64,
     bf16, causal. First each is held against its plain version on these
-    inputs (B1 as in `check_fwd`, B2 and B3 as in `check_bwd`), and dK/dV
-    computed twice must be bit-equal. Bounds count each
+    inputs (B1 as in `check_fwd`, B2 and B3 as in `check_bwd`), and dQ, dK
+    and dV computed twice must be bit-equal. Bounds count each
     input read once and each output written once, and the matrix products'
     flops inside the causal area (exp and elementwise work not counted).
     The plain backward computes dQ, dK and dV together; so does the
@@ -399,21 +445,23 @@ def time_flash_train(rng, record):
                        T=t, head_dim=d, ok=True, **fwd_r))
     got = fa.flash_attention_bwd(q, k, v, out, lse, do, True)
     again = fa.flash_attention_bwd(q, k, v, out, lse, do, True)
-    bit_equal = all(torch.equal(a, b_) for a, b_ in zip(got[1:], again[1:]))
-    if not bit_equal:
-        raise AssertionError("flash_bwd_dkv: two runs on the same inputs differ")
+    bit_equal = [torch.equal(a, b_) for a, b_ in zip(got, again)]
+    if not all(bit_equal):
+        raise AssertionError(f"flash_bwd dq/dk/dv: two runs on the same inputs differ "
+                             f"(bit-equal {bit_equal})")
+    bit_equal = all(bit_equal)
     del again
     want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, True)
     bwd = check_bwd("train shape", "bfloat16", got, want,
                     bwd_control(q, k, v, out, lse, do, True))
     record.append(dict(kernel="flash_bwd", dtype="bfloat16", causal=True, group=4, B=b,
-                       T=t, head_dim=d, ok=True, dkv_bit_equal_rerun=bit_equal, **bwd))
+                       T=t, head_dim=d, ok=True, bit_equal_rerun=bit_equal, **bwd))
     fmt = lambda xs: [f"{x:.3e}" for x in xs]
     log(f"[kernels] train shape vs plain: flash_fwd max-abs {fwd_r['max_abs_err']:.3e}, "
         f"mean {fwd_r['mean_rel_err']:.3e} (control mean {fwd_r['control_mean_rel_err']:.3e}, "
         f"lse {fwd_r['lse_max_abs_err']:.3e}); dq/dk/dv max {fmt(bwd['rel_err'])}, mean "
         f"{fmt(bwd['mean_rel_err'])} (control max {fmt(bwd['control_rel_err'])}, mean "
-        f"{fmt(bwd['control_mean_rel_err'])}); dK/dV rerun bit-equal {bit_equal}")
+        f"{fmt(bwd['control_mean_rel_err'])}); dQ/dK/dV rerun bit-equal {bit_equal}")
     del got, want
     err = fwd_r["max_abs_err"]
     delta = fa.bwd_delta(out, do)
@@ -462,10 +510,13 @@ def time_flash_train(rng, record):
         shape="B=4 T=2048 H=32 Kh=8 D=64 f32 causal",
         flash_fwd_ms=time_ms(lambda: fa.flash_attention_fwd(q32, k32, v32, causal=True),
                              iters=5),
+        flash_bwd_dq_ms=time_ms(lambda: fa.launch_bwd_dq(q32, k32, v32, do32, lse32,
+                                                         delta32, True, scale), iters=5),
         flash_bwd_dkv_ms=time_ms(lambda: fa.launch_bwd_dkv(q32, k32, v32, do32, lse32,
                                                            delta32, True, scale), iters=5))
     log(f"[kernels] f32 routes (scalar FMAs) at the train shape: flash_fwd "
-        f"{rows['f32_route']['flash_fwd_ms']:.4f} ms, flash_bwd_dkv "
+        f"{rows['f32_route']['flash_fwd_ms']:.4f} ms, flash_bwd_dq "
+        f"{rows['f32_route']['flash_bwd_dq_ms']:.4f} ms, flash_bwd_dkv "
         f"{rows['f32_route']['flash_bwd_dkv_ms']:.4f} ms")
     return rows
 
@@ -489,38 +540,67 @@ def paged_inputs(rng, b, kh, g, d, page, max_pages, lengths, dtype, device="cuda
             cu(np.asarray(lengths, np.int32), torch.int32))
 
 
-def check_paged(rng, record, device="cuda"):
+def paged_cases(rng):
+    """(dtype, B, Kh, G, D, page, max_pages, lengths) of the B4 checks."""
     import torch
     from ray_tpu_torch.ops import paged_attention as pa
-    lengths = [1, 64, 100, 2048, 777, 129, 63, 1500]  # 2048 fills the table
-    worst = 0.0
-    for dtype in (torch.bfloat16, torch.float32):
+    f32, bf16 = torch.float32, torch.bfloat16
+    serve = [1, 64, 100, 2048, 777, 129, 63, 1500]  # 2048 fills the table
+    cases = [(dt, 8, 8, g, 64, 64, 32, serve) for dt in (bf16, f32) for g in (1, 4)]
+    # other head dims, the largest group, other page sizes, groups that are
+    # not a power of two (the kernel rounds G up for its registers)
+    cases += [(f32, 4, 2, g, d, page, 3, [1, 5, 17, 3 * page])
+              for d, g, page in ((16, 2, 16), (32, 1, 32), (128, 8, 16), (64, 3, 64))]
+    cases.append((bf16, 3, 2, 6, 64, 32, 8, [1, 100, 256]))
+    # one split per page (B x Kh small): length 1 leaves every split but the
+    # first without a token, 640 fills a 40-page table; G = 8, D = 128,
+    # page 16; the largest page; a batch that fills the card with one split
+    for dt in (bf16, f32):
+        cases += [(dt, 2, 2, 8, 128, 16, 40, [1, 640]),
+                  (dt, 4, 2, 4, 64, 64, 32, [1, 65, 2048, 1000]),
+                  (dt, 2, 1, 8, 128, pa.MAX_PAGE_SIZE, 4, [300, 4 * pa.MAX_PAGE_SIZE]),
+                  (dt, 72, 8, 4, 64, 64, 4, rng.integers(1, 257, 72).tolist())]
+    return cases
+
+
+def check_paged(rng, record, device="cuda"):
+    """B4 against paged_attention_reference within TOL on every case of
+    `paged_cases`; each call launches one split pass and, where its plan has
+    several splits, one combine pass. The plain version of the split
+    arithmetic (paged_attention_split_reference, on the plan's
+    pages_per_split) is read beside it."""
+    import torch
+    from ray_tpu_torch.ops import paged_attention as pa
+    worst, n_multi = 0.0, 0
+    cases = paged_cases(rng)
+    for dtype, b, kh, g, d, page, max_pages, lens in cases:
         name = str(dtype).split(".")[1]
-        for g in (1, 4):
-            q, kp, vp, tb, ln = paged_inputs(rng, 8, 8, g, 64, 64, 32, lengths, dtype,
-                                             device)
-            out = pa.paged_attention(q, kp, vp, tb, ln)
-            ref = pa.paged_attention_reference(q.float(), kp.float(), vp.float(), tb, ln)
-            err = (out.float() - ref).abs().max().item()
-            ok = err <= TOL[name]
-            record.append(dict(kernel="paged_decode", dtype=name, group=g,
-                               lengths=lengths, max_abs_err=err, ok=ok))
-            if not ok:
-                raise AssertionError(f"paged_decode {name} G={g}: err {err}")
-            worst = max(worst, err)
-    # other head dims, the largest group, another page size, f32
-    for d, g, page in ((16, 2, 16), (32, 1, 32), (128, 8, 16)):
-        lens = [1, 5, 17, 3 * page]
-        q, kp, vp, tb, ln = paged_inputs(rng, 4, 2, g, d, page, 3, lens,
-                                         torch.float32, device)
+        q, kp, vp, tb, ln = paged_inputs(rng, b, kh, g, d, page, max_pages, lens, dtype,
+                                         device)
+        sms = pa._sm_count(q.device) if device == "cuda" else 132  # CPU: no launch
+        n_split, per = pa.split_plan(b, kh, max_pages, sms)
+        before = (pa.LAUNCHES, pa.COMBINE_LAUNCHES)
         out = pa.paged_attention(q, kp, vp, tb, ln)
-        err = (out - pa.paged_attention_reference(q, kp, vp, tb, ln)).abs().max().item()
-        record.append(dict(kernel="paged_decode", dtype="float32", group=g, head_dim=d,
-                           page=page, lengths=lens, max_abs_err=err,
-                           ok=err <= TOL["float32"]))
-        if err > TOL["float32"]:
-            raise AssertionError(f"paged_decode D={d} G={g} page={page}: err {err}")
-    log(f"[kernels] paged_decode: 7 cases within tolerance, worst {worst:.3e}")
+        launched = (pa.LAUNCHES - before[0], pa.COMBINE_LAUNCHES - before[1])
+        want = (1, int(n_split > 1)) if device == "cuda" else (0, 0)
+        f = lambda x: x.float()
+        ref = pa.paged_attention_reference(f(q), f(kp), f(vp), tb, ln)
+        split_ref = pa.paged_attention_split_reference(f(q), f(kp), f(vp), tb, ln,
+                                                       pages_per_split=per)
+        err = (out.float() - ref).abs().max().item()
+        ok = err <= TOL[name] and launched == want
+        record.append(dict(kernel="paged_decode", dtype=name, B=b, kv_heads=kh, group=g,
+                           head_dim=d, page=page, max_pages=max_pages, lengths=list(lens),
+                           n_split=n_split, pages_per_split=per, launched=launched,
+                           max_abs_err=err,
+                           split_ref_max_abs_err=(out.float() - split_ref).abs().max().item(),
+                           ok=ok))
+        if not ok:
+            raise AssertionError(f"paged_decode {record[-1]}")
+        worst = max(worst, err)
+        n_multi += n_split > 1
+    log(f"[kernels] paged_decode: {len(cases)} cases within tolerance ({n_multi} with "
+        f"several splits, some holding no token), worst max-abs {worst:.3e}")
     return worst
 
 
@@ -548,24 +628,53 @@ def time_flash(rng, t):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
-def time_paged(rng, lengths):
-    """B4 at the slice's decode batch: B=8, H=32, Kh=8, D=64, page 64, bf16."""
+def time_paged(rng, lengths, copies=1):
+    """B4 at the slice's decode batch: B=8, H=32, Kh=8, D=64, page 64,
+    max_pages 32, bf16. With copies > 1 the timed calls take turns over that
+    many input sets (own pools and tables), so that K and V come from device
+    memory and not from the 50 MB L2 cache. Only wrapper calls are timed, so
+    the same function times the kernel of another commit's package."""
+    import itertools
     import torch
     from ray_tpu_torch.ops import paged_attention as pa
     b, kh, g, d, page, max_pages = 8, 8, 4, 64, 64, 32
-    q, kp, vp, tb, ln = paged_inputs(rng, b, kh, g, d, page, max_pages, lengths,
-                                     torch.bfloat16)
-    ms = time_ms(lambda: pa.paged_attention(q, kp, vp, tb, ln))
-    eager_ms = time_eager_ms(lambda: pa.paged_attention(q, kp, vp, tb, ln))
-    plain_ms = time_ms(lambda: pa.paged_attention_reference(q, kp, vp, tb, ln), iters=20)
+    sets = [paged_inputs(rng, b, kh, g, d, page, max_pages, lengths, torch.bfloat16)
+            for _ in range(copies)]
+    turns = itertools.cycle(sets)
+    ms = time_ms(lambda: pa.paged_attention(*next(turns)))
+    eager_ms = time_eager_ms(lambda: pa.paged_attention(*next(turns)))
+    plain_ms = time_ms(lambda: pa.paged_attention_reference(*next(turns)), iters=20)
     tokens = int(sum(lengths))
     bytes_moved = (2 * 2 * b * kh * g * d          # q in, out
                    + 2 * 2 * tokens * kh * d       # K and V of the valid tokens
                    + 4 * b * max_pages + 4 * b)    # tables, lengths
     flops = 4 * tokens * kh * g * d
     bound_ms, bound_by = bound(bytes_moved, flops, "bfloat16")
-    return dict(lengths=list(lengths), ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
-                library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+    plan = getattr(pa, "split_plan", None)
+    return dict(lengths=list(lengths), copies=copies, ms=ms, eager_ms=eager_ms,
+                plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                plan=plan(b, kh, max_pages, pa._sm_count(sets[0][0].device)) if plan else None)
+
+
+def sweep_paged_plan(rng, serve_lengths):
+    """B4 at the serving and the long lengths (as `time_paged`) under the
+    split plans that aim at 2, 3, 4 and 8 CTAs an SM (CTAS_PER_SM, whose
+    value the wrapper uses is the plan's aim)."""
+    from ray_tpu_torch.ops import paged_attention as pa
+    keep, rows = pa.CTAS_PER_SM, []
+    try:
+        for k in (2, 3, 4, 8):
+            pa.CTAS_PER_SM = k
+            serve, long = time_paged(rng, serve_lengths), time_paged(rng, [2048] * 8, copies=4)
+            rows.append(dict(ctas_per_sm=k, plan=serve["plan"], serve_ms=serve["ms"],
+                             long_ms=long["ms"]))
+    finally:
+        pa.CTAS_PER_SM = keep
+    log(f"[kernels] paged_decode plans (CTAs an SM, (n_split, pages_per_split), serve ms, "
+        f"long ms; the wrapper aims at {keep}): "
+        + "; ".join(f"{r['ctas_per_sm']} {r['plan']} {r['serve_ms']:.4f} {r['long_ms']:.4f}"
+                    for r in rows))
+    return rows
 
 
 # ------------------------------------------------------------------ model
@@ -665,7 +774,7 @@ def run_slice(preset="llama_1b", device="cuda"):
     max_tokens = 32
 
     reset_flash_counts()
-    pa.LAUNCHES = 0
+    pa.LAUNCHES = pa.COMBINE_LAUNCHES = 0
     t0 = time.perf_counter()
     res = asyncio.run(serve_wave(server, wave1, max_tokens))
     res += asyncio.run(serve_wave(server, wave2, max_tokens))
@@ -673,8 +782,13 @@ def run_slice(preset="llama_1b", device="cuda"):
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), flash_counts()),
-                    paged_decode=pa.LAUNCHES)
+                    paged_decode=pa.LAUNCHES, paged_decode_combine=pa.COMBINE_LAUNCHES)
     after = server.stats()
+    # the decode step's split plan (batch slots x kv heads over the table)
+    slots, max_pages = server.cache.block_tables.shape
+    n_split = (pa.split_plan(slots, mc.n_kv_heads, max_pages,
+                             pa._sm_count(server.cache.block_tables.device))[0]
+               if device == "cuda" else 1)
 
     dec_a, dec_b = after["decode"], before["decode"]
     tokens = dec_a["tokens"] - dec_b["tokens"]
@@ -694,6 +808,9 @@ def run_slice(preset="llama_1b", device="cuda"):
         "flash launches == layers x fresh first chunks": launches["flash_fwd"] == L * fresh,
         "every fresh prompt took the chunk-local path": fresh == n_req - 1,
         "paged launches == layers x decode steps": launches["paged_decode"] == L * steps,
+        f"a combine after every paged launch ({n_split} splits a call)":
+            launches["paged_decode_combine"] == (launches["paged_decode"] if n_split > 1
+                                                 else 0),
         "both kernels launched": launches["flash_fwd"] > 0 and launches["paged_decode"] > 0,
         "no backward kernel launched (no grad in serving)":
             launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == 0,
@@ -712,7 +829,8 @@ def run_slice(preset="llama_1b", device="cuda"):
                    decode_tokens=tokens, decode_host_syncs=syncs,
                    decode_steps=steps, decode_s=decode_s,
                    decode_tokens_per_s=tokens / decode_s if decode_s else None,
-                   wall_s=wall, launches=launches, fresh_first_chunks=fresh,
+                   wall_s=wall, launches=launches, paged_n_split=n_split,
+                   fresh_first_chunks=fresh,
                    prefix_hit_tokens=hit, model_check=model_check,
                    stats=after)
     log(f"[slice] {n_req} requests x {max_tokens} tokens in {wall:.2f} s: "
@@ -929,8 +1047,8 @@ def run_train(device="cuda", steps=10, warmup=2):
     prof = profile_call(lambda: step(feed(1)))
     log_profile("train", "one llama_1b step (B=4, T=2048)", prof)
     out["profile"] = prof
-    # the step's flash kernels by name: forward and dK/dV are the tensor-core
-    # kernels, 16 calls each, and the scalar bodies do not run
+    # the step's flash kernels by name: forward, dQ and dK/dV are the
+    # tensor-core kernels, 16 calls each, and the scalar bodies do not run
     by_kernel = {}
     for r in prof["flash"]:
         name = re.search(r"flash_\w+_kernel", r["name"]).group(0)
@@ -938,8 +1056,7 @@ def run_train(device="cuda", steps=10, warmup=2):
         by_kernel[name] = (calls + r["calls"], ms + r["device_ms"])
     for name, (calls, ms) in sorted(by_kernel.items()):
         log(f"[train]   {ms:9.3f} ms {calls:6d} x {name}")
-    want = {"flash_fwd_tc_kernel": layers, "flash_bwd_dkv_tc_kernel": layers,
-            "flash_bwd_dq_kernel": layers}
+    want = {name: layers for name in TC_KERNELS}
     if {n: c for n, (c, _) in by_kernel.items()} != want:
         raise AssertionError(f"profiled step's flash kernels {by_kernel}, want calls {want}")
     del model, step
@@ -967,6 +1084,7 @@ def main() -> int:
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "build_log.txt").write_text(_build.build_log)
     mma_counts = check_tensor_cores(_build.build())
+    registers = check_spills(ptxas_report(_build.build_log))
 
     rng = np.random.default_rng(0)
     cases = []
@@ -981,12 +1099,18 @@ def main() -> int:
     train_t = time_flash_train(rng, cases)
 
     summary = run_slice()
-    # B4 timed at the slice's decode batch: prompt lengths + 16 generated
-    paged_t = time_paged(rng, [n + 16 for n in summary["prompt_lens"][:8]])
-    log(f"[kernels] paged_decode B=8: {paged_t['ms']:.4f} ms (eager call "
-        f"{paged_t['eager_ms']:.4f}), plain "
-        f"{paged_t['plain_ms']:.4f} ms, bound {paged_t['bound_ms']:.5f} ms "
-        f"({paged_t['bound_by']})")
+    # B4 timed at the slice's decode batch (prompt lengths + 16 generated)
+    # and at the long shape (every row a full 2048-token table), the latter
+    # over 4 input sets (135 MB of K and V, more than the L2 cache holds)
+    serve_lengths = [n + 16 for n in summary["prompt_lens"][:8]]
+    paged_t = time_paged(rng, serve_lengths)
+    paged_long = time_paged(rng, [2048] * 8, copies=4)
+    paged_plans = sweep_paged_plan(rng, serve_lengths)
+    for what, r in (("serve lengths", paged_t), ("long, lengths 2048", paged_long)):
+        log(f"[kernels] paged_decode B=8 {what}: {r['ms']:.4f} ms (eager call "
+            f"{r['eager_ms']:.4f}), plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']}), plan (n_split, pages_per_split) "
+            f"{r['plan']}")
 
     train = dict(grads=check_train_grads(), head_bf16=check_head_bf16(), **run_train())
 
@@ -1013,16 +1137,19 @@ def main() -> int:
         dict(name="paged_decode", route="cuda",
              source="ray_tpu_torch/ops/csrc/paged_decode.cu",
              replaces="ray_tpu/ops/paged_attention.py:38",
-             launches=summary["launches"]["paged_decode"], max_abs_err=paged_err,
-             ms=paged_t["ms"], plain_ms=paged_t["plain_ms"], bound_ms=paged_t["bound_ms"],
-             bound_by=paged_t["bound_by"], library_ms=None),
+             launches=summary["launches"]["paged_decode"],
+             combine_launches=summary["launches"]["paged_decode_combine"],
+             max_abs_err=paged_err, ms=paged_t["ms"], plain_ms=paged_t["plain_ms"],
+             bound_ms=paged_t["bound_ms"], bound_by=paged_t["bound_by"], library_ms=None),
     ]
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
         device=smi, torch=torch.__version__, cuda=torch.version.cuda,
         build_seconds=build_seconds, tensor_core_instructions=mma_counts,
-        cases=cases, bwd_readings=bwd_readings,
+        ptxas=registers, cases=cases, bwd_readings=bwd_readings,
         flash_timing=list(flash_t.values()), train_kernel_timing=train_t,
-        paged_timing=paged_t, slice=summary, train=train, kernels=kernels),
+        paged_timing=paged_t, paged_timing_long=paged_long, paged_plans=paged_plans,
+        slice=summary, train=train,
+        kernels=kernels),
         indent=1, default=str))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)

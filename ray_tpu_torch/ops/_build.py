@@ -108,9 +108,11 @@ def _declare(lib):
     lib.rtt_flash_bwd_dkv.argtypes = [i, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i,
                                       *[ll] * 18, f, i, vp]
     lib.rtt_flash_bwd_dkv.restype = i
-    lib.rtt_paged_decode.argtypes = [i, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i,
-                                     ll, ll, ll, ll, ll, ll, ll, ll, ll, ll, f, vp]
-    lib.rtt_paged_decode.restype = i
+    lib.rtt_paged_decode_split.argtypes = [i, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i,
+                                           i, i, *[ll] * 10, f, vp]
+    lib.rtt_paged_decode_split.restype = i
+    lib.rtt_paged_decode_combine.argtypes = [i, vp, vp, i, i, i, i, i, ll, ll, vp]
+    lib.rtt_paged_decode_combine.restype = i
     lib.rtt_error_string.argtypes = [i]
     lib.rtt_error_string.restype = ctypes.c_char_p
 

@@ -16,6 +16,24 @@
 // nothing carried between them, so each sum is a loop inside one CTA and
 // stays in registers: no atomics, and the sums are deterministic.
 //
+// dQ, bf16 (flash_bwd_dq_tc_kernel): tensor cores, wgmma. One CTA, a
+// warpgroup of 4 warps, per (b, h, 64-row query tile), 16 query rows per
+// warp; the heaviest causal tiles start first. The Q and dO tiles are
+// copied once; K and V tiles of 64 keys stream through a 2-stage cp.async
+// ring up to the causal diagonal, all in the swizzled layout wgmma reads.
+// Each lane reads lse and delta for its two rows once. Per key tile:
+// S = Q K^T and dP = dO V^T are two wgmma's with every operand in shared
+// memory (an A operand held in registers across the key loop was
+// overwritten by ptxas in the forward kernel, so only the fresh dS comes
+// from registers); P = exp2(S scale log2e - lse log2e) in f32 on the
+// accumulators, 0 where masked; dS = P (dP - delta) scale, rounded to bf16
+// in registers (the TPU kernel's own cast), is the register A operand of
+// dQ += dS K, whose B operand is the same swizzled K tile read MN-major
+// (the layout the forward's P V reads V in), so one copy of K serves both
+// products. P is never rounded, so the route computes _bwd_dq_kernel's
+// function up to summation order; dQ sums in registers and is written as
+// bf16 once.
+//
 // dK/dV, bf16 (flash_bwd_dkv_tc_kernel): tensor cores. One CTA of 4 warps
 // per (b, kv head, 64-key tile); each warp owns 16 keys. K and V stay in
 // shared memory for the whole CTA, while the CTA walks the G query heads
@@ -32,9 +50,8 @@
 // which keeps the f32 tiles and the dK/dV sums in registers. Key tile 0
 // sees every query tile, so it is launched first.
 //
-// dK/dV, f32, and dQ in both dtypes (flash_bwd_dkv_kernel,
-// flash_bwd_dq_kernel): scalar f32 FMAs (f32 is held to 1e-5, which TF32
-// products cannot meet; dQ's tensor-core route is the next kernel step).
+// f32 dQ and dK/dV (flash_bwd_dq_kernel, flash_bwd_dkv_kernel): scalar f32
+// FMAs (f32 is held to 1e-5, which TF32 products cannot meet).
 // - dQ: one CTA per (b, h, 64-row query tile); Q and dO tiles stay in shared
 //   memory while the CTA walks 64-key tiles up to the causal diagonal.
 // - dK/dV: one CTA per (b, kv head, 64-key tile), looping as above.
@@ -50,7 +67,8 @@
 //
 // Bound on the H100: compute. Per (query, key) pair the dQ kernel does
 // three D-long products and the dK/dV kernel four, against two bytes per
-// element read once. Not done yet: wgmma with TMA loads and a producer warp.
+// element read once. Not done yet: TMA loads and a producer warp (dQ), and
+// wgmma for dK/dV.
 
 #include <type_traits>
 
@@ -90,6 +108,7 @@ constexpr size_t dkv_smem_bytes() {
 // D = 128: dQ 153,088 bytes, dK/dV 173,568 bytes (of the 232,448 a block may use)
 static_assert(dkv_smem_bytes<128>() <= 232448, "dK/dV tiles exceed shared memory");
 
+// instantiated for T = float only: bf16 takes flash_bwd_dq_tc_kernel
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -565,6 +584,162 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ---- dQ, bf16 route: tensor cores (wgmma)
+constexpr int DQ_BQ = 64;  // query rows per CTA, 16 per warp
+constexpr int DQ_BK = 64;  // keys per tile
+
+// Q and dO tiles + 2 stages of K and V (64 rows each), and room to start
+// them on a 1024-byte boundary
+template <int D>
+constexpr size_t dq_tc_smem_bytes() {
+  return sizeof(bf16) * (2 * DQ_BQ + 4 * DQ_BK) * D + 1024;
+}
+
+template <int D>
+__global__ void __launch_bounds__(TC_NT)
+flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       bf16* __restrict__ dq, int seq_q, int seq_k, int n_heads, int group,
+                       Strides qs, Strides ks, Strides vs, Strides os, Strides gs,
+                       float scale, int causal) {
+  static_assert(DQ_BQ == DQ_BK, "Q, dO, K and V tiles share one layout");
+  constexpr int W = D >= 64 ? 128 : 2 * D;  // bytes per swizzled row
+  constexpr int KSTEPS = W / 32;            // k16 steps per 64-column block
+  constexpr int TILE = DQ_BQ * D * 2;       // bytes of one 64-row tile
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // Q; dO at +TILE; K stages at +2 TILE, +3 TILE; V stages at +4 TILE, +5 TILE
+  const uint32_t qsm = (rtt::smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t osm = qsm + TILE;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int iq = gridDim.x - 1 - blockIdx.x;  // the longest causal rows start first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / group;
+  const int q0 = iq * DQ_BQ;
+  const bf16* qb = q + b * qs.b + h * qs.h;
+  const bf16* ob = dout + b * os.b + h * os.h;
+  const bf16* kb = k + b * ks.b + kvh * ks.h;
+  const bf16* vb = v + b * vs.b + kvh * vs.h;
+
+  // causal: keys past the tile's last query row are masked for every row
+  const int kv_end = causal ? min(seq_k, q0 + DQ_BQ) : seq_k;
+  const int n_tiles = (kv_end + DQ_BK - 1) / DQ_BK;
+
+  rtt::load_tile_swizzled<DQ_BQ, D, TC_NT>(qsm, qb, q0, seq_q, qs.t, tid);
+  rtt::load_tile_swizzled<DQ_BQ, D, TC_NT>(osm, ob, q0, seq_q, os.t, tid);
+  rtt::load_tile_swizzled<DQ_BK, D, TC_NT>(qsm + 2 * TILE, kb, 0, seq_k, ks.t, tid);
+  rtt::load_tile_swizzled<DQ_BK, D, TC_NT>(qsm + 4 * TILE, vb, 0, seq_k, vs.t, tid);
+  rtt::cp_async_commit();
+
+  // this lane's rows row0 (C registers 4j, 4j+1) and row0 + 8 (4j+2, 4j+3):
+  // lse in log2e-scaled units and delta; a row past T reads the last row's
+  // (finite) values and is never stored
+  const int row0 = q0 + warp * 16 + g;
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const long long at = ((long long)b * n_heads + h) * seq_q + min(row0 + 8 * r, seq_q - 1);
+    lse2[r] = lse[at] * kLog2e;
+    dlt[r] = delta[at];
+  }
+  const float scale_log2 = scale * kLog2e;
+
+  float acc[D / 2];  // dQ: D/8 C tiles
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it & 1;
+    if (it + 1 < n_tiles) {
+      const int nk0 = (it + 1) * DQ_BK;
+      rtt::load_tile_swizzled<DQ_BK, D, TC_NT>(qsm + (2 + (st ^ 1)) * TILE, kb, nk0, seq_k,
+                                               ks.t, tid);
+      rtt::load_tile_swizzled<DQ_BK, D, TC_NT>(qsm + (4 + (st ^ 1)) * TILE, vb, nk0, seq_k,
+                                               vs.t, tid);
+      rtt::cp_async_commit();
+      rtt::cp_async_wait<1>();
+    } else {
+      rtt::cp_async_wait<0>();
+    }
+    rtt::fence_async_shared();  // the copies are visible to the products
+    __syncthreads();
+    const uint32_t ksm = qsm + (2 + st) * TILE;
+    const uint32_t vsm = qsm + (4 + st) * TILE;
+
+    // S = Q K^T and dP = dO V^T: 64 rows x 64 keys each, every operand
+    // K-major in shared memory, issued together
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    rtt::fence_operands(s);
+    rtt::fence_operands(dp);
+    rtt::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / KSTEPS) * DQ_BQ * W + (kk % KSTEPS) * 32;  // block, then k
+      rtt::wgmma_ss_n64(s, rtt::wgmma_desc<W>(qsm + off, 16), rtt::wgmma_desc<W>(ksm + off, 16));
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / KSTEPS) * DQ_BQ * W + (kk % KSTEPS) * 32;
+      rtt::wgmma_ss_n64(dp, rtt::wgmma_desc<W>(osm + off, 16), rtt::wgmma_desc<W>(vsm + off, 16));
+    }
+    rtt::wgmma_commit();
+    rtt::wgmma_wait<0>();
+    rtt::fence_operands(s);
+    rtt::fence_operands(dp);
+
+    // P = exp(S scale - lse) in f32, 0 where masked (only the diagonal tile
+    // and the ragged last tile need the mask; keys past S are zero-filled,
+    // and masking them keeps 0 * inf out of dQ); dS = P (dP - delta) scale
+    const int k0 = it * DQ_BK;
+    const bool edge = k0 + DQ_BK > seq_k || (causal && k0 + DQ_BK > q0);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      float p = exp2f(s[i] * scale_log2 - lse2[r]);
+      if (edge) {
+        const int col = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+        if (col >= seq_k || (causal && col > row0 + 8 * r)) p = 0.f;
+      }
+      s[i] = p * (dp[i] - dlt[r]) * scale;
+    }
+
+    // dQ += dS K: dS's C tiles, rounded to bf16 (the TPU kernel's cast),
+    // are the A fragments; the same K tile is the B operand read MN-major
+    // (keys are the k axis), 16 keys per step
+    uint32_t da[DQ_BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < DQ_BK / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) da[kk][r] = rtt::pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+    rtt::fence_operands(acc);
+    rtt::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DQ_BK / 16; ++kk)
+      rtt::wgmma_rs_tb<D>(acc, da[kk], rtt::wgmma_desc<W>(ksm + kk * 16 * W, DQ_BK * W));
+    rtt::wgmma_commit();
+    rtt::wgmma_wait<0>();
+    rtt::fence_operands(acc);
+    __syncthreads();  // this stage's readers are done before it is refilled
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= seq_q) continue;
+    bf16* orow = dq + b * gs.b + (long long)row * gs.t + h * gs.h;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t4) =
+          rtt::pack_bf16(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
@@ -576,34 +751,51 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dq(const Args& a) {
-  auto kernel = flash_bwd_dq_kernel<T, D>;
+  auto kernel = flash_bwd_dq_kernel<float, D>;
   const size_t smem = dq_smem_bytes<D>();
-  static size_t allowed = 48 * 1024;  // per (T, D) instantiation
+  static size_t allowed = 48 * 1024;  // per D instantiation
   cudaError_t err = rtt::allow_smem(kernel, smem, allowed);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Tq + BQ - 1) / BQ, a.H, a.B);
   kernel<<<grid, NT, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(a.g0), a.Tq, a.S,
-      a.H, a.H / a.Kh, a.qs, a.ks, a.vs, a.os, a.gs0, a.scale, a.causal);
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
+      static_cast<float*>(a.g0), a.Tq, a.S, a.H, a.H / a.Kh, a.qs, a.ks, a.vs, a.os, a.gs0,
+      a.scale, a.causal);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
+cudaError_t launch_dq_tc(const Args& a) {
+  auto kernel = flash_bwd_dq_tc_kernel<D>;
+  const size_t smem = dq_tc_smem_bytes<D>();
+  static size_t allowed = 48 * 1024;  // per D instantiation
+  cudaError_t err = rtt::allow_smem(kernel, smem, allowed);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Tq + DQ_BQ - 1) / DQ_BQ, a.H, a.B);
+  kernel<<<grid, TC_NT, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse, a.delta,
+      static_cast<bf16*>(a.g0), a.Tq, a.S, a.H, a.H / a.Kh, a.qs, a.ks, a.vs, a.os, a.gs0,
+      a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+template <int D>
 cudaError_t launch_dkv(const Args& a) {
-  auto kernel = flash_bwd_dkv_kernel<T, D>;
+  auto kernel = flash_bwd_dkv_kernel<float, D>;
   const size_t smem = dkv_smem_bytes<D>();
-  static size_t allowed = 48 * 1024;  // per (T, D) instantiation
+  static size_t allowed = 48 * 1024;  // per D instantiation
   cudaError_t err = rtt::allow_smem(kernel, smem, allowed);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.S + BK - 1) / BK, a.Kh, a.B);
   kernel<<<grid, NT, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(a.g0),
-      static_cast<T*>(a.g1), a.Tq, a.S, a.H, a.H / a.Kh, a.qs, a.ks, a.vs, a.os, a.gs0,
-      a.gs1, a.scale, a.causal);
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
+      static_cast<float*>(a.g0), static_cast<float*>(a.g1), a.Tq, a.S, a.H, a.H / a.Kh,
+      a.qs, a.ks, a.vs, a.os, a.gs0, a.gs1, a.scale, a.causal);
   return cudaGetLastError();
 }
 
@@ -623,14 +815,16 @@ cudaError_t launch_dkv_tc(const Args& a) {
   return cudaGetLastError();
 }
 
-// dQ: the scalar body in both dtypes; dK/dV: the scalar body in f32 and the
-// tensor-core body in bf16
+// the scalar bodies in f32, the tensor-core bodies in bf16
 template <bool DQ, typename T, int D>
 cudaError_t launch(const Args& a) {
-  if constexpr (DQ)
-    return launch_dq<T, D>(a);
-  else if constexpr (std::is_same<T, float>::value)
-    return launch_dkv<float, D>(a);
+  constexpr bool f32 = std::is_same<T, float>::value;
+  if constexpr (DQ && f32)
+    return launch_dq<D>(a);
+  else if constexpr (DQ)
+    return launch_dq_tc<D>(a);
+  else if constexpr (f32)
+    return launch_dkv<D>(a);
   else
     return launch_dkv_tc<D>(a);
 }

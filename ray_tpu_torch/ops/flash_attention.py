@@ -16,9 +16,11 @@ Kernels (CUDA C++, sm_90a), each with one route per dtype:
   (launched by `_flash_bwd`): dQ with one CTA per (b, h, query tile)
   looping over key tiles, dK/dV with one CTA per (b, kv head, key tile)
   looping over the G query heads and the query tiles. Sums stay in
-  registers: no atomics, deterministic results. bf16 dK/dV runs on the
-  tensor cores (mma.sync) with the TPU kernel's own roundings (P and dS to
-  bf16); f32 dK/dV and dQ in both dtypes run scalar FMAs.
+  registers: no atomics, deterministic results. In bf16 both run on the
+  tensor cores with the TPU kernels' own roundings: dQ on wgmma (S and dP
+  from shared memory, dS rounded to bf16 in registers as the A operand of
+  dS·K, K and V through a cp.async ring), dK/dV on mma.sync (P and dS to
+  bf16); f32 dQ and dK/dV run scalar FMAs.
 Rows and columns past T and S are masked in the kernels, so any T runs on
 them: the port has no counterpart of the JAX wrapper's O(T^2) fallback.
 The bf16 routes copy rows with 16-byte cp.async, so a bf16 CUDA call needs

@@ -8,18 +8,23 @@ same as the JAX package's (vLLM's PagedAttention):
   to pool slots; `lengths[B]` counts valid tokens. Page 0 is the reserved
   placeholder that unused table entries point at.
 
-`paged_attention` is the wrapper of the hand-written CUDA kernel
-`csrc/paged_decode.cu` (CUDA C++, sm_90a), which replaces
-`ray_tpu/ops/paged_attention.py::_decode_kernel`. One CTA per (b, kv head)
-holds the head's G query rows, reads its own block-table row, and walks
-only the ceil(len / page) pages that hold tokens with an online f32
-softmax. Bound on the H100: device-memory bytes, 2 * B * len * Kh * D * 2
-bytes of bf16 K and V per layer. Left for later: a split over pages
-(split-K) and double-buffered page loads, since B * Kh CTAs (64 at the
-serving batch) load one page at a time.
+`paged_attention` is the wrapper of the hand-written CUDA kernels in
+`csrc/paged_decode.cu` (CUDA C++, sm_90a), which replace
+`ray_tpu/ops/paged_attention.py::_decode_kernel` with flash-decoding: a
+split pass, one CTA per (kv head, b, run of `pages_per_split` table
+entries), holds the head's G query rows, reads its own block-table row,
+double-buffers the pages that hold tokens into shared memory with
+cp.async and keeps an online f32 softmax; it writes a partial
+(max, sum, accumulator) per split, and a combine pass merges the splits by
+log-sum-exp. The plan (`split_plan`) depends on shapes and the card's SM
+count only, never on `lengths`, so a call reads nothing back to the host
+and can be captured in a CUDA graph. Bound on the H100: device-memory
+bytes, 2 * B * len * Kh * D * 2 bytes of bf16 K and V per layer.
 
 A CPU tensor goes to `paged_attention_reference`, the plain PyTorch gather
-version; a CUDA tensor launches the kernel or raises.
+version; a CUDA tensor launches the kernels or raises.
+`paged_attention_split_reference` is the plain version of the split and
+combine arithmetic.
 
 Unlike the JAX package, whose arrays are immutable, the port writes new
 K/V into the pool IN PLACE (`write_tokens`, `write_layer_tokens`); the
@@ -37,10 +42,37 @@ import torch
 
 from ray_tpu_torch.ops import _build
 
-# kernel launches since the count was last reset (chip_smoke.py resets it)
-LAUNCHES = 0
-MAX_GROUP = 8        # query heads per kv head the kernel takes (csrc MAX_G)
-MAX_PAGE_SIZE = 256  # keeps the kernel's shared-memory page buffers in bounds
+# kernel launches since the counts were last reset (chip_smoke.py resets them)
+LAUNCHES = 0          # split pass: one per call
+COMBINE_LAUNCHES = 0  # combine pass: one per call whose plan has several splits
+MAX_GROUP = 8         # query heads per kv head the kernel takes (csrc MAX_G)
+# The kernel's shared memory holds 64-token tiles whatever the page size;
+# this is the largest page its checks on the card cover.
+MAX_PAGE_SIZE = 256
+# The split plan's aim: as many CTAs as fit on an SM at G = 4 (128
+# registers a thread); chip_smoke.py times the plans of 2, 3, 4 and 8
+# (PERF.md §6).
+CTAS_PER_SM = 4
+
+
+def split_plan(batch: int, kv_heads: int, max_pages: int, sm_count: int):
+    """(n_split, pages_per_split) of the split pass: enough splits of the
+    block-table row that the batch's kv heads fill about CTAS_PER_SM CTAs
+    per SM. Shapes only: a plan that read `lengths` would need a host sync
+    on every call."""
+    want = -(-CTAS_PER_SM * sm_count // (batch * kv_heads))
+    per = -(-max_pages // max(1, min(max_pages, want)))
+    return -(-max_pages // per), per
+
+
+_SM_COUNT = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SM_COUNT[idx]
 
 
 def paged_attention_reference(q, k_pages, v_pages, block_tables, lengths,
@@ -63,6 +95,40 @@ def paged_attention_reference(q, k_pages, v_pages, block_tables, lengths,
     s = torch.where(mask, s, float("-inf"))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bksd->bkgd", p, v_seq.float())
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+def paged_attention_split_reference(q, k_pages, v_pages, block_tables, lengths, *,
+                                    pages_per_split: int,
+                                    scale: Optional[float] = None) -> torch.Tensor:
+    """The kernels' split-and-combine arithmetic in plain PyTorch: each run
+    of `pages_per_split` table entries gives a partial (max m, sum l,
+    accumulator) in f32, m = -inf, l = 0 and a zero accumulator where the
+    run holds no token; the partials merge by log-sum-exp. Same arguments
+    and result as `paged_attention_reference`."""
+    b, h, d = q.shape
+    kh, _pool, page_size, _d = k_pages.shape
+    g = h // kh
+    max_pages = block_tables.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    n_split = -(-max_pages // pages_per_split)
+    span = pages_per_split * page_size
+    pad = n_split * span - max_pages * page_size   # past the table: no tokens
+    tables = block_tables.long()
+    k_seq = k_pages[:, tables].transpose(0, 1).reshape(b, kh, -1, d).float()
+    v_seq = v_pages[:, tables].transpose(0, 1).reshape(b, kh, -1, d).float()
+    v_seq = torch.nn.functional.pad(v_seq, (0, 0, 0, pad))
+    s = torch.einsum("bkgd,bksd->bkgs", q.reshape(b, kh, g, d).float(), k_seq) * scale
+    s = torch.nn.functional.pad(s, (0, pad), value=float("-inf"))
+    mask = (torch.arange(n_split * span, device=q.device)[None, None, None, :]
+            < lengths.to(q.device)[:, None, None, None])
+    s = torch.where(mask, s, float("-inf")).reshape(b, kh, g, n_split, span)
+    m = s.amax(-1)                                          # [B, Kh, G, n_split]
+    p = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0)[..., None])
+    l = p.sum(-1)
+    acc = torch.einsum("bkgns,bknsd->bkgnd", p, v_seq.reshape(b, kh, n_split, span, d))
+    w = torch.exp(m - m.amax(-1, keepdim=True))             # split 0 holds a token
+    out = (w[..., None] * acc).sum(-2) / (w * l).sum(-1)[..., None]
     return out.reshape(b, h, d).to(q.dtype)
 
 
@@ -118,21 +184,34 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
     _check_inputs(q, k_pages, v_pages, block_tables, lengths)
     b, h, d = q.shape
     kh, _pool, page, _d = k_pages.shape
+    max_pages = block_tables.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     tables = block_tables.to(torch.int32).contiguous()
     lens = lengths.to(torch.int32).contiguous()
+    n_split, per = split_plan(b, kh, max_pages, _sm_count(q.device))
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    # partial (acc, m, l) per split; one split writes out itself
+    ws = (torch.empty(b * n_split * h * (d + 2), dtype=torch.float32, device=q.device)
+          if n_split > 1 else None)
+    code_dtype = _build.DTYPE_CODES[q.dtype]
+    stream = _build.stream_handle(q.device)
     lib = _build.load_library()
-    code = lib.rtt_paged_decode(
-        _build.DTYPE_CODES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
-        v_pages.data_ptr(), tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
-        b, h, kh, d, page, tables.shape[1], q.stride(0), q.stride(1),
-        k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
+    code = lib.rtt_paged_decode_split(
+        code_dtype, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), b, h, kh, d, page, max_pages, n_split, per,
+        q.stride(0), q.stride(1), k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
         v_pages.stride(0), v_pages.stride(1), v_pages.stride(2),
-        out.stride(0), out.stride(1), float(scale), _build.stream_handle(q.device))
-    _build.check(code, "paged_decode")
-    global LAUNCHES
+        out.stride(0), out.stride(1), float(scale), stream)
+    _build.check(code, "paged_decode_split")
+    global LAUNCHES, COMBINE_LAUNCHES
     LAUNCHES += 1
+    if ws is not None:
+        code = lib.rtt_paged_decode_combine(code_dtype, ws.data_ptr(), out.data_ptr(), b, h,
+                                            kh, d, n_split, out.stride(0), out.stride(1),
+                                            stream)
+        _build.check(code, "paged_decode_combine")
+        COMBINE_LAUNCHES += 1
     return out
 
 

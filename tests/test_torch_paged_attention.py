@@ -1,9 +1,14 @@
 """ray_tpu_torch.ops.paged_attention against ray_tpu.ops.paged_attention on
-the CPU: the gather reference (and the Pallas kernel in interpret mode) on
-fragmented block tables, the in-place page writes against JAX's functional
-ones, and the host-side page managers (flat and radix) driven through the
-same allocate / prefix / extend / free sequence. Attention tolerance 2e-5
-(f32); page writes and tables must be equal."""
+the CPU: the gather reference and the kernels' split-and-combine arithmetic
+(against the Pallas kernel in interpret mode too) on fragmented block
+tables, the split plan and the kernels' input guards, the in-place page
+writes against JAX's functional ones, and the host-side page managers (flat
+and radix) driven through the same allocate / prefix / extend / free
+sequence. Attention tolerance 2e-5 (f32; 1e-5 for the split arithmetic);
+page writes and tables must be equal."""
+
+import inspect
+import itertools
 
 import jax.numpy as jnp
 import numpy as np
@@ -47,6 +52,60 @@ def test_reference_matches_jax_fragmented(g):
     before = tpa.LAUNCHES
     assert torch.equal(tpa.paged_attention(*t_args), got)
     assert tpa.LAUNCHES == before
+
+
+@pytest.mark.parametrize("per", [1, 3, 4], ids=["per1", "per3", "per_max"])
+@pytest.mark.parametrize("g", [1, 4])
+def test_split_reference_matches_jax_fragmented(g, per):
+    """The kernels' split-and-combine arithmetic against the JAX gather
+    reference and the Pallas kernel in interpret mode, on fragmented tables
+    of 4 pages of 8 tokens: lengths 1 (every split after the first is
+    empty), a page boundary (8), one past it (9) and a full table (32);
+    pages_per_split 3 leaves the last split past the table's end.
+    Tolerance 1e-5 (f32)."""
+    args = _random_paged(4, 2, g, 64, 8, 4, [1, 8, 9, 32], seed=2)
+    want_ref = jpa.paged_attention_reference(*(jnp.asarray(a) for a in args))
+    want_kernel = jpa.paged_attention(*(jnp.asarray(a) for a in args), interpret=True)
+    got = tpa.paged_attention_split_reference(*(torch.from_numpy(a) for a in args),
+                                              pages_per_split=per)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_ref), atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_kernel), atol=1e-5)
+
+
+def test_split_plan_from_shapes_alone():
+    """The plan reads shapes and the SM count, never `lengths` (a device
+    tensor in the decode step: reading it would sync the host), covers the
+    table with no split wholly past it, and a CPU call launches neither
+    pass."""
+    assert list(inspect.signature(tpa.split_plan).parameters) == [
+        "batch", "kv_heads", "max_pages", "sm_count"]
+    assert tpa.split_plan(8, 8, 32, 132) == (8, 4)    # serve batch: 512 CTAs on 132 SMs
+    assert tpa.split_plan(66, 8, 32, 132) == (1, 32)  # the batch fills the card alone
+    assert tpa.split_plan(1, 8, 4, 132) == (4, 1)     # at most one split per page
+    for b, kh, mp, sm in itertools.product((1, 3, 8, 40), (1, 8), (1, 5, 32, 33), (1, 132)):
+        n, per = tpa.split_plan(b, kh, mp, sm)
+        assert n >= 1 and per >= 1 and n * per >= mp > (n - 1) * per
+    args = [torch.from_numpy(a) for a in _random_paged(3, 2, 2, 16, 8, 4, [1, 13, 32])]
+    before = (tpa.LAUNCHES, tpa.COMBINE_LAUNCHES)
+    got = tpa.paged_attention(*args)
+    assert (tpa.LAUNCHES, tpa.COMBINE_LAUNCHES) == before
+    assert torch.equal(got, tpa.paged_attention_reference(*args))
+
+
+@pytest.mark.parametrize("what", ["page", "group", "head_dim"])
+def test_kernel_input_guards(what):
+    """The kernel's limits: pages up to MAX_PAGE_SIZE tokens, at most
+    MAX_GROUP query heads per kv head, head_dim 16/32/64/128."""
+    page = tpa.MAX_PAGE_SIZE * 2 if what == "page" else 8
+    g = tpa.MAX_GROUP + 1 if what == "group" else 2
+    d = 48 if what == "head_dim" else 16
+    q, kp, vp, tables, lengths = (torch.from_numpy(a) for a in
+                                  _random_paged(2, 1, g, d, page, 2, [1, page]))
+    with pytest.raises(ValueError):
+        tpa._check_inputs(q, kp, vp, tables, lengths)
+    ok = [torch.from_numpy(a) for a in _random_paged(2, 1, 2, 16, tpa.MAX_PAGE_SIZE, 2,
+                                                     [1, 300])]
+    tpa._check_inputs(*ok)
 
 
 def test_full_table_and_page_boundaries():
