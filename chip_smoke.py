@@ -19,7 +19,9 @@ Phases, in order; a failing phase raises and the script exits non-zero:
              decode's split and combine passes, with splits that hold no
              token); the bf16 forward on the same bf16 inputs, with a
              mean limit that a control (scores rounded to bf16 before the
-             softmax) must miss at long T; the backward ones also against
+             softmax) must miss at long T (also at Mixtral's D=128, G=4,
+             T 16/128/2048; paged decode also at D=128, G=4, page 64);
+             the backward ones also against
              a control without the bf16 roundings that their limit must
              reject; a grad-tracking call launches forward, dQ and dK/dV
              once each. The flash kernels are checked again at the
@@ -41,9 +43,28 @@ Phases, in order; a failing phase raises and the script exits non-zero:
              under asyncio; the kernel launch counters are reset just
              before and read just after, and must match layers x calls
              (no backward launch; a combine pass after every split pass
-             whose plan has several splits). One more wave runs under
-             torch.profiler.
-6. train   - the training step (ray_tpu_torch.train): (a) llama_1b width
+             whose plan has several splits); stats()["slo"] must hold TTFT
+             and TPOT summaries, slo_snapshot() must count the waves'
+             requests, and a prefix digest must exist after the radix hit.
+             One more wave runs under torch.profiler.
+6. moe     - the MoE serving path at Mixtral-8x7B width (d_model 4096,
+             32/8 heads, head_dim 128, ffn 14336, 8 experts top-2, vocab
+             32000), depth cut to 8 of its 32 layers: (a) 2 layers in f32,
+             logits and every token's top-2 expert ids through the kernels
+             (B1 at D=128, G=4 on the first prefill chunk, B4 on a decode
+             step) against the plain dense-cache path; (b) the paged
+             LLMServer (bf16 weights from seed 0, dropless experts) serving
+             the slice's two waves, with the same launch-count checks as
+             the slice (path `serve_moe`), the SLO metrics (stats()["slo"],
+             slo_snapshot()), a prefix digest, peak memory, and one wave
+             under torch.profiler with the MoE einsums' share of device
+             time; (c) B1 (B=1, T=128, H=32, Kh=8, D=128) and B4 (B=8, D=128,
+             the wave's lengths) timed with their plain versions and SDPA.
+7. replica - at llama_1b width: speculate=4 against speculate=0 on a
+             repeating prompt (dense, f32: equal greedy ids, accept rate
+             logged), embed of 300 tokens through B1 against the plain
+             path, and a merged LoRA adapter served for one request.
+8. train   - the training step (ray_tpu_torch.train): (a) llama_1b width
              with 2 layers in f32, every parameter's gradient through the
              kernels against the plain attention path (and a TF32 control
              that the limit must reject), and the bf16 loss head at B=4,
@@ -62,6 +83,7 @@ It needs one CUDA card and exits non-zero without one.
 """
 
 import asyncio
+import dataclasses
 import json
 import re
 import shutil
@@ -290,17 +312,20 @@ def check_flash(rng, record, device="cuda"):
     import torch
     from ray_tpu_torch.ops import flash_attention as fa
     worst = 0.0
-    cases = [(dt, causal, g, kh, t, 64) for dt in (torch.float32, torch.bfloat16)
+    cases = [(dt, causal, g, kh, t, 64, 1, 32) for dt in (torch.float32, torch.bfloat16)
              for causal in (True, False) for g, kh in ((1, 32), (4, 8))
              for t in (16, 100, 128, 2048)]
     # the other head dims the kernel is built for
-    cases += [(torch.bfloat16, True, 4, 2, 100, d) for d in (16, 32, 128)]
-    for dtype, causal, g, kh, t, d in cases:
+    cases += [(torch.bfloat16, True, 4, 2, 100, d, 2, 8) for d in (16, 32, 128)]
+    # the MoE serving shapes (Mixtral: D = 128, 32 query heads over 8 kv
+    # heads), on inputs of their own so that the cases above and every
+    # later check keep the inputs they had before these were added
+    cases += [(torch.bfloat16, True, 4, 8, t, 128, 1, 32) for t in (16, 128, 2048)]
+    moe_rng = np.random.default_rng(128)
+    for dtype, causal, g, kh, t, d, b, h in cases:
         name = str(dtype).split(".")[1]
-        if d == 64:
-            q, k, v = flash_inputs(rng, 1, t, 32, kh, 64, dtype, device)
-        else:
-            q, k, v = flash_inputs(rng, 2, t, 8, kh, d, dtype, device)
+        src = moe_rng if (d, h) == (128, 32) else rng
+        q, k, v = flash_inputs(src, b, t, h, kh, d, dtype, device)
         out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
         r = check_fwd(f"{name} causal={causal} G={g} T={t} D={d}", q, k, v, causal, out,
                       lse)
@@ -552,6 +577,9 @@ def paged_cases(rng):
     cases += [(f32, 4, 2, g, d, page, 3, [1, 5, 17, 3 * page])
               for d, g, page in ((16, 2, 16), (32, 1, 32), (128, 8, 16), (64, 3, 64))]
     cases.append((bf16, 3, 2, 6, 64, 32, 8, [1, 100, 256]))
+    # the MoE serving shape: Mixtral's D = 128 and G = 4, page 64 (drawn
+    # from its own inputs in check_paged)
+    cases.append((bf16, 8, 8, 4, 128, 64, 32, serve))
     # one split per page (B x Kh small): length 1 leaves every split but the
     # first without a token, 640 fills a 40-page table; G = 8, D = 128,
     # page 16; the largest page; a batch that fills the card with one split
@@ -573,9 +601,11 @@ def check_paged(rng, record, device="cuda"):
     from ray_tpu_torch.ops import paged_attention as pa
     worst, n_multi = 0.0, 0
     cases = paged_cases(rng)
+    moe_rng = np.random.default_rng(129)
     for dtype, b, kh, g, d, page, max_pages, lens in cases:
         name = str(dtype).split(".")[1]
-        q, kp, vp, tb, ln = paged_inputs(rng, b, kh, g, d, page, max_pages, lens, dtype,
+        src = moe_rng if (d, g) == (128, 4) else rng
+        q, kp, vp, tb, ln = paged_inputs(src, b, kh, g, d, page, max_pages, lens, dtype,
                                          device)
         sms = pa._sm_count(q.device) if device == "cuda" else 132  # CPU: no launch
         n_split, per = pa.split_plan(b, kh, max_pages, sms)
@@ -604,12 +634,13 @@ def check_paged(rng, record, device="cuda"):
     return worst
 
 
-def time_flash(rng, t):
-    """B1 at a prefill chunk of the slice: B=1, H=32, Kh=8, D=64, bf16."""
+def time_flash(rng, t, d=64):
+    """B1 at a prefill chunk of a serving path: B=1, H=32, Kh=8, bf16, head
+    dim `d` (64: llama_1b; 128: Mixtral)."""
     import torch
     import torch.nn.functional as F
     from ray_tpu_torch.ops import flash_attention as fa
-    b, h, kh, d = 1, 32, 8, 64
+    b, h, kh = 1, 32, 8
     q, k, v = flash_inputs(rng, b, t, h, kh, d, torch.bfloat16)
     ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True))
     eager_ms = time_eager_ms(lambda: fa.flash_attention(q, k, v, causal=True))
@@ -624,20 +655,20 @@ def time_flash(rng, t):
     bytes_moved = 2 * (2 * b * t * h * d + 2 * b * t * kh * d) + 4 * b * h * t
     flops = 4 * d * h * b * t * (t + 1) // 2
     bound_ms, bound_by = bound(bytes_moved, flops, "bfloat16")
-    return dict(T=t, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    return dict(T=t, head_dim=d, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
-def time_paged(rng, lengths, copies=1):
-    """B4 at the slice's decode batch: B=8, H=32, Kh=8, D=64, page 64,
-    max_pages 32, bf16. With copies > 1 the timed calls take turns over that
+def time_paged(rng, lengths, copies=1, d=64):
+    """B4 at a serving decode batch: B=8, H=32, Kh=8, page 64, max_pages 32,
+    bf16, head dim `d` (64: llama_1b; 128: Mixtral). With copies > 1 the timed calls take turns over that
     many input sets (own pools and tables), so that K and V come from device
     memory and not from the 50 MB L2 cache. Only wrapper calls are timed, so
     the same function times the kernel of another commit's package."""
     import itertools
     import torch
     from ray_tpu_torch.ops import paged_attention as pa
-    b, kh, g, d, page, max_pages = 8, 8, 4, 64, 64, 32
+    b, kh, g, page, max_pages = 8, 8, 4, 64, 32
     sets = [paged_inputs(rng, b, kh, g, d, page, max_pages, lengths, torch.bfloat16)
             for _ in range(copies)]
     turns = itertools.cycle(sets)
@@ -651,7 +682,7 @@ def time_paged(rng, lengths, copies=1):
     flops = 4 * tokens * kh * g * d
     bound_ms, bound_by = bound(bytes_moved, flops, "bfloat16")
     plan = getattr(pa, "split_plan", None)
-    return dict(lengths=list(lengths), copies=copies, ms=ms, eager_ms=eager_ms,
+    return dict(lengths=list(lengths), copies=copies, head_dim=d, ms=ms, eager_ms=eager_ms,
                 plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
                 plan=plan(b, kh, max_pages, pa._sm_count(sets[0][0].device)) if plan else None)
 
@@ -682,7 +713,6 @@ def check_model(server, device="cuda"):
     """llama_1b in f32: the kernel path (paged chunk-local prefill through
     B1, one decode step through B4) against the plain dense-cache path
     (decode_attention) on the same weights and a 100-token prompt."""
-    import dataclasses
     import torch
     from ray_tpu_torch.models.llama import KVCache, Llama
     from ray_tpu_torch.ops.paged_attention import PagedKVCache
@@ -751,9 +781,7 @@ async def serve_wave(server, prompts, max_tokens):
 
 
 def run_slice(preset="llama_1b", device="cuda"):
-    import torch
     from ray_tpu_torch.models.llama import llama_param_count
-    from ray_tpu_torch.ops import paged_attention as pa
     from ray_tpu_torch.serve.llm import LLMConfig, LLMServer
 
     cfg = LLMConfig(preset=preset, paged=True, page_size=64, max_batch_slots=8,
@@ -766,10 +794,30 @@ def run_slice(preset="llama_1b", device="cuda"):
         f"{llama_param_count(mc) / 1e6:.1f}M params, built in "
         f"{time.perf_counter() - t0:.1f} s")
     model_check = check_model(server, device)
+    summary = serve_and_count(server, "slice", device)
+    summary["model_check"] = model_check
+    if device == "cuda":
+        summary["profile"] = profile_wave(server, mc.vocab_size)
+    return summary
 
+
+def serve_and_count(server, tag, device="cuda"):
+    """The two waves of `slice_prompts` (10 requests x 32 tokens, through
+    generate and generate_stream) after a warm-up request, with the kernel
+    launch counters reset just before and read just after; then the checks
+    of what the path launched (B1 per fresh first chunk, B4 per decode
+    step, its combine pass per its split plan, no backward), of the radix
+    hit and of the SLO metrics (TTFT and TPOT summaries in stats()["slo"],
+    slo_snapshot()'s window counting the waves' requests, a prefix digest
+    after the hit). Returns the summary; raises on a failed check."""
+    import torch
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    mc = server.model_cfg
     # warm-up request (cuBLAS handles, allocator); its stats are subtracted
     asyncio.run(serve_wave(server, [list(range(1, 50))], 8))
     before = server.stats()
+    server.slo_snapshot()             # the next window starts here
     wave1, wave2 = slice_prompts(mc.vocab_size)
     max_tokens = 32
 
@@ -784,6 +832,8 @@ def run_slice(preset="llama_1b", device="cuda"):
     launches = dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), flash_counts()),
                     paged_decode=pa.LAUNCHES, paged_decode_combine=pa.COMBINE_LAUNCHES)
     after = server.stats()
+    snap = server.slo_snapshot()
+    digest = server.prefix_digest()
     # the decode step's split plan (batch slots x kv heads over the table)
     slots, max_pages = server.cache.block_tables.shape
     n_split = (pa.split_plan(slots, mc.n_kv_heads, max_pages,
@@ -816,12 +866,17 @@ def run_slice(preset="llama_1b", device="cuda"):
             launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == 0,
         "radix prefix hit of the shared 256 tokens": hit >= 256,
         "host syncs below tokens (fused chunks)": syncs < tokens,
+        "stats()['slo'] has TTFT and TPOT summaries":
+            bool(after["slo"]["ttft_s"]) and bool(after["slo"]["tpot_ms"]),
+        f"slo_snapshot() counts the waves' {n_req} requests": snap["ttft_count"] == n_req,
+        "a prefix digest after the radix hit": bool(digest and digest["entries"]),
     }
     for what, ok in checks.items():
-        log(f"[slice] {'ok  ' if ok else 'FAIL'} {what}")
+        log(f"[{tag}] {'ok  ' if ok else 'FAIL'} {what}")
     if not all(checks.values()):
-        raise AssertionError(f"slice checks failed: launches {launches}, steps {steps}, "
-                             f"fresh {fresh}, hit {hit}, syncs {syncs}, tokens {tokens}")
+        raise AssertionError(f"{tag} checks failed: launches {launches}, steps {steps}, "
+                             f"fresh {fresh}, hit {hit}, syncs {syncs}, tokens {tokens}, "
+                             f"slo snapshot {snap}, digest {digest}")
     ttft = sorted(r[1] for r in res)
     summary = dict(requests=n_req, max_tokens=max_tokens,
                    prompt_lens=[len(p) for p in wave1 + wave2],
@@ -829,24 +884,229 @@ def run_slice(preset="llama_1b", device="cuda"):
                    decode_tokens=tokens, decode_host_syncs=syncs,
                    decode_steps=steps, decode_s=decode_s,
                    decode_tokens_per_s=tokens / decode_s if decode_s else None,
+                   host_syncs_per_token=syncs / tokens,
                    wall_s=wall, launches=launches, paged_n_split=n_split,
-                   fresh_first_chunks=fresh,
-                   prefix_hit_tokens=hit, model_check=model_check,
+                   fresh_first_chunks=fresh, prefix_hit_tokens=hit,
+                   slo_snapshot=snap, prefix_digest_entries=len(digest["entries"]),
                    stats=after)
-    log(f"[slice] {n_req} requests x {max_tokens} tokens in {wall:.2f} s: "
+    log(f"[{tag}] {n_req} requests x {max_tokens} tokens in {wall:.2f} s: "
         f"TTFT p50 {summary['ttft_p50_s'] * 1e3:.1f} ms, decode "
         f"{summary['decode_tokens_per_s']:.1f} tokens/s over {syncs} host syncs "
-        f"for {tokens} emitted tokens ({steps} steps)")
-    log(f"[slice] stats: {json.dumps(after['decode'])}")
-    if device == "cuda":
-        summary["profile"] = profile_wave(server, mc.vocab_size)
+        f"for {tokens} emitted tokens ({steps} steps, {syncs / tokens:.4f} syncs a token)")
+    log(f"[{tag}] stats: {json.dumps(after['decode'])}; slo ttft_s "
+        f"{json.dumps(after['slo']['ttft_s'])}, tpot_ms {json.dumps(after['slo']['tpot_ms'])}; "
+        f"slo_snapshot {json.dumps(snap)}; digest {len(digest['entries'])} entries")
     return summary
 
 
-def profile_call(fn, device="cuda"):
+# ------------------------------------------------------------------ moe
+# Mixtral-8x7B at full width (LlamaConfig.mixtral_8x7b, from
+# mistralai/Mixtral-8x7B-v0.1's config.json), 8 of its 32 layers: the whole
+# model (93 GB in bf16) does not fit on one card
+MOE_PRESET = "mixtral_8x7b"
+MOE_LAYERS = 8
+
+
+def check_moe_model(device="cuda", preset=MOE_PRESET, n_layers=2, tol=1e-3):
+    """Mixtral width, 2 layers, f32, dropless (capacity_factor E/K, as the
+    server sets it): the logits through the kernels (paged prefill whose
+    first chunk runs B1 at D=128, G=4, then one decode step through B4)
+    against the plain dense-cache path on one 100-token prompt, with
+    check_model's tolerance; and the routing, the top-2 expert ids of every
+    token in every layer, equal between the two paths."""
+    import torch
+    from ray_tpu_torch.models.convert import init_params
+    from ray_tpu_torch.models.llama import KVCache, Llama, LlamaConfig
+    from ray_tpu_torch.ops.paged_attention import PagedKVCache
+
+    cfg = getattr(LlamaConfig, preset)(n_layers=n_layers, dtype=torch.float32,
+                                       param_dtype=torch.float32, max_seq_len=256)
+    cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.moe_top_k)
+    model = init_params(Llama(cfg, device=device), torch.Generator(device=device).manual_seed(0))
+    model.requires_grad_(False)
+    ids = lambda: [blk.moe.last_gate_idx.clone() for blk in model.blocks()]
+    prompt = torch.from_numpy(np.random.default_rng(8).integers(0, cfg.vocab_size, (1, 100))).to(device)
+    before = flash_counts()
+    with torch.no_grad():
+        dense = KVCache.init(cfg, 1, 256, device=device)
+        logits_d, dense = model(prompt, cache=dense)
+        ids_d = ids()
+        nxt = logits_d[:, -1].argmax(-1, keepdim=True)
+        step_d, _ = model(nxt, cache=dense)
+        ids_d += ids()
+        paged = PagedKVCache.init(cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, 5, 64,
+                                  1, 4, dtype=torch.float32, device=device)
+        paged.block_tables[0] = torch.tensor([3, 1, 4, 2], dtype=torch.int32)
+        logits_p, paged = model(prompt, cache=paged, paged_chunk_local=True)
+        ids_p = ids()
+        step_p, _ = model(nxt, cache=paged)
+        ids_p += ids()
+    launched = [a - b for a, b in zip(flash_counts(), before)]
+    err_prefill = (logits_p - logits_d).abs().max().item()
+    err_step = (step_p - step_d).abs().max().item()
+    flips = sum(int((a != b).any(-1).sum()) for a, b in zip(ids_p, ids_d))
+    want = [n_layers, 0, 0] if device == "cuda" else [0, 0, 0]
+    finite = bool(torch.isfinite(logits_p).all() and torch.isfinite(step_p).all())
+    log(f"[moe] {preset} x {n_layers} layers f32 kernel path vs plain path: prefill "
+        f"logits max-abs {err_prefill:.3e}, decode-step logits max-abs {err_step:.3e} (tol "
+        f"{tol}); top-2 expert ids differ for {flips} of {101 * n_layers} (token, layer) "
+        f"pairs; fwd/dq/dkv launched {launched} (want {want})")
+    if not (finite and err_prefill <= tol and err_step <= tol and flips == 0
+            and launched == want):
+        raise AssertionError(f"moe model check failed: finite={finite}, prefill "
+                             f"{err_prefill}, step {err_step}, flips {flips}, "
+                             f"launched {launched}")
+    del model, dense, paged
+    return dict(prefill_max_abs_err=err_prefill, step_max_abs_err=err_step, tol=tol,
+                expert_id_flips=flips)
+
+
+def run_moe(rng, device="cuda", preset=MOE_PRESET, n_layers=MOE_LAYERS):
+    """The MoE serving path: (a) the f32 2-layer model check; (b) the paged
+    LLMServer at Mixtral width with MOE_LAYERS layers, bf16 weights from
+    seed 0, through `serve_and_count` and one profiled wave; (c) B1 and B4
+    timed at its shapes."""
+    import gc
+    import torch
+    from ray_tpu_torch.models.llama import llama_param_count
+    from ray_tpu_torch.serve.llm import LLMConfig, LLMServer
+
+    out = dict(model_check=check_moe_model(device, preset))
+    cuda = device == "cuda"
+    if cuda:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    cfg = LLMConfig(preset=preset, paged=True, page_size=64, max_batch_slots=8,
+                    max_seq_len=2048, prefill_chunk=128, decode_chunk=8, device=device,
+                    seed=0, model_overrides={"n_layers": n_layers})
+    t0 = time.perf_counter()
+    server = LLMServer(cfg)
+    mc = server.model_cfg
+    params = llama_param_count(mc)
+    log(f"[moe] {preset} at {mc.n_layers} layers: d_model {mc.d_model}, "
+        f"{mc.n_heads}/{mc.n_kv_heads} heads, head_dim {mc.head_dim}, ffn {mc.ffn_dim}, "
+        f"{mc.n_experts} experts top-{mc.moe_top_k}, capacity_factor {mc.capacity_factor} "
+        f"(dropless), {params:,} params, built in {time.perf_counter() - t0:.1f} s")
+    summary = serve_and_count(server, "moe", device)
+    out.update(summary, params=params, n_layers=mc.n_layers)
+    if not cuda:
+        return out
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[moe] peak device memory {peak / 2**30:.2f} GiB")
+    prof = profile_wave(server, mc.vocab_size, tag="moe", ranges=("moe_einsums",))
+    prof["moe_einsums_ms"] = prof["ranges"]["moe_einsums"]["device_ms"]
+    prof["moe_einsums_share"] = (prof["moe_einsums_ms"] / 1e3 / prof["device_kernel_s"]
+                                 if prof["moe_einsums_ms"] else "not measured")
+    log(f"[moe] MoE einsums (dispatch, three expert products, combine): "
+        f"{prof['moe_einsums_ms']:.3f} ms of device time, share "
+        f"{prof['moe_einsums_share']}")
+    out.update(peak_memory_bytes=peak, profile=prof)
+    serve_lengths = [n + 16 for n in summary["prompt_lens"][:8]]
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["flash_timing"] = time_flash(rng, 128, d=128)
+    out["paged_timing"] = time_paged(rng, serve_lengths, d=128)
+    for what, r in (("flash_fwd B=1 T=128 H=32 Kh=8 D=128", out["flash_timing"]),
+                    ("paged_decode B=8 H=32 Kh=8 D=128 serve lengths", out["paged_timing"])):
+        lib = f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None else "none"
+        log(f"[moe] {what}: {r['ms']:.4f} ms (eager call {r['eager_ms']:.4f}), plain "
+            f"{r['plain_ms']:.4f} ms, library {lib}, bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']})")
+    return out
+
+
+# ------------------------------------------------------------------ replica
+def run_replica(device="cuda", preset="llama_1b"):
+    """The rest of the LLM replica at llama_1b width: (a) a dense f32 server
+    with speculate=4 against the same weights with speculate=0 on a prompt
+    that repeats itself (greedy ids equal, and speculative ticks must have
+    run; f32, so that the [B, K+1] and [B, 1] products cannot round a
+    near-tie apart). A random model's greedy output does not repeat the
+    prompt's n-grams, so the prompt is P + O + P, where O is the plain
+    server's continuation of P: after the second P the model's output
+    tends to follow O, which the lookup drafts; (b) embed on a
+    300-token prompt in bf16 through B1 (n_layers launches) against the
+    same weights through attn_impl="xla", within TOL["bfloat16"] of the
+    largest |value|; (c) a merged LoRA adapter served through
+    LLMServer(params=...) for one request."""
+    import gc
+    import torch
+    from ray_tpu_torch.models import lora as lora_mod
+    from ray_tpu_torch.serve.llm import LLMConfig, LLMServer
+
+    out = {}
+    f32 = dict(preset=preset, max_batch_slots=2, max_seq_len=512, device=device,
+               seed=0, param_dtype="float32", dtype="float32")
+    plain = LLMServer(LLMConfig(**f32))
+    spec = LLMServer(LLMConfig(speculate=4, **f32), params=plain.model.state_dict())
+    vocab = plain.model_cfg.vocab_size
+    rng = np.random.default_rng(21)
+    head = rng.integers(1, vocab, 16).tolist() * 4
+    prompt = head + asyncio.run(plain.generate(head, max_tokens=48))["tokens"] + head
+    want = asyncio.run(plain.generate(prompt, max_tokens=48))["tokens"]
+    got = asyncio.run(spec.generate(prompt, max_tokens=48))["tokens"]
+    st = spec.stats()["speculation"]
+    out["speculation"] = dict(st, equal=got == want, tokens=len(got), prompt_len=len(prompt))
+    log(f"[replica] speculate=4 vs 0, {preset} f32 dense, {len(prompt)}-token repeating "
+        f"prompt, 48 tokens: ids equal {got == want}; {st}")
+    if got != want or st["spec_ticks"] == 0:
+        raise AssertionError(f"speculation: ids {got} vs {want}, stats {st}")
+    del plain, spec
+
+    bf16 = dict(preset=preset, max_batch_slots=1, max_seq_len=512, device=device, seed=0)
+    srv = LLMServer(LLMConfig(**bf16))
+    ref_srv = LLMServer(LLMConfig(model_overrides={"attn_impl": "xla"}, **bf16),
+                        params=srv.model.state_dict())
+    prompt = rng.integers(1, vocab, 300).tolist()
+    before = flash_counts()
+    vec = np.asarray(asyncio.run(srv.embed(prompt)))
+    launched = [a - b for a, b in zip(flash_counts(), before)]
+    ref = np.asarray(asyncio.run(ref_srv.embed(prompt)))
+    err = float(np.abs(vec - ref).max() / np.abs(ref).max())
+    layers = srv.model_cfg.n_layers if device == "cuda" else 0
+    out["embed"] = dict(rel_err=err, tol=TOL["bfloat16"], launched=launched,
+                        dim=len(vec), finite=bool(np.isfinite(vec).all()))
+    log(f"[replica] embed of 300 tokens (bucket 512), bf16: flash vs plain path max "
+        f"error {err:.3e} of max |value| (tol {TOL['bfloat16']}); fwd/dq/dkv launched "
+        f"{launched} (want [{layers}, 0, 0])")
+    if not (err <= TOL["bfloat16"] and launched == [layers, 0, 0] and out["embed"]["finite"]):
+        raise AssertionError(f"embed check failed: {out['embed']}")
+    del ref_srv
+
+    base = srv.model.state_dict()
+    gen = torch.Generator(device=device).manual_seed(5)
+    adapter = lora_mod.init_lora(gen, base, rank=8)
+    with torch.no_grad():
+        for f in adapter["factors"].values():
+            f["b"].normal_(0.0, 0.02, generator=gen)
+    merged = lora_mod.merge_lora(base, adapter)
+    changed = sum(not torch.equal(merged[k], base[k]) for k in adapter["factors"])
+    del srv
+    lora_srv = LLMServer(LLMConfig(**bf16), params=merged)
+    toks = asyncio.run(lora_srv.generate(prompt[:40], max_tokens=16))["tokens"]
+    out["lora"] = dict(targets=len(adapter["factors"]), changed=changed,
+                       params=lora_mod.lora_param_count(adapter), tokens=len(toks))
+    log(f"[replica] LoRA rank 8 over {len(adapter['factors'])} weights "
+        f"({out['lora']['params']:,} params), merged ({changed} weights changed) and served: "
+        f"{len(toks)} tokens")
+    if not (changed == len(adapter["factors"]) and len(toks) == 16
+            and all(0 <= t < vocab for t in toks)):
+        raise AssertionError(f"LoRA serve failed: {out['lora']}, tokens {toks}")
+    del lora_srv, merged, base
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def profile_call(fn, device="cuda", ranges=()):
     """fn() under torch.profiler: wall time, the device's busy share of it
     (summed kernel time over wall time; the profiler's own cost is inside
-    the wall time) and the kernels that fill it."""
+    the wall time), the kernels that fill it, and for each named
+    record_function range in `ranges` the device time of the kernels
+    launched inside it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -865,10 +1125,16 @@ def profile_call(fn, device="cuda"):
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:10]
     row = lambda e: dict(name=e.key[:90], calls=e.count,
                          device_ms=e.self_device_time_total / 1e3)
+    # a CPU range's device_time_total sums the kernels of the ops inside it
+    spans = {name: dict(calls=0, device_ms=0.0) for name in ranges}
+    for e in prof.key_averages():
+        if e.key in spans and e.device_type == DeviceType.CPU:
+            spans[e.key]["calls"] += e.count
+            spans[e.key]["device_ms"] += e.device_time_total / 1e3
     return dict(wall_s=wall, device_kernel_s=device_us / 1e6,
                 busy_share=(device_us / 1e6 / wall) if device_us else "not measured",
                 launches=sum(e.count for e in kernels), top=[row(e) for e in top],
-                flash=[row(e) for e in kernels if "flash_" in e.key])
+                flash=[row(e) for e in kernels if "flash_" in e.key], ranges=spans)
 
 
 def log_profile(tag, what, out):
@@ -880,18 +1146,19 @@ def log_profile(tag, what, out):
         log(f"[{tag}]   {row['device_ms']:9.3f} ms {row['calls']:6d} x {row['name']}")
 
 
-def profile_wave(server, vocab, max_tokens=16):
+def profile_wave(server, vocab, max_tokens=16, tag="profile", ranges=()):
     """One more wave of 8 fresh prompts under torch.profiler."""
     rng = np.random.default_rng(99)
     prompts = [rng.integers(1, vocab, n).tolist()
                for n in (17, 40, 64, 100, 128, 129, 200, 300)]
     before = server.stats()["decode"]
-    out = profile_call(lambda: asyncio.run(serve_wave(server, prompts, max_tokens)))
+    out = profile_call(lambda: asyncio.run(serve_wave(server, prompts, max_tokens)),
+                       ranges=ranges)
     after = server.stats()["decode"]
     out["decode_steps"] = sum(int(k) * (v - before["chunk_sizes"].get(k, 0))
                               for k, v in after["chunk_sizes"].items())
     out["decode_s"] = after["chunk_s_total"] - before["chunk_s_total"]
-    log_profile("profile", f"8 requests x {max_tokens} tokens ({out['decode_steps']} "
+    log_profile(tag, f"8 requests x {max_tokens} tokens ({out['decode_steps']} "
                 f"decode steps)", out)
     return out
 
@@ -1112,6 +1379,12 @@ def main() -> int:
             f"{r['bound_ms']:.5f} ms ({r['bound_by']}), plan (n_split, pages_per_split) "
             f"{r['plan']}")
 
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()   # the llama_1b server is gone; Mixtral needs the room
+    moe = run_moe(rng)
+    replica = run_replica()
+
     train = dict(grads=check_train_grads(), head_bf16=check_head_bf16(), **run_train())
 
     # one row per kernel; launches counted on each main path that was driven
@@ -1120,7 +1393,8 @@ def main() -> int:
     # max-abs error over the checked cases and the training shape
     def flash_row(name, source, replaces, err):
         t = train_t[name]
-        by_path = {"serve": summary["launches"][name], "train": train["launches"][name]}
+        by_path = {"serve": summary["launches"][name], "serve_moe": moe["launches"][name],
+                   "train": train["launches"][name]}
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=sum(by_path.values()), launches_by_path=by_path,
                     max_abs_err=max(err, t["max_abs_err"]), ms=t["ms"], plain_ms=t["plain_ms"],
@@ -1137,8 +1411,11 @@ def main() -> int:
         dict(name="paged_decode", route="cuda",
              source="ray_tpu_torch/ops/csrc/paged_decode.cu",
              replaces="ray_tpu/ops/paged_attention.py:38",
-             launches=summary["launches"]["paged_decode"],
-             combine_launches=summary["launches"]["paged_decode_combine"],
+             launches=summary["launches"]["paged_decode"] + moe["launches"]["paged_decode"],
+             launches_by_path={"serve": summary["launches"]["paged_decode"],
+                               "serve_moe": moe["launches"]["paged_decode"]},
+             combine_launches=(summary["launches"]["paged_decode_combine"]
+                               + moe["launches"]["paged_decode_combine"]),
              max_abs_err=paged_err, ms=paged_t["ms"], plain_ms=paged_t["plain_ms"],
              bound_ms=paged_t["bound_ms"], bound_by=paged_t["bound_by"], library_ms=None),
     ]
@@ -1148,7 +1425,7 @@ def main() -> int:
         ptxas=registers, cases=cases, bwd_readings=bwd_readings,
         flash_timing=list(flash_t.values()), train_kernel_timing=train_t,
         paged_timing=paged_t, paged_timing_long=paged_long, paged_plans=paged_plans,
-        slice=summary, train=train,
+        slice=summary, moe=moe, replica=replica, train=train,
         kernels=kernels),
         indent=1, default=str))
     print(json.dumps({"kernels": kernels}), flush=True)

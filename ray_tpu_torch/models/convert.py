@@ -11,6 +11,12 @@ the state_dict of `ray_tpu_torch.models.llama.Llama`:
 - embeddings (`embed/embedding`, used by `attend` as x @ E^T for a tied
   head) and norm scales keep their layout.
 
+`flax_lora_to_port` does the same for a JAX LoRA adapter
+(`ray_tpu.models.lora.init_lora`'s tree, as numpy): the factor paths
+become state_dict keys, and a = [in, r], b = [r, out], whose product is a
+kernel's [in, out] delta, become a = [r, in], b = [out, r], whose product
+b @ a is the port weight's [out, in] delta.
+
 `init_params` fills a model from a `torch.Generator` the way the flax
 initializers do (normal with std 0.02 for kernels and the embedding, ones
 for norm scales), for runs with no JAX params.
@@ -53,6 +59,21 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
             key = path.replace("/", ".")
         out[key] = t
     return out
+
+
+def flax_lora_to_port(lora: Mapping) -> Dict:
+    """A JAX adapter {"scale", "factors": {path: {"a", "b"}}} (paths with or
+    without the top-level "params/") -> the port's adapter
+    (`models/lora.py`), on the CPU."""
+    factors = {}
+    for path, f in lora["factors"].items():
+        path = path[len("params/"):] if path.startswith("params/") else path
+        if not path.endswith("/kernel"):
+            raise ValueError(f"LoRA factor {path!r} is not on a Dense kernel")
+        key = path[:-len("/kernel")].replace("/", ".") + ".weight"
+        factors[key] = {"a": _to_tensor(f["a"]).t().contiguous(),
+                        "b": _to_tensor(f["b"]).t().contiguous()}
+    return {"scale": _to_tensor(lora["scale"]), "factors": factors}
 
 
 @torch.no_grad()

@@ -21,7 +21,9 @@ Counterpart of `ray_tpu/models/llama.py` (flax). Design points kept:
   input and recomputes the whole block, so the flash forward kernel runs
   twice per layer and step under remat.
 
-`n_experts > 0` (MoE) and `attn_impl="ring"` belong to later slices.
+`n_experts > 0` swaps the FFN of every `moe_every`-th block for the expert
+bank of `models/moe.py` (child `moe`, as in the flax tree).
+`attn_impl="ring"` (sequence parallel) belongs to a later slice.
 """
 
 import dataclasses
@@ -32,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ray_tpu_torch.models.moe import MoEMLP
 from ray_tpu_torch.ops.attention import apply_rope, decode_attention, mha_reference
 from ray_tpu_torch.ops.flash_attention import flash_attention
 from ray_tpu_torch.ops.paged_attention import (PagedKVCache, paged_attention,
@@ -56,7 +59,7 @@ class LlamaConfig:
     attn_impl: str = "auto"           # auto | flash | xla (ring: later slice)
     sp_axis: str = "sp"               # mesh axis for ring attention
     remat: bool = False
-    # mixture-of-experts (served in a later slice). 0 = dense.
+    # mixture-of-experts (models/moe.py). 0 = dense.
     n_experts: int = 0
     moe_top_k: int = 2
     moe_every: int = 1
@@ -284,20 +287,22 @@ class Block(nn.Module):
         self.attn_norm = RMSNorm(cfg.d_model, cfg.norm_eps, cfg.dtype, device)
         self.attn = Attention(cfg, layer_idx, device)
         self.mlp_norm = RMSNorm(cfg.d_model, cfg.norm_eps, cfg.dtype, device)
-        self.mlp = MLP(cfg, device)
+        if cfg.n_experts > 0 and layer_idx % cfg.moe_every == 0:
+            self.moe = MoEMLP(cfg, device)
+        else:
+            self.mlp = MLP(cfg, device)
 
     def forward(self, x, positions, cache, paged_chunk_local=False):
         h, new_kv = self.attn(self.attn_norm(x), positions, cache, paged_chunk_local)
         x = x + h
-        x = x + self.mlp(self.mlp_norm(x))
+        ffn = self.moe if hasattr(self, "moe") else self.mlp
+        x = x + ffn(self.mlp_norm(x))
         return x, new_kv
 
 
 class Llama(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
-        if cfg.n_experts > 0:
-            raise NotImplementedError("MoE (n_experts > 0): later slice")
         if cfg.attn_impl == "ring":
             raise NotImplementedError("attn_impl='ring' (sequence parallel): later slice")
         if cfg.attn_impl not in ("auto", "flash", "xla"):

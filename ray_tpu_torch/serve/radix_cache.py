@@ -8,7 +8,9 @@ cache, vLLM's automatic prefix caching), subclassing the port's own
     their exact divergence point. Shared pages are read-only by
     construction (prefill skips them, decode writes land past the last full
     prompt page), so the branch point is where copy-on-write happens.
-  * per-node hit accounting and tree-size / evicted-page tallies.
+  * per-node hit accounting and tree-size / evicted-page tallies, and
+    `prefix_digest`, the hashed, hit-counted summary of the borrowable
+    chains that an affinity router reads (`serve/prefix_digest.py`).
   * LRU-by-leaf eviction: only nodes with no RESIDENT children are eviction
     candidates, so the tree never creates unreachable descendants.
   * demotion hooks (`demote_cb`, `restore_cb`, `drop_cb`) keep the JAX
@@ -16,13 +18,15 @@ cache, vLLM's automatic prefix caching), subclassing the port's own
     so an evicted page is discarded.
 
 `RAY_TPU_RADIX=0` selects the flat chained-hash manager instead. The JAX
-package's registry metrics and `prefix_digest` are not ported here.
+package's registry counters of the tree (`radix_*`) are not ported; the
+serving engine reports the same tallies in `stats()`.
 """
 
 import collections
 import os
 
 from ray_tpu_torch.ops.paged_attention import PageManager
+from ray_tpu_torch.serve import prefix_digest as _pd
 
 
 def radix_enabled() -> bool:
@@ -334,6 +338,27 @@ class RadixPageManager(PageManager):
     @property
     def cached_pages(self) -> int:
         return len(self._node_of)
+
+    def prefix_digest(self, max_bytes: int = None) -> dict:
+        """{chained page hash -> hits} over every node a request could
+        borrow (resident pages, and demoted ones when a restore hook is
+        wired), packed to at most `max_bytes` (default
+        RAY_TPU_PREFIX_DIGEST_BYTES=4096) by hottest-first truncation.
+        Children of a hole are skipped: a prefix walk stops there anyway."""
+        if max_bytes is None:
+            max_bytes = _pd.digest_max_bytes()
+        restorable = self.restore_cb is not None
+        cand = []
+        stack = [(self._root, 0, 0)]
+        while stack:
+            node, chain, depth = stack.pop()
+            for child in node.children.values():
+                if child.page is None and (child.handle is None or not restorable):
+                    continue  # hole: nothing below it is borrowable
+                ch = _pd.chain_hash(chain, child.tokens)
+                cand.append((ch, child.hits, depth + 1))
+                stack.append((child, ch, depth + 1))
+        return _pd.build(cand, self.page_size, max_bytes)
 
     def node_stats(self) -> dict:
         """Flat tree accounting for stats()."""

@@ -7,8 +7,9 @@ than prefill_chunk (a multi-chunk prefill) and, in a second wave, one
 sharing two full pages with it (a radix prefix hit on the paged cache).
 
 Also here: the port-only surface (sampling, streaming, reconfigure), the
-configurations that belong to later slices, the default device, and the
-import hygiene of the port (an AST scan: no jax, flax or ray_tpu)."""
+configurations that are refused (tp > 1, a later slice; speculation on the
+paged cache), the default device, and the import hygiene of the port (an
+AST scan: no jax, flax or ray_tpu)."""
 
 import ast
 import asyncio
@@ -140,12 +141,19 @@ def test_reconfigure_decode_chunk():
         srv.reconfigure({"decode_chunk": 0})
 
 
-@pytest.mark.parametrize("kw", [dict(tp=2), dict(speculate=2), dict(preset="moe_tiny")],
-                         ids=["tp", "speculate", "moe"])
-def test_later_slices_raise(kw):
+@pytest.mark.parametrize("kw,exc", [(dict(tp=2), NotImplementedError),
+                                    (dict(speculate=2, paged=True), ValueError)],
+                         ids=["tp", "speculate-paged"])
+def test_later_slices_raise(kw, exc, monkeypatch):
+    """tp > 1 is a later slice; speculation on the paged cache is refused
+    for good, as in the JAX engine, before any weight or page allocation."""
+    def no_alloc(*a, **k):
+        raise AssertionError("allocated before the config check")
+    monkeypatch.setattr(tllm, "Llama", no_alloc)
+    monkeypatch.setattr(tllm.PagedKVCache, "init", no_alloc)
     cfg = dict(preset="tiny", device="cpu")
     cfg.update(kw)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(exc):
         tllm.LLMServer(tllm.LLMConfig(**cfg))
 
 
