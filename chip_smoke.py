@@ -60,11 +60,28 @@ Phases, in order; a failing phase raises and the script exits non-zero:
              under torch.profiler with the MoE einsums' share of device
              time; (c) B1 (B=1, T=128, H=32, Kh=8, D=128) and B4 (B=8, D=128,
              the wave's lengths) timed with their plain versions and SDPA.
-7. replica - at llama_1b width: speculate=4 against speculate=0 on a
-             repeating prompt (dense, f32: equal greedy ids, accept rate
-             logged), embed of 300 tokens through B1 against the plain
-             path, and a merged LoRA adapter served for one request.
-8. train   - the training step (ray_tpu_torch.train): (a) llama_1b width
+7. replica - speculate=4 against speculate=0 (dense, f32: equal greedy
+             ids), first on the tiny preset with CPU-seeded weights and a
+             prompt whose drafts are accepted (accepted > 0), then at
+             llama_1b width on a repeating prompt (accept rate logged);
+             embed of 300 tokens through B1 against the plain path, and a
+             merged LoRA adapter served for one request.
+8. pd      - prefill/decode disaggregation at llama_1b width (path
+             `serve_pd`): a colocated LLMServer, a PrefillServer and a
+             PDServer on one set of weights; the slice's prompts one at a
+             time with PD ids equal to colocated, the shared prefix not
+             shipped again, shipped bytes per page, peak memory under one
+             pool's growth, a pull over the KV data server and the whole-KV
+             hand-off; then a concurrent wave with the launch-count checks
+             (B1 per fresh first chunk on the prefill side, B4 per decode
+             step of the PD server) and the seal / install times a page.
+9. tiered  - radix KV demotion at llama_1b width (path `serve_tiered`): 8
+             families of 1024-token prefixes round-robin on a 32-page pool
+             with a 64 MiB stash, restored pages torch.equal to their
+             bytes before eviction, ids equal a pool that never evicts,
+             demoted/restored pages and disk objects counted, TTFT p50
+             against RAY_TPU_SPILL_KV=0.
+10. train   - the training step (ray_tpu_torch.train): (a) llama_1b width
              with 2 layers in f32, every parameter's gradient through the
              kernels against the plain attention path (and a TF32 control
              that the limit must reject), and the bf16 loss head at B=4,
@@ -83,6 +100,7 @@ It needs one CUDA card and exits non-zero without one.
 """
 
 import asyncio
+import contextlib
 import dataclasses
 import json
 import re
@@ -748,12 +766,12 @@ def check_model(server, device="cuda"):
 
 
 # ------------------------------------------------------------------ slice
-def slice_prompts(vocab):
+def slice_prompts(vocab, seed=1234):
     """Wave 1: 8 fresh prompts (17..300 tokens; 129+ are multi-chunk),
     one of them opening with a 256-token prefix. Wave 2, after wave 1
     finished: that prefix again with another tail (a radix hit that
     prefills through the continuation path), and one fresh prompt."""
-    rng = np.random.default_rng(1234)
+    rng = np.random.default_rng(seed)
     ids = lambda n: rng.integers(1, vocab, n).tolist()
     shared = ids(256)
     wave1 = [ids(n) for n in (17, 40, 64, 100, 128, 129, 200)] + [shared + ids(44)]
@@ -780,14 +798,22 @@ async def serve_wave(server, prompts, max_tokens):
         (via_generate if i % 2 == 0 else via_stream)(p) for i, p in enumerate(prompts)])
 
 
+def serving_config(preset, device, **kw):
+    """The slice's engine settings (page 64, prefill_chunk 128, 8 slots,
+    max_seq_len 2048, decode_chunk 8, seed 0), radix prefix cache on."""
+    from ray_tpu_torch.serve.llm import LLMConfig
+    cfg = dict(preset=preset, paged=True, page_size=64, max_batch_slots=8,
+               max_seq_len=2048, prefill_chunk=128, decode_chunk=8, device=device, seed=0)
+    cfg.update(kw)
+    return LLMConfig(**cfg)
+
+
 def run_slice(preset="llama_1b", device="cuda"):
     from ray_tpu_torch.models.llama import llama_param_count
-    from ray_tpu_torch.serve.llm import LLMConfig, LLMServer
+    from ray_tpu_torch.serve.llm import LLMServer
 
-    cfg = LLMConfig(preset=preset, paged=True, page_size=64, max_batch_slots=8,
-                    max_seq_len=2048, decode_chunk=8, device=device, seed=0)
     t0 = time.perf_counter()
-    server = LLMServer(cfg)
+    server = LLMServer(serving_config(preset, device))
     mc = server.model_cfg
     log(f"[slice] {preset}: d_model {mc.d_model}, {mc.n_layers} layers, "
         f"{mc.n_heads}/{mc.n_kv_heads} heads, head_dim {mc.head_dim}, "
@@ -801,6 +827,58 @@ def run_slice(preset="llama_1b", device="cuda"):
     return summary
 
 
+def launch_counts():
+    from ray_tpu_torch.ops import paged_attention as pa
+    return dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), flash_counts()),
+                paged_decode=pa.LAUNCHES, paged_decode_combine=pa.COMBINE_LAUNCHES)
+
+
+def reset_launch_counts():
+    from ray_tpu_torch.ops import paged_attention as pa
+    reset_flash_counts()
+    pa.LAUNCHES = pa.COMBINE_LAUNCHES = 0
+
+
+def n_split_of(server, device):
+    """The decode step's split plan (batch slots x kv heads over the table)."""
+    from ray_tpu_torch.ops import paged_attention as pa
+    slots, max_pages = server.cache.block_tables.shape
+    if device != "cuda":
+        return 1
+    return pa.split_plan(slots, server.model_cfg.n_kv_heads, max_pages,
+                         pa._sm_count(server.cache.block_tables.device))[0]
+
+
+def decode_delta(after, before):
+    """Decode tokens, host syncs, seconds in decode chunks and decode steps
+    between two stats() readings."""
+    a, b = after["decode"], before["decode"]
+    steps = sum(int(k) * (v - b["chunk_sizes"].get(k, 0)) for k, v in a["chunk_sizes"].items())
+    return (a["tokens"] - b["tokens"], a["host_syncs"] - b["host_syncs"],
+            a["chunk_s_total"] - b["chunk_s_total"], steps)
+
+
+def launch_checks(tag, launches, layers, fresh, steps, n_split):
+    """B1 once a layer for every fresh first prefill chunk, B4 once a layer
+    for every decode step, its combine pass as its plan says, no backward
+    kernel. Logs each; raises on a miss."""
+    checks = {
+        f"flash launches == layers x fresh first chunks ({layers} x {fresh})":
+            launches["flash_fwd"] == layers * fresh,
+        f"paged launches == layers x decode steps ({layers} x {steps})":
+            launches["paged_decode"] == layers * steps,
+        f"a combine after every paged launch ({n_split} splits a call)":
+            launches["paged_decode_combine"] == (launches["paged_decode"] if n_split > 1
+                                                 else 0),
+        "both kernels launched": launches["flash_fwd"] > 0 and launches["paged_decode"] > 0,
+        "no backward kernel launched": launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == 0,
+    }
+    for what, ok in checks.items():
+        log(f"[{tag}] {'ok  ' if ok else 'FAIL'} {what}")
+    if not all(checks.values()):
+        raise AssertionError(f"{tag} launch checks failed: {launches}")
+
+
 def serve_and_count(server, tag, device="cuda"):
     """The two waves of `slice_prompts` (10 requests x 32 tokens, through
     generate and generate_stream) after a warm-up request, with the kernel
@@ -811,7 +889,6 @@ def serve_and_count(server, tag, device="cuda"):
     slo_snapshot()'s window counting the waves' requests, a prefix digest
     after the hit). Returns the summary; raises on a failed check."""
     import torch
-    from ray_tpu_torch.ops import paged_attention as pa
 
     mc = server.model_cfg
     # warm-up request (cuBLAS handles, allocator); its stats are subtracted
@@ -821,49 +898,29 @@ def serve_and_count(server, tag, device="cuda"):
     wave1, wave2 = slice_prompts(mc.vocab_size)
     max_tokens = 32
 
-    reset_flash_counts()
-    pa.LAUNCHES = pa.COMBINE_LAUNCHES = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     res = asyncio.run(serve_wave(server, wave1, max_tokens))
     res += asyncio.run(serve_wave(server, wave2, max_tokens))
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), flash_counts()),
-                    paged_decode=pa.LAUNCHES, paged_decode_combine=pa.COMBINE_LAUNCHES)
+    launches = launch_counts()
     after = server.stats()
     snap = server.slo_snapshot()
     digest = server.prefix_digest()
-    # the decode step's split plan (batch slots x kv heads over the table)
-    slots, max_pages = server.cache.block_tables.shape
-    n_split = (pa.split_plan(slots, mc.n_kv_heads, max_pages,
-                             pa._sm_count(server.cache.block_tables.device))[0]
-               if device == "cuda" else 1)
-
-    dec_a, dec_b = after["decode"], before["decode"]
-    tokens = dec_a["tokens"] - dec_b["tokens"]
-    syncs = dec_a["host_syncs"] - dec_b["host_syncs"]
-    decode_s = dec_a["chunk_s_total"] - dec_b["chunk_s_total"]
-    steps = sum(int(k) * (v - dec_b["chunk_sizes"].get(k, 0))
-                for k, v in dec_a["chunk_sizes"].items())
+    n_split = n_split_of(server, device)
+    tokens, syncs, decode_s, steps = decode_delta(after, before)
     fresh = after["prefill"]["chunk_local"] - before["prefill"]["chunk_local"]
     hit = after["prefix_hit_tokens"] - before["prefix_hit_tokens"]
     n_req = len(wave1) + len(wave2)
-    L = mc.n_layers
 
     for toks, _, _ in res:
         if len(toks) != max_tokens or not all(0 <= t < mc.vocab_size for t in toks):
             raise AssertionError(f"bad request output: {len(toks)} tokens {toks[:8]}...")
+    launch_checks(tag, launches, mc.n_layers, fresh, steps, n_split)
     checks = {
-        "flash launches == layers x fresh first chunks": launches["flash_fwd"] == L * fresh,
         "every fresh prompt took the chunk-local path": fresh == n_req - 1,
-        "paged launches == layers x decode steps": launches["paged_decode"] == L * steps,
-        f"a combine after every paged launch ({n_split} splits a call)":
-            launches["paged_decode_combine"] == (launches["paged_decode"] if n_split > 1
-                                                 else 0),
-        "both kernels launched": launches["flash_fwd"] > 0 and launches["paged_decode"] > 0,
-        "no backward kernel launched (no grad in serving)":
-            launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == 0,
         "radix prefix hit of the shared 256 tokens": hit >= 256,
         "host syncs below tokens (fused chunks)": syncs < tokens,
         "stats()['slo'] has TTFT and TPOT summaries":
@@ -969,7 +1026,7 @@ def run_moe(rng, device="cuda", preset=MOE_PRESET, n_layers=MOE_LAYERS):
     import gc
     import torch
     from ray_tpu_torch.models.llama import llama_param_count
-    from ray_tpu_torch.serve.llm import LLMConfig, LLMServer
+    from ray_tpu_torch.serve.llm import LLMServer
 
     out = dict(model_check=check_moe_model(device, preset))
     cuda = device == "cuda"
@@ -977,11 +1034,8 @@ def run_moe(rng, device="cuda", preset=MOE_PRESET, n_layers=MOE_LAYERS):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-    cfg = LLMConfig(preset=preset, paged=True, page_size=64, max_batch_slots=8,
-                    max_seq_len=2048, prefill_chunk=128, decode_chunk=8, device=device,
-                    seed=0, model_overrides={"n_layers": n_layers})
     t0 = time.perf_counter()
-    server = LLMServer(cfg)
+    server = LLMServer(serving_config(preset, device, model_overrides={"n_layers": n_layers}))
     mc = server.model_cfg
     params = llama_param_count(mc)
     log(f"[moe] {preset} at {mc.n_layers} layers: d_model {mc.d_model}, "
@@ -1018,6 +1072,32 @@ def run_moe(rng, device="cuda", preset=MOE_PRESET, n_layers=MOE_LAYERS):
 
 
 # ------------------------------------------------------------------ replica
+def check_spec_tiny(device="cuda"):
+    """Speculation's accept path on the device: the tiny preset in f32 on
+    weights made on the CPU from seed 0 (the CPU generator, so that a CPU
+    run of this function drafts and accepts on the same weights and
+    prompt: 16 of 35 drafted tokens), prompt P + O + P with O the plain
+    server's continuation of P. speculate=4 must accept tokens and give
+    the ids of plain decode."""
+    from ray_tpu_torch.serve.llm import LLMConfig, LLMServer
+
+    f32 = dict(preset="tiny", max_batch_slots=2, max_seq_len=512, seed=0,
+               param_dtype="float32", dtype="float32")
+    params = LLMServer(LLMConfig(device="cpu", **f32)).model.state_dict()
+    plain = LLMServer(LLMConfig(device=device, **f32), params=params)
+    spec = LLMServer(LLMConfig(speculate=4, device=device, **f32), params=params)
+    head = np.random.default_rng(21).integers(1, 256, 16).tolist()
+    prompt = head + asyncio.run(plain.generate(head, max_tokens=48))["tokens"] + head
+    want = asyncio.run(plain.generate(prompt, max_tokens=48))["tokens"]
+    got = asyncio.run(spec.generate(prompt, max_tokens=48))["tokens"]
+    st = spec.stats()["speculation"]
+    log(f"[replica] speculate=4 vs 0, tiny f32 dense (CPU-seeded weights), "
+        f"{len(prompt)}-token prompt, 48 tokens: ids equal {got == want}; {st}")
+    if got != want or st["accepted"] == 0:
+        raise AssertionError(f"tiny speculation: ids {got} vs {want}, stats {st}")
+    return dict(st, equal=got == want, tokens=len(got), prompt_len=len(prompt))
+
+
 def run_replica(device="cuda", preset="llama_1b"):
     """The rest of the LLM replica at llama_1b width: (a) a dense f32 server
     with speculate=4 against the same weights with speculate=0 on a prompt
@@ -1036,7 +1116,7 @@ def run_replica(device="cuda", preset="llama_1b"):
     from ray_tpu_torch.models import lora as lora_mod
     from ray_tpu_torch.serve.llm import LLMConfig, LLMServer
 
-    out = {}
+    out = dict(speculation_tiny=check_spec_tiny(device))
     f32 = dict(preset=preset, max_batch_slots=2, max_seq_len=512, device=device,
                seed=0, param_dtype="float32", dtype="float32")
     plain = LLMServer(LLMConfig(**f32))
@@ -1098,6 +1178,444 @@ def run_replica(device="cuda", preset="llama_1b"):
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------------------ pd
+@contextlib.contextmanager
+def environ(**values):
+    """Set environment variables (None: unset) for the block."""
+    import os
+    keep = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in keep.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+class Stopwatch:
+    """Wraps a bound method: each call's wall time (the device synchronized
+    on both sides, so earlier queued work is not counted) and its pages
+    (from `pages(args, result)`)."""
+
+    def __init__(self, obj, name, pages, device):
+        self.fn, self.pages, self.device = getattr(obj, name), pages, device
+        self.calls, self.n_pages, self.seconds = 0, 0, 0.0
+        setattr(obj, name, self)
+
+    def _sync(self):
+        if self.device == "cuda":
+            import torch
+            torch.cuda.synchronize()
+
+    def __call__(self, *args):
+        self._sync()
+        t0 = time.perf_counter()
+        out = self.fn(*args)
+        self._sync()
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        self.n_pages += self.pages(args, out)
+        return out
+
+    def ms_per_page(self):
+        return self.seconds * 1e3 / self.n_pages if self.n_pages else None
+
+
+def time_seal_parts(server, n_pages=4, reps=5):
+    """Where a seal's and an install's time goes, on `n_pages` pages (K and
+    V) of the server's pool, in ms a page (least of `reps`, the device
+    synchronized around each): the gather on the device; the copy to the
+    host into pinned memory, into pageable memory touched before, and into
+    a fresh shm segment (a whole seal, as `_publish_pages` does); a host
+    copy from pinned memory into a fresh segment; and the install's copy
+    from a segment to the device."""
+    from multiprocessing import shared_memory
+
+    import torch
+    from ray_tpu_torch._private.object_store import StoreClient, seg_name
+    from ray_tpu_torch.serve import kv_transfer as kt
+
+    sync = torch.cuda.synchronize
+    rows = torch.arange(1, n_pages + 1, device=server.cache.k_pages.device)
+    pools = (server.cache.k_pages, server.cache.v_pages)
+    k, v = (pool[:, :, rows] for pool in pools)
+    nbytes = 2 * k.numel() * k.element_size()
+    pinned = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    pageable = torch.zeros(nbytes, dtype=torch.uint8)
+    flat = torch.cat([k.view(torch.uint8).reshape(-1), v.view(torch.uint8).reshape(-1)])
+    store, seq = StoreClient(), iter(range(10 ** 6))
+
+    def fresh_copy():
+        handle = store.create_writable(f"sealprobe{next(seq)}", nbytes)
+        seg = torch.frombuffer(handle.view, dtype=torch.uint8)
+        seg.copy_(pinned)
+        del seg
+        handle.seal()
+
+    def install():   # attach the first probe segment, copy it to the device
+        shm = shared_memory.SharedMemory(name=seg_name("sealprobe0"))
+        att = torch.frombuffer(shm.buf, dtype=torch.uint8, count=nbytes)
+        att.to(rows.device)
+        del att
+        shm.close()
+
+    steps = dict(gather=lambda: [pool[:, :, rows] for pool in pools],
+                 d2h_pinned=lambda: pinned.copy_(flat),
+                 d2h_pageable=lambda: pageable.copy_(flat),
+                 seal_fresh_segment=lambda: kt._seal_blocks(
+                     store, f"sealprobe{next(seq)}", k, v),
+                 host_copy_fresh_segment=fresh_copy,
+                 install_from_segment=install)
+    out = {}
+    for name, fn in steps.items():
+        best = float("inf")
+        for _ in range(reps):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            best = min(best, time.perf_counter() - t0)
+        out[name] = best * 1e3 / n_pages
+    for i in range(next(seq)):
+        store.delete_segment(f"sealprobe{i}")
+    out["bytes_a_page"] = nbytes // n_pages
+    log("[pd] seal and install parts, ms a page of " + str(nbytes // n_pages) + " B: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in out.items() if k != "bytes_a_page"))
+    return out
+
+
+def run_pd(device="cuda", preset="llama_1b", max_tokens=16):
+    """Prefill/decode disaggregation at llama_1b width and depth: a
+    colocated LLMServer, a PrefillServer and a PDServer on one card and one
+    set of bf16 weights (seed 0), all with the radix prefix cache. (a) The
+    slice's 10 prompts one at a time, 16 tokens each: PD ids equal the
+    colocated ids (the decode batch shape and the shipped page bytes are
+    the same); the 256-token shared prefix is not shipped again (saved
+    pages >= 4); shipped bytes = pages x the page's K+V bytes; peak device
+    memory during PD admission grows by less than one K pool (the install
+    scatters in place). (b) One request without the same-host attach
+    (pulled over the KV data server's streams) and one over the whole-KV
+    RPC hand-off, each equal to colocated. (c) A concurrent wave of 10 fresh
+    prompts through generate and generate_stream, the launch counters
+    reset just before and read just after: B1 once a layer per fresh first
+    chunk on the prefill side, B4 once a layer per decode step of the PD
+    server, no backward kernel; the PD server itself prefills nothing.
+    Seal (device to shm) and install (shm to device) times per page are
+    measured around every call."""
+    import gc
+    import torch
+    from ray_tpu_torch.serve.llm import LLMServer
+    from ray_tpu_torch.serve.pd import PDServer, PrefillServer
+    from ray_tpu_torch.util import metrics as tm
+
+    cuda = device == "cuda"
+    colo = LLMServer(serving_config(preset, device))
+    params = colo.model.state_dict()
+    prefill = PrefillServer(serving_config(preset, device), params=params)
+    pd = PDServer(serving_config(preset, device), params=params, prefill=prefill)
+    mc = pd.model_cfg
+    L = mc.n_layers
+    page_bytes = 2 * pd.cache.k_pages[:, :, 0].numel() * pd.cache.k_pages.element_size()
+    pool_bytes = pd.cache.k_pages.numel() * pd.cache.k_pages.element_size()
+    seal = Stopwatch(prefill, "_publish_pages", lambda a, out: out["n_pages"], device)
+    install = Stopwatch(pd, "_install_pages", lambda a, out: a[2], device)
+    gen = lambda srv, p, n=max_tokens: asyncio.run(srv.generate(p, max_tokens=n))["tokens"]
+    gen(colo, list(range(1, 50)), 8)          # warm-up, both paths
+    gen(pd, list(range(1, 50)), 8)
+
+    wave1, wave2 = slice_prompts(mc.vocab_size)
+    seq = wave1 + wave2
+    k0 = tm.kv_ship_counters()
+    if cuda:
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    equal, saved_at_hit = [], None
+    for i, p in enumerate(seq):
+        want = gen(colo, p)
+        before_saved = tm.kv_ship_counters()["saved_pages"]
+        got = gen(pd, p)
+        equal.append(got == want)
+        if i == len(wave1):   # wave 2's first prompt: the shared 256-token prefix
+            saved_at_hit = tm.kv_ship_counters()["saved_pages"] - before_saved
+    peak_growth = (torch.cuda.max_memory_allocated() - base_mem) if cuda else 0
+    k1 = tm.kv_ship_counters()
+    shipped = {k: k1[k] - k0[k] for k in k1}
+
+    rng = np.random.default_rng(999)
+    p_pull, p_rpc = rng.integers(1, mc.vocab_size, 200).tolist(), rng.integers(
+        1, mc.vocab_size, 150).tolist()
+    with environ(RAY_TPU_KV_ATTACH="0"):
+        before = tm.kv_ship_counters()
+        pull_equal = gen(pd, p_pull) == gen(colo, p_pull)
+        pulls = tm.kv_ship_counters()["stream_pulls"] - before["stream_pulls"]
+    with environ(RAY_TPU_KV_SHIP="0"):
+        before = tm.kv_ship_counters()
+        rpc_equal = gen(pd, p_rpc) == gen(colo, p_rpc)
+        rpc_segments = tm.kv_ship_counters()["segments"] - before["segments"]
+
+    checks = {
+        f"PD ids == colocated ids for all {len(seq)} sequential requests": all(equal),
+        f"the shared 256-token prefix was not shipped again (saved pages {saved_at_hit} >= 4)":
+            (saved_at_hit or 0) >= 4,
+        f"shipped bytes == pages x {page_bytes} B ({shipped['pages']:.0f} pages)":
+            shipped["bytes"] == shipped["pages"] * page_bytes and shipped["pages"] > 0,
+        "every segment attached same-host": shipped["attach_hits"] == shipped["segments"],
+        f"peak memory during PD admission grew by less than one K pool "
+        f"({peak_growth / 2**20:.1f} MiB < {pool_bytes / 2**20:.1f} MiB)":
+            peak_growth < pool_bytes,
+        f"RAY_TPU_KV_ATTACH=0: pulled over the data server ({pulls:.0f} stream pulls), "
+        f"ids equal": pulls >= 1 and pull_equal,
+        "RAY_TPU_KV_SHIP=0: whole-KV hand-off, no segment, ids equal":
+            rpc_equal and rpc_segments == 0,
+    }
+    for what, ok in checks.items():
+        log(f"[pd] {'ok  ' if ok else 'FAIL'} {what}")
+    if not all(checks.values()):
+        raise AssertionError(f"pd checks failed: equal {equal}, shipped {shipped}, "
+                             f"saved at hit {saved_at_hit}, peak growth {peak_growth}")
+    out = dict(sequential_requests=len(seq), max_tokens=max_tokens, ids_equal=all(equal),
+               saved_pages_at_hit=saved_at_hit, shipped=shipped, page_bytes=page_bytes,
+               peak_growth_bytes=peak_growth, pool_bytes=pool_bytes,
+               stream_pulls=pulls, rpc_handoff_equal=rpc_equal)
+    del colo
+    gc.collect()
+
+    # (c) the concurrent wave, on fresh prompts
+    wave1, wave2 = slice_prompts(mc.vocab_size, seed=4321)
+    wmax = 32
+    b_pd, b_pre = pd.stats(), prefill.stats()
+    pd.slo_snapshot()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = asyncio.run(serve_wave(pd, wave1, wmax))
+    res += asyncio.run(serve_wave(pd, wave2, wmax))
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    a_pd, a_pre = pd.stats(), prefill.stats()
+    tokens, syncs, decode_s, steps = decode_delta(a_pd, b_pd)
+    fresh = a_pre["prefill"]["chunk_local"] - b_pre["prefill"]["chunk_local"]
+    n_req = len(wave1) + len(wave2)
+    for toks, _, _ in res:
+        if len(toks) != wmax or not all(0 <= t < mc.vocab_size for t in toks):
+            raise AssertionError(f"bad PD output: {len(toks)} tokens {toks[:8]}...")
+    wave_checks = {
+        "the PD server prefilled nothing":
+            a_pd["prefill"]["chunks"] == b_pd["prefill"]["chunks"],
+        f"every fresh prompt took the chunk-local path on the prefill side ({fresh})":
+            fresh == n_req - 1,
+        f"slo_snapshot() counts the wave's {n_req} PD requests":
+            pd.slo_snapshot()["ttft_count"] == n_req,
+    }
+    for what, ok in wave_checks.items():
+        log(f"[pd] {'ok  ' if ok else 'FAIL'} {what}")
+    if not all(wave_checks.values()):
+        raise AssertionError(f"pd wave checks failed: fresh {fresh}, stats {a_pd}")
+    launch_checks("pd", launches, L, fresh, steps, n_split_of(pd, device))
+    ttft = sorted(r[1] for r in res)
+    out.update(requests=n_req, wave_max_tokens=wmax, ttft_p50_s=float(np.median(ttft)),
+               ttft_max_s=ttft[-1], decode_tokens=tokens, decode_host_syncs=syncs,
+               decode_steps=steps, decode_s=decode_s,
+               decode_tokens_per_s=tokens / decode_s if decode_s else None,
+               host_syncs_per_token=syncs / tokens, wall_s=wall, launches=launches,
+               fresh_first_chunks=fresh, paged_n_split=n_split_of(pd, device),
+               seal=dict(calls=seal.calls, pages=seal.n_pages, ms_per_page=seal.ms_per_page()),
+               install=dict(calls=install.calls, pages=install.n_pages,
+                            ms_per_page=install.ms_per_page()),
+               kv_ship=a_pd["kv_ship"], slo_pd=a_pd["slo"]["ttft_s"])
+    if cuda:
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        out["seal_parts"] = time_seal_parts(pd)
+    log(f"[pd] sequential: {len(seq)} requests x {max_tokens} tokens, ids equal; shipped "
+        f"{shipped['pages']:.0f} pages, {shipped['bytes'] / 2**20:.1f} MiB in "
+        f"{shipped['segments']:.0f} segments, {shipped['saved_pages']:.0f} pages not shipped; "
+        f"peak growth {peak_growth / 2**20:.1f} MiB")
+    log(f"[pd] seal (device -> shm) {out['seal']['ms_per_page']:.4f} ms a page over "
+        f"{seal.n_pages} pages, install (shm -> device) {out['install']['ms_per_page']:.4f} "
+        f"ms a page over {install.n_pages} pages")
+    log(f"[pd] wave: {n_req} requests x {wmax} tokens in {wall:.2f} s: TTFT p50 "
+        f"{out['ttft_p50_s'] * 1e3:.1f} ms, decode {out['decode_tokens_per_s']:.1f} tokens/s "
+        f"over {syncs} host syncs for {tokens} tokens ({steps} steps, "
+        f"{syncs / tokens:.4f} syncs a token); launches {launches}")
+    del pd, prefill, params
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------------------ tiered
+TIER_FAMILIES, TIER_PREFIX, TIER_TAIL, TIER_NEW = 8, 1024, 16, 2
+
+
+def tier_prompts(vocab, rounds=3):
+    """8 families of a 1024-token prefix (16 pages); every visit adds a
+    fresh 16-token tail. prompts[r][f] is family f's prompt in round r."""
+    rng = np.random.default_rng(77)
+    fams = [rng.integers(1, vocab, TIER_PREFIX).tolist() for _ in range(TIER_FAMILIES)]
+    return fams, [[fam + rng.integers(1, vocab, TIER_TAIL).tolist() for fam in fams]
+                  for _ in range(rounds)]
+
+
+def tier_pages(server, prefix):
+    """(k, v) of the resident radix pages of `prefix`, [L, Kh, 16, ps, D]."""
+    import torch
+    pids = [n.page for n in server.page_mgr._walk(prefix)]
+    if len(pids) != TIER_PREFIX // server.config.page_size or None in pids:
+        raise AssertionError(f"prefix pages not resident: {pids}")
+    idx = torch.tensor(pids, device=server.cache.k_pages.device)
+    return server.cache.k_pages[:, :, idx].clone(), server.cache.v_pages[:, :, idx].clone()
+
+
+def tier_rounds(server, prompts, probe=None):
+    """Visit every family round-robin, one request at a time; returns the
+    ids of every visit, the TTFT of the rounds after the first, and the
+    largest count of disk-resident stash objects seen. probe(r, f) runs
+    after each visit."""
+    ids, ttft, disk = [], [], 0
+    for r, wave in enumerate(prompts):
+        for f, p in enumerate(wave):
+            out = asyncio.run(server.generate(p, max_tokens=TIER_NEW))
+            ids.append(out["tokens"])
+            if r:
+                ttft.append(out["ttft_s"])
+            stash = server.stats()["radix"].get("stash")
+            disk = max(disk, stash["disk_objects"] if stash else 0)
+            if probe is not None:
+                probe(r, f)
+    return ids, ttft, disk
+
+
+def run_tiered(device="cuda", preset="llama_1b", stash_bytes=64 << 20):
+    """Tiered KV at llama_1b width (the JAX bench's bench_tiered): 8
+    families of 1024-token prefixes visited round-robin, one cold round and
+    two measured rounds, each visit a fresh 16-token tail and 2 new tokens,
+    on 2 slots and a pool of 32 usable pages (+ the null page), a quarter
+    of the 128-page working set; the stash's shm budget is `stash_bytes`
+    (64 MiB: 32 pages), so its disk rung is used too. Checks: family 0's 16
+    K/V pages after their restore equal (torch.equal) their bytes before
+    eviction; every id equals those of the same weights on a pool that
+    never evicts (re-visits are resident hits); radix_counters() shows
+    demoted and restored pages, the stash held disk objects, B1 ran only on
+    the cold visits' first chunks and B4 once a layer per decode step.
+    Reported without a claim: the measured rounds' TTFT p50 against the
+    same rounds with RAY_TPU_SPILL_KV=0 (every re-visit prefills again),
+    with the default 256 MiB budget (every demoted page stays in shm) and
+    on the pool that never evicts, and spill_restore_ms."""
+    import gc
+    import torch
+    from ray_tpu_torch.serve.llm import LLMServer
+    from ray_tpu_torch.util import metrics as tm
+
+    cuda = device == "cuda"
+    kw = dict(max_batch_slots=2, num_pages=TIER_FAMILIES * TIER_PREFIX // 64 // 4 + 1)
+    with environ(RAY_TPU_SPILL_STASH_BYTES=str(stash_bytes), RAY_TPU_SPILL_KV=None,
+                 RAY_TPU_RADIX=None):
+        tiered = LLMServer(serving_config(preset, device, **kw))
+    params = tiered.model.state_dict()
+    mc = tiered.model_cfg
+    fams, prompts = tier_prompts(mc.vocab_size)
+    snaps, restored = [], []
+
+    def probe(r, f):
+        if f == 0 and r < 2:   # family 0 cold, then after its first restore
+            snaps.append(tier_pages(tiered, fams[0]))
+            restored.append(tiered.page_mgr.restored_pages)
+
+    r0, b0 = tm.radix_counters(), tiered.stats()
+    reset_launch_counts()
+    ids, ttft, disk = tier_rounds(tiered, prompts, probe)
+    launches = launch_counts()
+    r1, b1 = tm.radix_counters(), tiered.stats()
+    radix = {k: r1[k] - r0[k] for k in r1 if k != "prefix_nodes"}
+    tokens, syncs, decode_s, steps = decode_delta(b1, b0)
+    fresh = b1["prefill"]["chunk_local"] - b0["prefill"]["chunk_local"]
+    spill_ms = b1["slo"]["spill_restore_ms"]
+    hist = {m["name"]: m for m in tm.collect()}.get("spill_restore_ms")
+    spill_by_op = ({dict(k)["op"]: dict(count=n, mean_ms=hist["sum"][k] / n)
+                    for k, n in hist["count"].items()} if hist else {})
+    stash = b1["radix"]["stash"]
+    n_split = n_split_of(tiered, device)
+    (k0, v0), (k1, v1) = snaps
+    bytes_equal = bool(torch.equal(k0, k1) and torch.equal(v0, v1))
+    del tiered, snaps, k0, v0, k1, v1
+    gc.collect()
+
+    resident = LLMServer(serving_config(preset, device, max_batch_slots=2,
+                                        num_pages=TIER_FAMILIES * 17 + 5), params=params)
+    want, ttft_resident, _ = tier_rounds(resident, prompts)
+    resident_evicted = resident.stats()["radix"]["evicted_pages"]
+    del resident
+    gc.collect()
+    with environ(RAY_TPU_SPILL_KV="0"):
+        thrash = LLMServer(serving_config(preset, device, **kw), params=params)
+    ids_thrash, ttft_thrash, _ = tier_rounds(thrash, prompts)
+    no_stash = thrash.stats()["radix"].get("stash") is None
+    del thrash
+    gc.collect()
+    # the default budget (RAY_TPU_SPILL_STASH_BYTES unset: 256 MiB) holds the
+    # whole working set in shm: the same rounds without the disk rung
+    with environ(RAY_TPU_SPILL_STASH_BYTES=None, RAY_TPU_SPILL_KV=None, RAY_TPU_RADIX=None):
+        shm_only = LLMServer(serving_config(preset, device, **kw), params=params)
+    ids_shm, ttft_shm, disk_shm = tier_rounds(shm_only, prompts)
+    del shm_only, params
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    checks = {
+        "family 0's 16 K/V pages restored byte for byte (torch.equal)": bytes_equal,
+        f"family 0's first re-visit restored its 16 pages ({restored})":
+            len(restored) == 2 and restored[1] - restored[0] >= TIER_PREFIX // 64,
+        f"ids of all {len(ids)} visits equal a pool that never evicts": ids == want,
+        "the never-evicting pool evicted nothing": resident_evicted == 0,
+        f"radix_counters(): demoted {radix['demoted_pages']:.0f}, restored "
+        f"{radix['restored_pages']:.0f} pages": radix["demoted_pages"] > 0
+        and radix["restored_pages"] > 0,
+        f"the stash used its disk rung (up to {disk} disk objects)": disk > 0,
+        "spill_restore_ms observed": bool(spill_ms and spill_ms["count"] > 0),
+        f"B1 only on the {TIER_FAMILIES} cold visits ({fresh} fresh first chunks)":
+            fresh == TIER_FAMILIES,
+        "RAY_TPU_SPILL_KV=0 builds no stash": no_stash,
+        "the default stash budget kept every page in shm, ids equal":
+            disk_shm == 0 and ids_shm == want,
+    }
+    for what, ok in checks.items():
+        log(f"[tiered] {'ok  ' if ok else 'FAIL'} {what}")
+    if not all(checks.values()):
+        raise AssertionError(f"tiered checks failed: radix {radix}, stash {stash}, "
+                             f"restored {restored}, fresh {fresh}")
+    launch_checks("tiered", launches, mc.n_layers, fresh, steps, n_split)
+    p50 = lambda xs: float(np.median(xs))
+    out = dict(families=TIER_FAMILIES, prefix_tokens=TIER_PREFIX, tail_tokens=TIER_TAIL,
+               new_tokens=TIER_NEW, pool_pages=kw["num_pages"] - 1,
+               stash_budget_bytes=stash_bytes, visits=len(ids),
+               ttft_p50_s=p50(ttft), ttft_p50_spill_off_s=p50(ttft_thrash),
+               ttft_p50_resident_s=p50(ttft_resident), ttft_p50_shm_only_s=p50(ttft_shm),
+               ids_equal_spill_off=ids_thrash == want, radix=radix, stash=stash,
+               disk_objects_max=disk, spill_restore_ms=spill_ms,
+               spill_restore_ms_by_op=spill_by_op, launches=launches,
+               fresh_first_chunks=fresh, decode_steps=steps, paged_n_split=n_split)
+    log(f"[tiered] measured rounds' TTFT p50: restored from the stash "
+        f"{out['ttft_p50_s'] * 1e3:.1f} ms, RAY_TPU_SPILL_KV=0 (prefill again) "
+        f"{out['ttft_p50_spill_off_s'] * 1e3:.1f} ms, restored from shm only (default "
+        f"budget) {out['ttft_p50_shm_only_s'] * 1e3:.1f} ms, resident hits "
+        f"{out['ttft_p50_resident_s'] * 1e3:.1f} ms; spill_restore_ms {json.dumps(spill_ms)}, "
+        f"by op {json.dumps(spill_by_op)}; "
+        f"stash at the end {stash}; radix {radix}; SPILL_KV=0 ids equal "
+        f"{out['ids_equal_spill_off']}; launches {launches}")
     return out
 
 
@@ -1384,6 +1902,8 @@ def main() -> int:
     torch.cuda.empty_cache()   # the llama_1b server is gone; Mixtral needs the room
     moe = run_moe(rng)
     replica = run_replica()
+    pd = run_pd()
+    tiered = run_tiered()
 
     train = dict(grads=check_train_grads(), head_bf16=check_head_bf16(), **run_train())
 
@@ -1394,6 +1914,7 @@ def main() -> int:
     def flash_row(name, source, replaces, err):
         t = train_t[name]
         by_path = {"serve": summary["launches"][name], "serve_moe": moe["launches"][name],
+                   "serve_pd": pd["launches"][name], "serve_tiered": tiered["launches"][name],
                    "train": train["launches"][name]}
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=sum(by_path.values()), launches_by_path=by_path,
@@ -1401,6 +1922,7 @@ def main() -> int:
                     bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                     library_ms=t["library_ms"])
 
+    serve_runs = {"serve": summary, "serve_moe": moe, "serve_pd": pd, "serve_tiered": tiered}
     kernels = [
         flash_row("flash_fwd", "ray_tpu_torch/ops/csrc/flash_fwd.cu",
                   "ray_tpu/ops/flash_attention.py:37", flash_err),
@@ -1411,11 +1933,11 @@ def main() -> int:
         dict(name="paged_decode", route="cuda",
              source="ray_tpu_torch/ops/csrc/paged_decode.cu",
              replaces="ray_tpu/ops/paged_attention.py:38",
-             launches=summary["launches"]["paged_decode"] + moe["launches"]["paged_decode"],
-             launches_by_path={"serve": summary["launches"]["paged_decode"],
-                               "serve_moe": moe["launches"]["paged_decode"]},
-             combine_launches=(summary["launches"]["paged_decode_combine"]
-                               + moe["launches"]["paged_decode_combine"]),
+             launches=sum(r["launches"]["paged_decode"] for r in serve_runs.values()),
+             launches_by_path={k: r["launches"]["paged_decode"]
+                               for k, r in serve_runs.items()},
+             combine_launches=sum(r["launches"]["paged_decode_combine"]
+                                  for r in serve_runs.values()),
              max_abs_err=paged_err, ms=paged_t["ms"], plain_ms=paged_t["plain_ms"],
              bound_ms=paged_t["bound_ms"], bound_by=paged_t["bound_by"], library_ms=None),
     ]
@@ -1425,7 +1947,7 @@ def main() -> int:
         ptxas=registers, cases=cases, bwd_readings=bwd_readings,
         flash_timing=list(flash_t.values()), train_kernel_timing=train_t,
         paged_timing=paged_t, paged_timing_long=paged_long, paged_plans=paged_plans,
-        slice=summary, moe=moe, replica=replica, train=train,
+        slice=summary, moe=moe, replica=replica, pd=pd, tiered=tiered, train=train,
         kernels=kernels),
         indent=1, default=str))
     print(json.dumps({"kernels": kernels}), flush=True)

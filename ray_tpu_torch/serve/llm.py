@@ -25,15 +25,18 @@ the continuation of the newest n-gram match in the request's own context
 is verified in one [B, K+1] forward, exact for greedy requests); the SLO
 histograms (TTFT, TPOT, batch occupancy, KV page use) in the port's
 metrics registry, with `slo_snapshot` for windowed reads; `embed` (mean-
-pooled final hidden states); and `prefix_digest` for an affinity router.
-Later slices bring tensor parallelism (`tp > 1`) and KV stash demotion of
-evicted prefix pages.
+pooled final hidden states); `prefix_digest` for an affinity router; and
+the KV stash: with the radix prefix cache, a page the LRU evicts is
+demoted into shm (then disk) segments and restored byte for byte on the
+next matching request instead of being prefilled again
+(`serve/kv_transfer.py`; RAY_TPU_SPILL_KV=0 discards instead). A later
+slice brings tensor parallelism (`tp > 1`). Prefill/decode disaggregation
+over the same engine is `serve/pd.py`.
 """
 
 import asyncio
 import collections
 import dataclasses
-import os
 import time
 from typing import Any, Dict, List, Optional
 
@@ -45,6 +48,7 @@ from ray_tpu_torch.models.convert import init_params
 from ray_tpu_torch.models.llama import KVCache, Llama, LlamaConfig
 from ray_tpu_torch.ops.paged_attention import PagedKVCache
 from ray_tpu_torch.serve import radix_cache as _radix
+from ray_tpu_torch.serve.kv_transfer import KVPageStash, kv_demote_enabled
 from ray_tpu_torch.util import metrics as _metrics
 
 
@@ -119,12 +123,6 @@ class _PrefillJob:
     pos: int = 0
 
 
-def _kv_demotion_requested() -> bool:
-    """The JAX engine demotes radix-evicted pages into the object store by
-    default (RAY_TPU_SPILL_KV); this port discards them unless asked."""
-    return os.environ.get("RAY_TPU_SPILL_KV", "0") != "0"
-
-
 class LLMServer:
     """`generate(prompt_ids, max_tokens)` -> token ids, on one device.
 
@@ -160,10 +158,6 @@ class LLMServer:
             if self.model_cfg.capacity_factor < dropless:
                 self.model_cfg = dataclasses.replace(self.model_cfg,
                                                      capacity_factor=dropless)
-        if cfg.paged and cfg.prefix_cache and _kv_demotion_requested():
-            raise NotImplementedError(
-                "KV stash demotion of evicted prefix pages needs the object "
-                "store: later slice (unset RAY_TPU_SPILL_KV)")
         B = cfg.max_batch_slots
         self.model = Llama(self.model_cfg, device=self.device)
         if params is None:
@@ -174,13 +168,22 @@ class LLMServer:
         self.model.requires_grad_(False)
         self.model.eval()
 
+        # tiered KV: the radix tree demotes LRU-evicted prefix pages into
+        # the stash (shm, then disk) and restores them on a later match
+        self._kv_stash = None
+        self._pending_restores = []
         if cfg.paged:
             mc = self.model_cfg
             max_pages = -(-cfg.max_seq_len // cfg.page_size)
             num_pages = cfg.num_pages or (B * max_pages + 1)
+            hooks = {}
+            if cfg.prefix_cache and _radix.radix_enabled() and kv_demote_enabled():
+                self._kv_stash = KVPageStash()
+                hooks = dict(demote_cb=self._demote_page,
+                             restore_cb=self._restore_page, drop_cb=self._drop_page)
             self.page_mgr = _radix.make_page_manager(
                 num_pages, cfg.page_size, B, max_pages,
-                prefix_cache=cfg.prefix_cache)
+                prefix_cache=cfg.prefix_cache, **hooks)
             self.cache = PagedKVCache.init(
                 mc.n_layers, mc.n_kv_heads, mc.head_dim, num_pages,
                 cfg.page_size, B, max_pages, dtype=mc.dtype, device=self.device)
@@ -534,6 +537,7 @@ class LLMServer:
                 if use_prefix and self.config.prefix_cache:
                     row, cached = mgr.allocate_prefix(
                         slot_idx, list(prompt_ids), total_len)
+                    self._flush_restored_pages()
                 else:
                     row = mgr.allocate(slot_idx, total_len)
                 # lengths[slot] must point PAST the shared prefix before the
@@ -544,6 +548,7 @@ class LLMServer:
                 self.cache.block_tables[slot_idx] = self._tensor(row, torch.int32)
                 self.cache.lengths[slot_idx] = cached
         except BaseException:
+            self._pending_restores = []   # their pages went back with the allocation
             self._release_slot(slot_idx)
             raise
         return slot_idx, cached
@@ -650,6 +655,40 @@ class LLMServer:
                 self._release_slot(i)
             self._active.clear()
             raise
+
+    # -- tiered KV: the radix tree's demote / restore / drop hooks ----------
+    def _demote_page(self, pid: int, node) -> Dict[str, Any]:
+        """demote_cb: seal page `pid`'s K and V ([L, Kh, ps, D] each) into
+        the stash. Runs inside eviction, and the copy is complete when put()
+        returns, before the pool page can be reused."""
+        return self._kv_stash.put(self.cache.k_pages[:, :, pid],
+                                  self.cache.v_pages[:, :, pid])
+
+    def _restore_page(self, handle: Dict[str, Any], pid: int) -> bool:
+        """restore_cb: read the demoted page back (byte for byte) and STAGE
+        it; _flush_restored_pages() lands every staged page in one scatter
+        right after the allocation. A write per page would cost almost as
+        much as the prefill it saves."""
+        k, v = self._kv_stash.get(handle)
+        self._pending_restores.append((pid, k, v))
+        return True
+
+    def _flush_restored_pages(self) -> None:
+        """Land all staged restores in one in-place scatter along the page
+        axis. Runs before prefill reads the pool (from _reserve); the radix
+        manager already counts these pages as cached."""
+        if not self._pending_restores:
+            return
+        staged, self._pending_restores = self._pending_restores, []
+        pids = self._tensor([p for p, _, _ in staged], torch.long)
+        cache = self.cache
+        cache.k_pages[:, :, pids] = torch.stack([k for _, k, _ in staged], dim=2).to(
+            self.device)
+        cache.v_pages[:, :, pids] = torch.stack([v for _, _, v in staged], dim=2).to(
+            self.device)
+
+    def _drop_page(self, handle: Dict[str, Any]) -> None:
+        self._kv_stash.drop(handle)
 
     def _release_slot(self, i: int):
         """Return slot i to the pool; paged mode also frees its pages and
@@ -772,22 +811,33 @@ class LLMServer:
         return (len(slot.generated) >= slot.max_tokens or hit_eos
                 or total >= self.config.max_seq_len)
 
+    def _sample_first(self, last_logits, temperature=None, top_p=None,
+                      top_k=None, logprobs: bool = False):
+        """A prompt's first token from its final prefill logits [V], through
+        the same sampling policy as later tokens (None takes the server's
+        default). Returns (token, logprob), logprob 0.0 unless asked for.
+        The prefill side of PD (serve/pd.py) samples through this too."""
+        cfg = self.config
+        t = cfg.temperature if temperature is None else temperature
+        with torch.no_grad():
+            first, flogp = self._sample(
+                last_logits[None], self._tensor([t], torch.float32),
+                self._tensor([cfg.top_p if top_p is None else top_p], torch.float32),
+                self._tensor([cfg.top_k if top_k is None else top_k], torch.int32),
+                t > 0, logprobs)
+        return int(first[0]), float(flogp[0])
+
     def _start_decoding(self, job: _PrefillJob, last_logits):
         """The prompt is fully prefilled: publish its pages, sample its
         first token through the same policy as later ones, activate it."""
         if self.page_mgr is not None and self.config.prefix_cache:
             self.page_mgr.register_prefix(job.slot_idx, job.prompt.tolist())
         slot = job.slot
-        with torch.no_grad():
-            first, flogp = self._sample(
-                last_logits[None], self._tensor([slot.temperature], torch.float32),
-                self._tensor([slot.top_p], torch.float32),
-                self._tensor([slot.top_k], torch.int32),
-                slot.temperature > 0, slot.want_logprobs)
-        first = int(first[0])
+        first, flogp = self._sample_first(last_logits, slot.temperature, slot.top_p,
+                                          slot.top_k, slot.want_logprobs)
         slot.generated.append(first)
         if slot.want_logprobs:
-            slot.logprobs.append(float(flogp[0]))
+            slot.logprobs.append(flogp)
         if slot.stream_queue is not None:
             slot.stream_queue.put_nowait(first)
         self._active[job.slot_idx] = slot
@@ -955,13 +1005,13 @@ class LLMServer:
             "tpot_ms": _metrics.histogram_summary("serve_tpot_ms"),
             "batch_occupancy": _metrics.histogram_summary("serve_batch_occupancy"),
             "kv_page_util": _metrics.histogram_summary("serve_kv_page_util"),
-            # the JAX engine's restore histogram; never observed until KV
-            # stash demotion is ported
             "spill_restore_ms": _metrics.histogram_summary("spill_restore_ms"),
         }
         if isinstance(self.page_mgr, _radix.RadixPageManager):
             mgr = self.page_mgr
             s["radix"] = mgr.node_stats()
+            if self._kv_stash is not None:
+                s["radix"]["stash"] = self._kv_stash.tier_stats()
             s["slo"]["radix"] = {
                 "prefix_nodes": mgr.prefix_nodes,
                 "prefix_hit_tokens": mgr.prefix_hit_tokens,

@@ -8,18 +8,22 @@ cache, vLLM's automatic prefix caching), subclassing the port's own
     their exact divergence point. Shared pages are read-only by
     construction (prefill skips them, decode writes land past the last full
     prompt page), so the branch point is where copy-on-write happens.
-  * per-node hit accounting and tree-size / evicted-page tallies, and
+  * per-node hit accounting; the tree size and the hit-token, query-token,
+    evicted, demoted and restored page tallies go to the port's metrics
+    registry (`radix_*`, read by `util.metrics.radix_counters`); and
     `prefix_digest`, the hashed, hit-counted summary of the borrowable
     chains that an affinity router reads (`serve/prefix_digest.py`).
   * LRU-by-leaf eviction: only nodes with no RESIDENT children are eviction
     candidates, so the tree never creates unreachable descendants.
-  * demotion hooks (`demote_cb`, `restore_cb`, `drop_cb`) keep the JAX
-    package's API; the serving engine of this port does not wire them yet,
-    so an evicted page is discarded.
+  * demotion instead of discard: an evicted page's KV is sealed into the
+    KV stash (`demote_cb`; `serve/kv_transfer.py` `KVPageStash`, shm then
+    disk), the node stays in the tree marked demoted, and a later request
+    matching it restores the bytes into a fresh pool page (`restore_cb`)
+    instead of recomputing its prefill. The serving engine wires the hooks
+    (`serve/llm.py`) unless `RAY_TPU_SPILL_KV=0`.
 
-`RAY_TPU_RADIX=0` selects the flat chained-hash manager instead. The JAX
-package's registry counters of the tree (`radix_*`) are not ported; the
-serving engine reports the same tallies in `stats()`.
+`RAY_TPU_RADIX=0` selects the flat chained-hash manager instead, which
+discards on eviction (only the tree keeps handles).
 """
 
 import collections
@@ -27,11 +31,18 @@ import os
 
 from ray_tpu_torch.ops.paged_attention import PageManager
 from ray_tpu_torch.serve import prefix_digest as _pd
+from ray_tpu_torch.util import metrics as _metrics
 
 
 def radix_enabled() -> bool:
     return os.environ.get("RAY_TPU_RADIX", "1").lower() not in (
         "0", "false", "off")
+
+
+def _count(name: str, value: float = 1.0):
+    if value:
+        _metrics.get_or_create(_metrics.Counter, name,
+                               "radix prefix cache tally").inc(value)
 
 
 class _Node:
@@ -62,9 +73,13 @@ class RadixPageManager(PageManager):
           Extract the page's KV into durable storage, synchronously at
           eviction time, BEFORE the pool page can be reused. None: discard.
       restore_cb(handle, page_id) -> bool
-          Load a demoted page's KV back at `page_id`. False/raise: a miss.
+          Load a demoted page's KV back at `page_id`. False: a miss, the
+          match stops there.
       drop_cb(handle)
           The demoted payload will never be restored; release its storage.
+
+    A hook that raises fails the allocation with the pool as it was; none
+    is swallowed.
     """
 
     def __init__(self, num_pages: int, page_size: int, batch_slots: int,
@@ -123,26 +138,31 @@ class RadixPageManager(PageManager):
             node.parent = None
             self.prefix_nodes -= 1
             node = parent
+        self._set_nodes_gauge()
+
+    def _set_nodes_gauge(self):
+        _metrics.get_or_create(_metrics.Gauge, "radix_prefix_nodes",
+                               "live radix prefix-tree nodes").set(self.prefix_nodes)
 
     # -------------------------------------------------------------- eviction
     def _evict_node(self, pid: int, node):
         """Take `pid` off the tree: demote its KV if a demotion hook is
         wired (extraction happens NOW, before the pool page is recycled),
         else discard the node. The page returns to the free list either
-        way."""
+        way. A demotion that raises propagates before anything changed
+        (the JAX tree discards the page quietly instead)."""
+        if node.handle is None and self.demote_cb is not None:
+            node.handle = self.demote_cb(pid, node)
         self._lru.pop(pid, None)
         self._refs.pop(pid, None)
         self._key_of.pop(pid, None)
         self._node_of.pop(pid, None)
         node.page = None
         self.evicted_pages += 1
-        if node.handle is None and self.demote_cb is not None:
-            try:
-                node.handle = self.demote_cb(pid, node)
-            except Exception:  # noqa: BLE001 - demotion is best-effort
-                node.handle = None
+        _count("radix_evicted_pages")
         if node.handle is not None:
             self.demoted_pages += 1
+            _count("radix_demoted_pages")
             self._demoted[node] = True
             self._demoted.move_to_end(node)
             while len(self._demoted) > self._demote_cap:
@@ -153,12 +173,9 @@ class RadixPageManager(PageManager):
         self.free_pages.append(pid)
 
     def _drop_handle(self, node):
-        handle, node.handle = node.handle, None
-        if handle is not None and self.drop_cb is not None:
-            try:
-                self.drop_cb(handle)
-            except Exception:  # noqa: BLE001
-                pass
+        if node.handle is not None and self.drop_cb is not None:
+            self.drop_cb(node.handle)
+        node.handle = None
         self._maybe_remove(node)
 
     def _evict_to_free(self, need: int) -> bool:
@@ -220,6 +237,7 @@ class RadixPageManager(PageManager):
         ps = self.page_size
         P = len(prompt_ids)
         self.prefix_query_tokens += P
+        _count("radix_query_tokens", P)
         matched = self._walk(prompt_ids)
         while matched and len(matched) * ps >= P:
             matched.pop()  # a fully covered prompt still prefills its tail
@@ -250,11 +268,11 @@ class RadixPageManager(PageManager):
                 if not self.free_pages and not self._evict_to_free(1):
                     break
                 pid = self.free_pages.pop()
-                ok = False
                 try:
                     ok = bool(self.restore_cb(n.handle, pid))
-                except Exception:  # noqa: BLE001 - restore is best-effort
-                    ok = False
+                except BaseException:   # propagates, the page back in the pool
+                    self.free_pages.append(pid)
+                    raise
                 if not ok:
                     self.free_pages.append(pid)
                     break
@@ -301,8 +319,10 @@ class RadixPageManager(PageManager):
         for n in matched:
             n.hits += 1
         self.restored_pages += len(restored)
+        _count("radix_restored_pages", len(restored))
         cached = len(matched) * ps
         self.prefix_hit_tokens += cached
+        _count("radix_hit_tokens", cached)
         return self.table_row(slot), cached
 
     def register_prefix(self, slot: int, prompt_ids):
@@ -333,6 +353,7 @@ class RadixPageManager(PageManager):
             self._key_of[pid] = node
             self._refs[pid] = self._refs.get(pid, 0) + 1
             self._demoted.pop(node, None)
+        self._set_nodes_gauge()
 
     # ------------------------------------------------------------ inspection
     @property

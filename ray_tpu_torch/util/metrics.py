@@ -1,8 +1,11 @@
 """Application metrics: Counter, Gauge and Histogram in a per-process
 registry, with quantile summaries of histograms.
 
-The port's own copy of `ray_tpu/util/metrics.py` up to its runtime
-counters (which read the JAX package's control plane). The registry is
+The port's own copy of `ray_tpu/util/metrics.py`, without its runtime
+counters (which read the JAX package's control plane), with the two
+tallies the serving plane reads: `kv_ship_counters` (the PD KV-shipment
+plane, `serve/kv_transfer.py`) and `radix_counters` (the radix prefix
+cache and its demotion tier, `serve/radix_cache.py`). The registry is
 process-global, as in the JAX package, and separate from it: the serving
 engine's SLO histograms (`serve/llm.py`) register here by name through
 `get_or_create`, so every replica in a process shares one series per tag
@@ -244,3 +247,56 @@ def histogram_window(name: str, state: Dict,
     for q in qs:
         out[f"p{int(q * 100)}"] = _bucket_quantile(q, bounds, delta, total)
     return out
+
+
+# -- serving-plane read surface ---------------------------------------------
+# The raw series are ordinary registry metrics written by serve/kv_transfer.py
+# and serve/pd.py (shipment) and serve/radix_cache.py (the prefix tree). These
+# helpers flatten them into plain numbers so that tests and the smoke run can
+# assert on deltas. They read the CURRENT process.
+
+def _counter_total(name: str) -> float:
+    with _registry_lock:
+        m = _registry.get(name)
+    if not isinstance(m, Counter):
+        return 0.0
+    return sum(m.snapshot()["values"].values())
+
+
+def _gauge_total(name: str) -> float:
+    with _registry_lock:
+        m = _registry.get(name)
+    if not isinstance(m, Gauge):
+        return 0.0
+    return sum(m.snapshot()["values"].values())
+
+
+def kv_ship_counters() -> Dict[str, float]:
+    """PD KV-shipment tallies: bytes/pages/segments sealed into shm
+    segments; requests served by the streaming plane; saved_pages, pages
+    NOT shipped because the decode side held them in its prefix cache;
+    attach_hits / stream_pulls / rpc_pulls split the decode pulls by
+    transport (same-host attach, ranged streams from the KV data server,
+    raw-bytes RPC fallback)."""
+    return {"bytes": _counter_total("kv_ship_bytes"),
+            "pages": _counter_total("kv_ship_pages"),
+            "segments": _counter_total("kv_ship_segments"),
+            "requests": _counter_total("kv_ship_requests"),
+            "saved_pages": _counter_total("kv_ship_saved_pages"),
+            "attach_hits": _counter_total("kv_ship_attach_hits"),
+            "stream_pulls": _counter_total("kv_ship_stream_pulls"),
+            "rpc_pulls": _counter_total("kv_ship_rpc_pulls"),
+            "rpc_fallback_bytes": _counter_total("kv_ship_rpc_fallback_bytes")}
+
+
+def radix_counters() -> Dict[str, float]:
+    """Radix prefix-cache tallies: prefix_nodes is the live tree size;
+    hit_tokens/query_tokens the prefix hit rate; evicted_pages the pages
+    LRU-evicted off the tree; demoted/restored_pages those of them sealed
+    into the KV stash and those later pulled back instead of recomputed."""
+    return {"prefix_nodes": _gauge_total("radix_prefix_nodes"),
+            "hit_tokens": _counter_total("radix_hit_tokens"),
+            "query_tokens": _counter_total("radix_query_tokens"),
+            "evicted_pages": _counter_total("radix_evicted_pages"),
+            "demoted_pages": _counter_total("radix_demoted_pages"),
+            "restored_pages": _counter_total("radix_restored_pages")}
