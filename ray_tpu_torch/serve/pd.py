@@ -260,23 +260,24 @@ class PrefillServer(LLMServer):
                      for pool in (self.cache.k_pages, self.cache.v_pages))
 
 
+def _prefill_server(prefill) -> "PrefillServer":
+    """The port serves PD within one process: the prefill side is a
+    PrefillServer object (serve handles come with the serve runtime)."""
+    if not isinstance(prefill, PrefillServer):
+        raise TypeError(f"prefill must be a PrefillServer, got {type(prefill).__name__}")
+    return prefill
+
+
 class ShipSource:
     """The decode side's handle on one prefill replica's shipment API (a
-    PrefillServer in this process, or a serve handle with `.remote()`).
-    Only metadata and the RPC-fallback bytes cross it."""
+    PrefillServer in this process). Only metadata and the RPC-fallback
+    bytes cross it."""
 
     def __init__(self, prefill):
-        self._p = prefill
-        self._direct = isinstance(prefill, PrefillServer)
+        self._p = _prefill_server(prefill)
 
     async def _call(self, name: str, *a, **kw):
-        if self._direct:
-            return await getattr(self._p, name)(*a, **kw)
-        # a serve handle's .remote() does blocking IO: keep it off the loop
-        loop = asyncio.get_running_loop()
-        resp = await loop.run_in_executor(
-            None, lambda: getattr(self._p, name).remote(*a, **kw))
-        return await resp
+        return await getattr(self._p, name)(*a, **kw)
 
     def begin(self, prompt, skip_pages, trace_id, temperature, top_p, top_k, logprobs):
         return self._call("prefill_begin", prompt, skip_pages=skip_pages,
@@ -487,10 +488,10 @@ class DecodeServer(LLMServer):
 
 
 class PDServer(DecodeServer):
-    """Decode-as-orchestrator deployment: holds the prefill replica's handle
-    (a PrefillServer in this process, or a serve handle); every generate()
-    streams the prompt KV from prefill and decodes here. With no prefill
-    replica it serves colocated."""
+    """Decode-as-orchestrator deployment: holds the prefill replica (a
+    PrefillServer in this process; any other object raises TypeError at
+    the first request); every generate() streams the prompt KV from
+    prefill and decodes here. With no prefill replica it serves colocated."""
 
     def __init__(self, config: Optional[LLMConfig] = None, params=None,
                  prefill=None):
@@ -506,12 +507,7 @@ class PDServer(DecodeServer):
         return self._ship_src
 
     async def _remote_prefill(self, prompt: List[int], **kw):
-        if isinstance(self._prefill, PrefillServer):
-            return await self._prefill.prefill_kv(prompt, **kw)
-        loop = asyncio.get_running_loop()
-        resp = await loop.run_in_executor(
-            None, lambda: self._prefill.prefill_kv.remote(prompt, **kw))
-        return await resp
+        return await _prefill_server(self._prefill).prefill_kv(prompt, **kw)
 
     async def _pd_kv(self, prompt: List[int], **kw) -> Dict[str, Any]:
         """This request's kv argument: a streaming descriptor, or the

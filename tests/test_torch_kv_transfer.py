@@ -263,14 +263,15 @@ def test_segment_namespace_and_tracker_filter(monkeypatch):
     tstore._filtered_register("/rtpt-0123", "semaphore")
     assert seen == ["/psm_0123", "/rtpt-0123"]
     store = tstore.StoreClient()
-    store.put_raw("ns-check", b"abc")
+    oid = f"ns-check{tkv._proc_tag}"     # ids of this process only
+    store.put_raw(oid, b"abc")
     try:
-        shm = shared_memory.SharedMemory(name=tstore.seg_name("ns-check"))
+        shm = shared_memory.SharedMemory(name=tstore.seg_name(oid))
         assert bytes(shm.buf[:3]) == b"abc"
         shm.close()
     finally:
-        store.delete_segment("ns-check")
-    assert not store.exists("ns-check")
+        store.delete_segment(oid)
+    assert not store.exists(oid)
 
 
 # --------------------------------------------------------- server level

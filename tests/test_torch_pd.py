@@ -147,6 +147,17 @@ def test_pd_requires_paged():
                                     device="cpu"))
 
 
+@pytest.mark.parametrize("ship", ["1", "0"])
+def test_pd_prefill_must_be_a_prefill_server(monkeypatch, ship):
+    """The port serves PD within one process: a prefill side that is not a
+    PrefillServer raises on both hand-offs, and nothing is served."""
+    monkeypatch.setenv("RAY_TPU_KV_SHIP", ship)
+    pd = tpd.PDServer(_cfg(tllm), prefill=object())
+    with pytest.raises(TypeError, match="PrefillServer"):
+        _gen(pd, [1, 2, 3], max_tokens=2)
+    assert pd.stats()["active"] == 0
+
+
 def _no_arrays(x, where=""):
     """Control frames carry metadata only: a tensor or an array in a header
     or a segment dict means KV bytes went back into the RPC plane."""
