@@ -112,6 +112,39 @@ Phases, in order; a failing phase raises and the script exits non-zero:
              logged; (d) one step fed by the iterator under torch.profiler:
              the batch's host-to-device copy is a pinned copy on a stream
              other than the flash forward kernel's.
+12. mesh    - the device mesh (ray_tpu_torch.parallel): (a) world 1 on NCCL:
+             make_mesh and auto_mesh, shard_tree of llama_1b's seeded bf16
+             state_dict from the host (every block torch.equal to the
+             whole), each xla_ops op on one layer's 45,092,864 bf16
+             elements (exact results, each timed), and
+             iter_device_batches(sharding=data_sharding(mesh)); (b) path
+             `serve_tp` at world 1: the shard-local llama_1b on a {"tp": 1}
+             mesh (its collectives through NCCL) prefilling a dense cache
+             and taking 8 greedy steps, as the server's steps do, with
+             logits torch.equal to the plain model's and no kernel
+             launched (the dense cache attends with the plain
+             decode_attention, as JAX's tp path does). tp=2 on one card
+             would need two ranks on one device: NCCL refuses that, and
+             gloo's all-gather of CUDA tensors crashes the process, so
+             tp > 1 runs with --cards 4 only.
+
+    python3 chip_smoke.py --cards 4
+
+runs the multi-card phases instead, one spawned rank per card over NCCL
+(it needs four visible cards): the xla_ops at world 4 on one layer's bytes
+(ms and NCCL-tests bus bandwidth, beside `nvidia-smi nvlink -s`);
+llama_1b f32 at tp 1, 2 and 4 with greedy ids equal (near-ties logged),
+and speculate=4 at tp=4 equal to the plain tp=4 server; llama_1b bf16 at
+tp 1, 2 and 4 (TTFT p50, decode tokens/s, host syncs a token, peak memory
+a card, the first prefill's logits against tp=1); a 2-layer f32
+Mixtral-width model at tp=4 against tp=1 (logits and expert ids), the
+same model's forward with its banks over {"ep": 4} and {"ep": 2, "tp": 2}
+(path `moe_ep`: error, ms, B1 launches on the local heads); and
+Mixtral-8x7B at all 32 layers, bf16, tp=4 on the dense cache, serving the
+slice's wave; last, a follower that fails at tp=4 (its decode step
+raises), which must make rank 0 raise with the follower's error. No kernel
+may launch on a tp server's ranks. Results go to
+chip_smoke_out/chip_smoke_cards4.json.
 
 It prints a `kernels` JSON line, the nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}. Details go to chip_smoke_out/chip_smoke.json.
@@ -2197,12 +2230,780 @@ def run_trainer(device="cuda", preset="llama_1b", batch=4, seq=2048, steps=6, sa
     return out
 
 
+# ------------------------------------------------------------------ mesh
+# The device mesh, the sharding rules and the mesh collectives (paths
+# `serve_tp` and, with four cards, `moe_ep`). The default run has one card:
+# world 1 on NCCL. `--cards 4` runs the multi-card phases, one rank per card
+# on NCCL.
+def layer_elements():
+    """One llama_1b layer's parameter count (45,092,864)."""
+    from ray_tpu_torch.models.llama import LlamaConfig, llama_param_count
+    return (llama_param_count(LlamaConfig.llama_1b(n_layers=2))
+            - llama_param_count(LlamaConfig.llama_1b(n_layers=1)))
+
+
+def xla_op_table(mesh, axis, x):
+    """name -> fn() running each xla_ops op over `axis` on this rank's x."""
+    from ray_tpu_torch.parallel import xla_ops as xo
+    return {
+        "psum": lambda: xo.psum(x, axis, mesh),
+        "pmean": lambda: xo.pmean(x, axis, mesh),
+        "pmax": lambda: xo.pmax(x, axis, mesh),
+        "all_gather": lambda: xo.all_gather(x, axis, mesh),
+        "reduce_scatter": lambda: xo.reduce_scatter(x, axis, mesh),
+        "ppermute_shift": lambda: xo.ppermute_shift(x, axis, mesh, 1),
+        "all_to_all": lambda: xo.all_to_all(x, axis, mesh, 0, 0),
+    }
+
+
+# NCCL-tests' bus bandwidth: the algorithm rate (bytes / time) times what a
+# rank must move of it, for n ranks; the bytes are the input's, the
+# output's for all_gather
+BUS_FACTOR = {"psum": lambda n: 2 * (n - 1) / n, "pmean": lambda n: 2 * (n - 1) / n,
+              "pmax": lambda n: 2 * (n - 1) / n, "all_gather": lambda n: (n - 1) / n,
+              "reduce_scatter": lambda n: (n - 1) / n, "all_to_all": lambda n: (n - 1) / n,
+              "ppermute_shift": lambda n: 1.0}
+
+
+def xla_ops_world(mesh, axis, n_elems, device, tag):
+    """Each xla_ops op over `axis` (n ranks) on n_elems bf16 elements, rank r
+    holding the value r + 1 everywhere, so every result is exact: psum
+    n(n+1)/2, pmean its 1/n, pmax n, the gathered blocks 1..n, rank r's
+    reduced block n(n+1)/2, the shifted block r (mod n) + ..., the
+    exchanged blocks 1..n. Returns {op: dict(equal, ms, bus_gb_s)} on every
+    rank (times are this rank's CUDA-event readings)."""
+    import torch
+    from ray_tpu_torch.parallel import xla_ops as xo
+    n = xo.axis_size(axis, mesh)
+    r = xo.axis_index(axis, mesh)
+    x = torch.full((n_elems,), float(r + 1), dtype=torch.bfloat16, device=device)
+    blocks = torch.arange(1, n + 1, dtype=torch.bfloat16, device=device)
+    per = n_elems // n
+    total = n * (n + 1) / 2
+    want = {"psum": torch.full_like(x, total), "pmean": torch.full_like(x, total / n),
+            "pmax": torch.full_like(x, float(n)),
+            "all_gather": blocks.repeat_interleave(n_elems),
+            "reduce_scatter": torch.full((per,), total, dtype=x.dtype, device=device),
+            "ppermute_shift": torch.full_like(x, float((r - 1) % n + 1)),
+            "all_to_all": blocks.repeat_interleave(per)}
+    out = {}
+    for name, fn in xla_op_table(mesh, axis, x).items():
+        res = dict(equal=bool(torch.equal(fn(), want[name])))
+        if device.type == "cuda":
+            ms = op_ms(fn)
+            moved = x.numel() * x.element_size() * (n if name == "all_gather" else 1)
+            # one rank moves nothing to another: no bus bandwidth
+            res.update(ms=ms, bus_gb_s=(moved / (ms / 1e3) * BUS_FACTOR[name](n) / 1e9
+                                        if n > 1 else None))
+        out[name] = res
+    ok = all(v["equal"] for v in out.values())
+    if r == 0:
+        for name, v in out.items():
+            t = (f": {v['ms']:.4f} ms" if "ms" in v else "")
+            t += f", bus {v['bus_gb_s']:.1f} GB/s" if v.get("bus_gb_s") else ""
+            log(f"[{tag}] xla_ops.{name} over {axis}={n}, bf16 x {n_elems}{t}, exact "
+                f"{v['equal']}")
+    if not ok:
+        raise AssertionError(f"{tag}: xla_ops results wrong: {out}")
+    return out
+
+
+def greedy_dense(model, cfg, prompt, steps):
+    """Prefill `prompt` [1, T] into a dense cache, then `steps` greedy
+    [1, 1] steps, as LLMServer's _prefill_row and _decode_chunk call the
+    model; the logits of every call."""
+    import torch
+    from ray_tpu_torch.models.llama import KVCache
+    kv_heads = cfg.n_kv_heads // (model.place.tp if model.place else 1)
+    cache = KVCache.init(dataclasses.replace(cfg, n_kv_heads=kv_heads), 1,
+                         prompt.shape[1] + steps, device=prompt.device)
+    out, tok = [], prompt
+    with torch.no_grad():
+        for _ in range(steps + 1):
+            logits, cache = model(tok, cache=cache)
+            out.append(logits)
+            tok = logits[:, -1:].argmax(-1)
+    return out
+
+
+def check_mesh_world1(device="cuda", preset="llama_1b"):
+    """World 1 over NCCL (gloo on the CPU): make_mesh and auto_mesh; shard_tree
+    of the preset's seeded bf16 state_dict from the host over a
+    {"dp", "fsdp", "tp"} mesh of ones (every block torch.equal to the whole);
+    serve_tp's model at world 1 (the shard-local model on {"tp": 1}, its
+    collectives through the world's backend, a dense-cache prefill and 8
+    greedy steps with logits torch.equal to the plain model's, no kernel
+    launched); each xla_ops op on one layer's bf16 elements (each result
+    equal to its input, each timed);
+    iter_device_batches(sharding=data_sharding(mesh)) yielding DTensors
+    equal to the host batches. Takes the world down."""
+    import torch
+    import torch.distributed as dist
+    from ray_tpu_torch.models.convert import init_params, shard_state_dict
+    from ray_tpu_torch.models.llama import Llama, LlamaConfig
+    from ray_tpu_torch.parallel import mesh as pmesh
+    from ray_tpu_torch.parallel.sharding import data_sharding, llama_rules, shard_tree
+    from ray_tpu_torch.train.ingest import iter_device_batches
+
+    dev = torch.device(device) if device == "cpu" else torch.device("cuda", 0)
+    if dist.is_initialized():
+        raise AssertionError("a process group is already up before the mesh phase")
+    m1 = pmesh.make_mesh({"tp": 1}, device=device)
+    auto = pmesh.auto_mesh(device=device)
+    mesh = pmesh.make_mesh({"tp": 1, "fsdp": 1, "dp": -1}, device=device)
+    backend = dist.get_backend()
+    shapes = {"make_mesh": pmesh.axis_sizes(m1), "auto_mesh": pmesh.axis_sizes(auto),
+              "mesh": pmesh.axis_sizes(mesh)}
+    log(f"[mesh] world {dist.get_world_size()} on {backend}: {shapes}")
+
+    cfg = getattr(LlamaConfig, preset)(param_dtype=torch.bfloat16)
+    model = init_params(Llama(cfg, device=dev), torch.Generator(device=dev).manual_seed(0))
+    whole = {k: v.detach() for k, v in model.state_dict().items()}
+    host = {k: v.cpu() for k, v in whole.items()}
+    sync = (lambda: torch.cuda.synchronize()) if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    placed = shard_tree(host, mesh, llama_rules())
+    sync()
+    shard_s = time.perf_counter() - t0
+    equal = all(torch.equal(placed[k].to_local(), whole[k]) for k in whole)
+    on_dev = all(placed[k].to_local().device == dev for k in whole)
+    n_bytes = sum(v.numel() * v.element_size() for v in host.values())
+    log(f"[mesh] shard_tree of {preset}'s state_dict ({len(host)} tensors, {n_bytes:,} bytes) "
+        f"from the host in {shard_s:.3f} s: every block equal to the whole {equal}, on "
+        f"{dev} {on_dev}")
+
+    local = Llama(cfg, device=dev, mesh=m1)
+    local.load_state_dict(shard_state_dict(host, m1))
+    prompt = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (1, 64))).to(dev)
+    want = greedy_dense(model, cfg, prompt, 8)
+    reset_launch_counts()
+    got = greedy_dense(local, cfg, prompt, 8)
+    tp_launches = launch_counts()
+    tp_equal = all(torch.equal(a, b) for a, b in zip(want, got))
+    tp_diff = max(float((a.float() - b.float()).abs().max()) for a, b in zip(want, got))
+    log(f"[mesh] serve_tp at world 1: the shard-local {preset} on {{'tp': 1}} over {backend}, "
+        f"a 64-token prefill and 8 greedy steps on the dense cache: logits equal to the plain "
+        f"model's {tp_equal} (max |diff| {tp_diff:.3e}), launches {tp_launches}")
+    serve_tp = dict(logits_equal=tp_equal, max_abs_diff=tp_diff, launches=tp_launches)
+    del model, whole, host, placed, local
+
+    n = layer_elements()
+    ops = xla_ops_world(mesh, "tp", n, dev, "mesh")
+    rng = np.random.default_rng(3)
+    batches = [{"tokens": rng.integers(0, cfg.vocab_size, (4, 2048), dtype=np.int32)}
+               for _ in range(3)]
+    got = list(iter_device_batches(iter(batches), sharding=data_sharding(mesh)))
+    feed_ok = len(got) == 3 and all(
+        torch.equal(g["tokens"].full_tensor().cpu(), torch.from_numpy(b["tokens"]))
+        and g["tokens"].to_local().device == dev for g, b in zip(got, batches))
+    log(f"[mesh] iter_device_batches(sharding=data_sharding(mesh)): 3 DTensor batches "
+        f"equal to the host batches {feed_ok}, placements {got[0]['tokens'].placements}")
+    checks = {"meshes of size 1 on the expected axes": shapes == {
+                  "make_mesh": {"tp": 1}, "auto_mesh": {"dp": 1},
+                  "mesh": {"dp": 1, "fsdp": 1, "tp": 1}},
+              f"backend {backend}": backend == ("nccl" if dev.type == "cuda" else "gloo"),
+              "shard_tree blocks equal the whole, on the device": equal and on_dev,
+              "serve_tp's shard-local model at world 1 equals the plain model": tp_equal,
+              "serve_tp at world 1 launched no kernel": not any(tp_launches.values()),
+              "sharded feed equal to the host batches": feed_ok}
+    for what, ok in checks.items():
+        log(f"[mesh] {'ok  ' if ok else 'FAIL'} {what}")
+    dist.destroy_process_group()
+    if not all(checks.values()):
+        raise AssertionError(f"mesh world-1 checks failed: {checks}")
+    return dict(backend=backend, shapes=shapes, shard_tree_s=shard_s,
+                shard_tree_bytes=n_bytes, serve_tp_world1=serve_tp, xla_ops=ops, elements=n)
+
+
+def tp_server_config(preset, tp, dtype, device, **kw):
+    """The slice's engine settings on the dense cache (tp needs it)."""
+    cfg = dict(preset=preset, paged=False, max_batch_slots=8, max_seq_len=2048,
+               prefill_chunk=128, decode_chunk=8, device=device, seed=0, tp=tp,
+               param_dtype=dtype, dtype=dtype)
+    cfg.update(kw)
+    return cfg
+
+
+def serve_waves(server, prompts, max_tokens=32, capture=False):
+    """Rank 0 of a server: the slice's two waves (8 prompts, then 2) after a
+    warm-up request; ids, TTFT p50, decode tokens/s and host syncs a token
+    over the waves, and (capture=True) the first prefill's last-row logits."""
+    import torch
+    first = []
+    if capture:
+        real = server._prefill_row
+
+        def keep(*a):
+            row = real(*a)
+            if not first:
+                first.append(row.detach().float().cpu())
+            return row
+        server._prefill_row = keep
+    asyncio.run(serve_wave(server, [list(range(1, 50))], 8))
+    first.clear()
+    before = server.stats()
+    t0 = time.perf_counter()
+    res = asyncio.run(serve_wave(server, prompts[:8], max_tokens))
+    res += asyncio.run(serve_wave(server, prompts[8:], max_tokens))
+    if server.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tokens, syncs, decode_s, steps = decode_delta(server.stats(), before)
+    if capture:
+        server._prefill_row = real
+    return dict(ids=[r[0] for r in res], ttft_p50_s=float(np.median([r[1] for r in res])),
+                stats=server.stats(),
+                decode_tokens=tokens, decode_s=decode_s, decode_steps=steps,
+                decode_tokens_per_s=tokens / decode_s if decode_s else None,
+                host_syncs_per_token=syncs / tokens if tokens else None, wall_s=wall,
+                first_logits=first[0] if first else None)
+
+
+# a greedy id may differ between two servers only where the reference's
+# top-2 logit gap is under this share of the row's max |logit|
+NEAR_TIE = 1e-4
+
+
+def near_tie(model, prompt, ids, j, device):
+    """The tp=1 model's top-2 logit gap at generated position j (after
+    prompt + ids[:j]) over the row's max |logit|, and whether it is under
+    NEAR_TIE."""
+    import torch
+    toks = torch.tensor([list(prompt) + list(ids[:j])], device=device)
+    with torch.no_grad():
+        row = model(toks)[0][0, -1].float()
+    top = row.topk(2).values
+    gap = float((top[0] - top[1]) / row.abs().max())
+    return gap, gap < NEAR_TIE
+
+
+def compare_ids(tag, ref_server, prompts, want, got, device):
+    """Greedy ids of two servers, request by request. A request may differ
+    only from a position where the tp=1 server's top-2 logit gap is under
+    1e-4 of the row's max |logit| (a near-tie, logged). Raises otherwise."""
+    ties = []
+    for i, (p, a, b) in enumerate(zip(prompts, want, got)):
+        if a == b:
+            continue
+        j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+        gap, ok = near_tie(ref_server.model, p, a, j, device)
+        ties.append(dict(request=i, position=j, gap=gap, near_tie=ok))
+        log(f"[{tag}] request {i} differs from position {j}: tp=1 top-2 gap {gap:.3e} of max "
+            f"|logit| ({'near-tie' if ok else 'NOT a near-tie'})")
+        if not ok:
+            raise AssertionError(f"{tag}: request {i} ids differ at {j} without a near-tie")
+    equal = sum(a == b for a, b in zip(want, got))
+    log(f"[{tag}] greedy ids equal for {equal} of {len(want)} requests; near-ties {len(ties)}")
+    return dict(equal=equal, requests=len(want), near_ties=ties)
+
+
+def _tp_rank_world(rank, world, store, backend, device_index):
+    """A spawned rank's world: its card, the process group (its timeout
+    ends a collective whose peer is gone), TF32 off for the f32 checks."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    if device_index is not None:
+        torch.cuda.set_device(device_index)
+    dist.init_process_group(backend, init_method=store, world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=900))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+# the four-card phases' limit, inside the call's (the default presets
+# take about 100 s of it)
+CARDS_TIMEOUT_S = 1300
+
+
+def spawn_ranks(target, world, args):
+    """target(rank, world, store, results, *args) in `world` spawned
+    processes over a file store in a temporary directory; returns the
+    results in rank order, raising any rank's error or a silence of
+    CARDS_TIMEOUT_S. Every process is gone when it returns."""
+    import multiprocessing as mp
+    import queue
+    import tempfile
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    with tempfile.TemporaryDirectory() as tmp:
+        store = f"file://{tmp}/store"
+        procs = [ctx.Process(target=target, args=(r, world, store, results) + tuple(args))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        out, errors = {}, []
+        deadline = time.monotonic() + CARDS_TIMEOUT_S
+        try:
+            while len(out) < world and not errors:
+                try:
+                    rank, value, err = results.get(timeout=5)
+                except queue.Empty:
+                    # a rank that died without a word (a crash) ends the run
+                    dead = [r for r, p in enumerate(procs) if r not in out
+                            and p.exitcode not in (None, 0)]
+                    if dead:
+                        errors.append(f"ranks {dead} exited without a result (exit codes "
+                                      f"{[procs[r].exitcode for r in dead]})")
+                    elif time.monotonic() > deadline:
+                        errors.append(f"ranks {sorted(set(range(world)) - set(out))} gave "
+                                      f"no result in {CARDS_TIMEOUT_S} s")
+                    continue
+                out[rank] = value
+                if err:
+                    errors.append(f"rank {rank}:\n{err}")
+        finally:
+            for p in procs:
+                p.join(timeout=30 if not errors else 5)
+                if p.is_alive():
+                    p.kill()
+                    p.join(timeout=10)
+    if errors:
+        raise AssertionError("\n".join(errors))
+    return [out[r] for r in range(world)]
+
+
+def run_mesh(device="cuda", preset="llama_1b"):
+    """The `mesh` phase: world 1 on the one card."""
+    out = check_mesh_world1(device, preset)
+    out["launches"] = out["serve_tp_world1"]["launches"]
+    return out
+
+
+# ------------------------------------------------------------------ cards
+CARDS_OUT = "chip_smoke_cards4.json"
+
+
+def _cards_rank(rank, world, store, results, device, presets, max_tokens):
+    import os
+    import traceback
+    ok = False
+    try:
+        _tp_rank_world(rank, world, store, "nccl" if device == "cuda" else "gloo",
+                       rank if device == "cuda" else None)
+        out = cards_phases(rank, world, device, presets, max_tokens)
+        results.put((rank, out, None))
+        ok = True
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        results.put((rank, None, traceback.format_exc()))
+    # the last phase leaves a failed tp server: over NCCL a stream may hold
+    # a collective that waits for the failed rank, and a teardown of the
+    # process group would wait on it. The result is flushed; the process
+    # exits as it is.
+    results.close()
+    results.join_thread()
+    os._exit(0 if ok else 1)
+
+
+def _world_barrier(device):
+    import torch
+    import torch.distributed as dist
+    if device == "cuda":
+        dist.barrier(device_ids=[torch.cuda.current_device()])
+    else:
+        dist.barrier()
+
+
+def _per_card(device):
+    """Every rank's (peak allocated bytes since its last reset, kernel
+    launches since the last reset of the counts)."""
+    import torch
+    import torch.distributed as dist
+    mine = (torch.cuda.max_memory_allocated() if device == "cuda" else None, launch_counts())
+    seen = [None] * dist.get_world_size()
+    dist.all_gather_object(seen, mine)
+    return seen
+
+
+def _reset_peak(device):
+    import gc
+    import torch
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _serve_tp_world(rank, tp, preset, dtype, device, prompts, max_tokens, capture=False,
+                    keep=False, **kw):
+    """Every rank builds LLMServer(tp) (rank 0 alone for tp=1); rank 0 serves
+    the waves, ranks 1..tp-1 follow, the rest wait. No rank may launch a
+    kernel (the dense cache attends with the plain decode_attention).
+    Returns (rank 0's summary or None, the server when keep=True on rank
+    0)."""
+    from ray_tpu_torch.serve.llm import LLMConfig, LLMServer
+    _reset_peak(device)
+    reset_launch_counts()
+    out, server = None, None
+    if tp > 1 or rank == 0:
+        t0 = time.perf_counter()
+        server = LLMServer(LLMConfig(**tp_server_config(preset, tp, dtype, device, **kw)))
+        build_s = time.perf_counter() - t0
+        if rank == 0:
+            out = serve_waves(server, prompts, max_tokens, capture=capture)
+            out["build_s"] = build_s
+            server.shutdown()
+        else:
+            server.follow()
+    seen = _per_card(device)
+    launched = {name: sum(c[name] for _, c in seen) for name in seen[0][1]}
+    if any(launched.values()):
+        raise AssertionError(f"{preset} tp={tp}: kernels launched on the tp ranks: {launched}")
+    if out is not None:
+        out["peak_bytes_per_card"] = [p for p, _ in seen[:tp]]
+        out["launches"] = launched
+    if not (keep and rank == 0):
+        server = None
+    _reset_peak(device)
+    _world_barrier(device)
+    return out, server
+
+
+def _spec_tp_world(rank, world, device):
+    """Speculation's accept path at tp=world, as check_spec_tiny does on one
+    card: the tiny preset (vocab 256; n_kv_heads raised to `world`, so that
+    tp divides it) in f32 on weights made on the CPU from seed 0, prompt
+    P + O + P with O the plain tp server's continuation of P, speculate=4
+    against speculate=0 at the same tp. A random llama_1b rarely follows
+    its own continuation, so it drafts nothing. Rank 0 returns both ids
+    and the speculation stats."""
+    from ray_tpu_torch.serve.llm import LLMConfig, LLMServer
+    kw = dict(model_overrides={"n_kv_heads": world}, max_seq_len=512, max_batch_slots=2)
+    params = LLMServer(LLMConfig(**tp_server_config("tiny", 1, "float32", "cpu", **kw))
+                       ).model.state_dict()
+    head = np.random.default_rng(21).integers(1, 256, 16).tolist()
+    out = {}
+    for spec in (0, 4):
+        server = LLMServer(LLMConfig(**tp_server_config("tiny", world, "float32", device,
+                                                        speculate=spec, **kw)), params=params)
+        if rank == 0:
+            if not spec:
+                cont = asyncio.run(server.generate(head, max_tokens=48))["tokens"]
+                out["prompt"] = head + cont + head
+            out[spec] = asyncio.run(server.generate(out["prompt"], max_tokens=48))["tokens"]
+            out["stats"] = server.stats().get("speculation")
+            server.shutdown()
+        else:
+            server.follow()
+        del server
+        _world_barrier(device)
+    return out if rank == 0 else None
+
+
+def cards_phases(rank, world, device, presets, max_tokens):
+    """The four-card phases, on every rank; rank 0 returns the results and
+    writes them to chip_smoke_out/chip_smoke_cards4.json after each phase."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from ray_tpu_torch.models.convert import init_params, init_params_sharded
+    from ray_tpu_torch.models.llama import KVCache, Llama, LlamaConfig
+    from ray_tpu_torch.parallel.mesh import make_mesh
+
+    llama, moe, moe_layers = presets["llama"], presets["moe"], presets.get("moe_layers")
+    lkw = dict(model_overrides=presets["llama_overrides"]) if "llama_overrides" in presets else {}
+    mover = presets.get("moe_overrides", {})
+    dev = torch.device("cuda", rank) if device == "cuda" else torch.device("cpu")
+    res = dict(world=world, backend=dist.get_backend())
+    lead = rank == 0
+
+    def save():
+        if lead:
+            OUT_DIR.mkdir(exist_ok=True)
+            (OUT_DIR / CARDS_OUT).write_text(json.dumps(res, indent=1, default=str))
+
+    # (5) first, as the cheapest: the collectives at world 4 on one layer's bytes
+    mesh = make_mesh({"tp": world}, device=device)
+    n = layer_elements() if device == "cuda" else 4096
+    res["xla_ops"] = xla_ops_world(mesh, "tp", n, dev, "cards")
+    if lead and device == "cuda":
+        nvl = subprocess.run(["nvidia-smi", "nvlink", "-s"], capture_output=True, text=True,
+                             timeout=60).stdout
+        res["nvlink"] = nvl
+        log("[cards] nvidia-smi nvlink -s (card 0):\n" + "\n".join(nvl.splitlines()[:20]))
+    save()
+
+    # (1) f32 greedy ids at tp 1, 2 and 4; the tp=1 server stays on rank 0
+    # for the near-tie readings. Then speculate=4 at tp=4 against the plain
+    # tp=4 server, in f32 so that the [B, K+1] and [B, 1] products cannot
+    # round a near-tie apart: on the waves, and on a prompt that drafts
+    # (_spec_tp_world).
+    vocab = getattr(LlamaConfig, llama)(**lkw.get("model_overrides", {})).vocab_size
+    wave1, wave2 = slice_prompts(vocab)
+    prompts = wave1 + wave2
+    f32 = {}
+    ref_server = None
+    for tp in (1, 2, world):
+        f32[tp], srv = _serve_tp_world(rank, tp, llama, "float32", device, prompts, max_tokens,
+                                       keep=tp == 1, **lkw)
+        ref_server = srv if tp == 1 else ref_server
+    spec, _ = _serve_tp_world(rank, world, llama, "float32", device, prompts, max_tokens,
+                              speculate=4, **lkw)
+    drafting = _spec_tp_world(rank, world, device)
+    if lead:
+        drop = lambda r: {k: v for k, v in r.items() if k not in ("first_logits", "stats")}
+        res["f32"] = {tp: drop(r) for tp, r in f32.items()}
+        for tp in (2, world):
+            res["f32"][tp]["compare"] = compare_ids(f"cards f32 tp={tp}", ref_server, prompts,
+                                                    f32[1]["ids"], f32[tp]["ids"], device)
+        st = spec["stats"]["speculation"]
+        same = spec["ids"] == f32[world]["ids"]
+        res["f32_spec"] = dict(drop(spec), speculation=st, ids_equal_plain=same)
+        log(f"[cards] {llama} f32 tp={world} speculate=4 on the waves: ids equal the plain "
+            f"tp={world} server's {same}; {st}")
+        dst = drafting["stats"]
+        dsame = drafting[4] == drafting[0]
+        res["spec_drafting"] = dict(ids_equal_plain=dsame, speculation=dst,
+                                    prompt_len=len(drafting["prompt"]))
+        log(f"[cards] tiny f32 (Kh {world}, CPU-seeded) tp={world} speculate=4, "
+            f"{len(drafting['prompt'])}-token P + O + P prompt, 48 tokens: ids equal plain "
+            f"{dsame}; {dst}")
+        if not (same and dsame and dst["accepted"] > 0):
+            raise AssertionError(f"speculation at tp={world}: ids equal {same} / {dsame}, "
+                                 f"stats {st} / {dst}")
+    del ref_server
+    _world_barrier(device)
+    save()
+
+    # (2) bf16 at tp 1, 2 and 4: the serving numbers
+    bf16 = {}
+    for tp in (1, 2, world):
+        bf16[tp], _ = _serve_tp_world(rank, tp, llama, "bfloat16", device, prompts, max_tokens,
+                                      capture=True, **lkw)
+    if lead:
+        first = bf16[1]["first_logits"]
+        res["bf16"] = {}
+        for tp, r in bf16.items():
+            err = float((r["first_logits"] - first).abs().max())
+            res["bf16"][tp] = dict({k: v for k, v in r.items()
+                                    if k not in ("first_logits", "ids", "stats")},
+                                   first_prefill_max_abs_diff=err)
+            peaks = r["peak_bytes_per_card"]
+            log(f"[cards] {llama} bf16 tp={tp}: TTFT p50 {r['ttft_p50_s'] * 1e3:.1f} ms, "
+                f"{r['decode_tokens_per_s']:.1f} decode tokens/s, "
+                f"{r['host_syncs_per_token']:.4f} host syncs a token, peak "
+                f"{[round(p / 2**30, 2) if p else None for p in peaks]} GiB a card, first "
+                f"prefill logits max |diff| from tp=1 {err:.3e}")
+    save()
+
+    # (3) the MoE model at tp=4: first a 2-layer f32 check against tp=1
+    # (logits and every token's experts), then (4) moe_ep on that model,
+    # then the whole model in bf16 serving the wave
+    mcfg = getattr(LlamaConfig, moe)(**dict(mover, n_layers=2, dtype=torch.float32,
+                                            param_dtype=torch.float32, max_seq_len=256))
+    mcfg = dataclasses.replace(mcfg, capacity_factor=mcfg.n_experts / mcfg.moe_top_k)
+    gen = lambda: torch.Generator(device=dev).manual_seed(0)
+    whole = [(k, p.shape) for k, p in Llama(mcfg, device="meta").named_parameters()]
+    prompt = torch.from_numpy(np.random.default_rng(8).integers(0, mcfg.vocab_size,
+                                                                (1, 100))).to(dev)
+    ids_of = lambda m: [b.moe.last_gate_idx.clone() for b in m.blocks()]
+
+    def cached_forward(model, kv_heads):
+        kv = KVCache.init(dataclasses.replace(mcfg, n_kv_heads=kv_heads), 1, 256, device=dev)
+        with torch.no_grad():
+            logits, kv = model(prompt, cache=kv)
+            ids = ids_of(model)
+            step, _ = model(logits[:, -1].argmax(-1, keepdim=True), cache=kv)
+        return logits, step, ids + ids_of(model)
+
+    ref_model = None
+    if lead:
+        ref_model = init_params(Llama(mcfg, device=dev), gen()).requires_grad_(False)
+        ref_logits, ref_step, ref_ids = cached_forward(ref_model, mcfg.n_kv_heads)
+    tp_mesh = make_mesh({"tp": world}, device=device)
+    tp_model = init_params_sharded(Llama(mcfg, device=dev, mesh=tp_mesh), whole, gen(), tp_mesh)
+    tp_logits, tp_step, tp_ids = cached_forward(tp_model.requires_grad_(False),
+                                                mcfg.n_kv_heads // world)
+    del tp_model
+    if lead:
+        err = float((tp_logits - ref_logits).abs().max())
+        err_step = float((tp_step - ref_step).abs().max())
+        flips = sum(int((a != b).any(-1).sum()) for a, b in zip(tp_ids, ref_ids))
+        res["moe_tp_check"] = dict(prefill_max_abs_err=err, step_max_abs_err=err_step,
+                                   expert_id_flips=flips, tol=1e-3)
+        log(f"[cards] {moe} x 2 layers f32, tp={world} vs tp=1 (dense cache): prefill logits "
+            f"max |diff| {err:.3e}, decode step {err_step:.3e} (tol 1e-3); top-2 expert ids "
+            f"differ for {flips} of {101 * 2} (token, layer) pairs")
+        if not (err <= 1e-3 and err_step <= 1e-3 and flips == 0):
+            raise AssertionError(f"moe tp check failed: {res['moe_tp_check']}")
+    save()
+
+    # (4) moe_ep: the banks over ep (and tp), no cache: attention through B1
+    # (f32 route, "auto" on cuda) on each rank's heads, held against the
+    # unsharded model's weights with plain attention (attn_impl="xla")
+    tokens = torch.from_numpy(np.random.default_rng(9).integers(0, mcfg.vocab_size,
+                                                                (1, 128))).to(dev)
+    res["moe_ep"] = {}
+    if lead:
+        plain = Llama(dataclasses.replace(mcfg, attn_impl="xla"), device="meta")
+        plain.load_state_dict(ref_model.state_dict(), assign=True)
+        with torch.no_grad():
+            ref_out = plain(tokens)[0]
+        del plain
+    for axes in ({"ep": world}, {"ep": 2, "tp": world // 2}):
+        ep_mesh = make_mesh(axes, device=device)
+        model = init_params_sharded(Llama(mcfg, device=dev, mesh=ep_mesh), whole, gen(),
+                                    ep_mesh).requires_grad_(False)
+        reset_launch_counts()
+        with torch.no_grad():
+            out = model(tokens)[0]
+        launches = launch_counts()
+        # B1 once a layer on this rank's heads (f32 route), nothing else
+        want = dict.fromkeys(launches, 0)
+        want["flash_fwd"] = mcfg.n_layers if device == "cuda" else 0
+        if launches != want:
+            raise AssertionError(f"moe_ep {axes} launches {launches}, want {want}")
+        fwd = lambda: model(tokens)
+        with torch.no_grad():
+            ms = op_ms(fwd, iters=5) if device == "cuda" else None
+        if lead:
+            err = float((out - ref_out).abs().max())
+            res["moe_ep"][str(axes)] = dict(max_abs_err=err, forward_ms=ms,
+                                           launches=launches, experts=model.layers_0.moe.w_gate.shape[0])
+            log(f"[cards] moe_ep {axes}: {moe} x 2 layers f32, B=1 T=128: logits max |diff| "
+                f"from the unsharded plain-attention forward {err:.3e}, forward {ms} ms, "
+                f"launches on rank 0 {launches}")
+        del model
+        _world_barrier(device)
+    if lead:
+        with torch.no_grad():
+            ref_ms = op_ms(lambda: ref_model(tokens), iters=5) if device == "cuda" else None
+        res["moe_ep"]["unsharded_forward_ms"] = ref_ms
+        bad = [k for k, v in res["moe_ep"].items()
+               if isinstance(v, dict) and not v["max_abs_err"] <= 1e-3]
+        if bad:
+            raise AssertionError(f"moe_ep disagrees with the unsharded plain-attention forward: "
+                                 f"{res['moe_ep']}")
+    del ref_model
+    _reset_peak(device)
+    _world_barrier(device)
+    save()
+
+    # (3, continued) the whole MoE model, bf16, tp=4, dense cache
+    overrides = dict(mover, **({} if moe_layers is None else {"n_layers": moe_layers}))
+    full, _ = _serve_tp_world(rank, world, moe, "bfloat16", device, prompts, max_tokens,
+                              model_overrides=overrides)
+    if lead:
+        res["moe_serve"] = {k: v for k, v in full.items()
+                            if k not in ("first_logits", "ids", "stats")}
+        mc = getattr(LlamaConfig, moe)(**overrides)
+        from ray_tpu_torch.models.llama import llama_param_count
+        res["moe_serve"].update(n_layers=mc.n_layers, params=llama_param_count(mc))
+        peaks = full["peak_bytes_per_card"]
+        log(f"[cards] {moe} at {mc.n_layers} layers ({llama_param_count(mc):,} params), bf16, "
+            f"tp={world}, dense cache: TTFT p50 {full['ttft_p50_s'] * 1e3:.1f} ms, "
+            f"{full['decode_tokens_per_s']:.1f} decode tokens/s, peak "
+            f"{[round(p / 2**30, 2) if p else None for p in peaks]} GiB a card "
+            f"(built in {full['build_s']:.1f} s)")
+        ok = all(len(i) == max_tokens and all(0 <= t < mc.vocab_size for t in i)
+                 for i in full["ids"])
+        if not ok:
+            raise AssertionError("the MoE tp server's output is malformed")
+    save()
+
+    # last, as it leaves the world unusable: a follower that fails
+    error, seconds = _failing_follower_world(rank, world, device)
+    mine = dict(error=error, seconds=seconds)
+    if lead:
+        res["failing_follower"] = mine
+        log(f"[cards] a follower that fails at tp={world} (rank 1's decode step raises): rank 0 "
+            f"raised after {seconds:.3f} s: {error}")
+        want = ("tp follower failed in _decode_chunk: rank 1: RuntimeError: follower lost "
+                "its card")
+        if error is None or want not in error or seconds > FAILING_FOLLOWER_S:
+            raise AssertionError(f"the failing follower: rank 0 {mine}, want {want!r} within "
+                                 f"{FAILING_FOLLOWER_S} s")
+        save()
+    return res if lead else dict(failing_follower=mine)
+
+
+# rank 0 must raise a follower's error within this many seconds of the
+# request (the NCCL group's own timeout is 900 s)
+FAILING_FOLLOWER_S = 60
+
+
+def _failing_follower_world(rank, world, device):
+    """tiny f32 at tp=world (n_kv_heads raised to `world`) whose rank 1 fails
+    in its first decode step. Rank 0 serves one request and must raise the
+    follower's report of it; ranks 2.. are left waiting for a next call
+    until rank 0's process exits. Returns (this rank's error text, or
+    None; seconds from the request to it)."""
+    from ray_tpu_torch.serve.llm import LLMConfig, LLMServer
+    kw = dict(model_overrides={"n_kv_heads": world}, max_seq_len=256, max_batch_slots=2)
+    server = LLMServer(LLMConfig(**tp_server_config("tiny", world, "float32", device, **kw)))
+    if rank == 1:
+        def lost(*args):
+            raise RuntimeError("follower lost its card")
+        server._decode_chunk = lost
+    t0 = time.perf_counter()
+    try:
+        if rank == 0:
+            asyncio.run(server.generate(list(range(1, 17)), max_tokens=8))
+        else:
+            server.follow()
+    except RuntimeError as e:
+        return (f"{e} <- {e.__cause__}" if e.__cause__ else str(e)), time.perf_counter() - t0
+    return None, time.perf_counter() - t0
+
+
+def main_cards(n, device="cuda", presets=None, max_tokens=32):
+    """`--cards n`: one rank per card over NCCL, the phases of cards_phases.
+    `presets` names the dense and MoE presets (llama_1b and Mixtral-8x7B at
+    all 32 layers by default), with optional overrides, for rehearsals at a
+    small size."""
+    presets = presets or dict(llama="llama_1b", moe=MOE_PRESET)
+    import torch
+    if device == "cuda" and torch.cuda.device_count() < n:
+        raise RuntimeError(f"--cards {n} needs {n} visible cards, have "
+                           f"{torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    if device == "cuda":
+        from ray_tpu_torch.ops import _build
+        _build.build()             # once, before the ranks load it
+    ranks = spawn_ranks(_cards_rank, n, (device, presets, max_tokens))
+    res = ranks[0]
+    # the failed follower raised its own error; the others ended when rank
+    # 0's process went
+    res["failing_follower"]["followers"] = [r["failing_follower"] for r in ranks[1:]]
+    log(f"[cards] the followers of the failed server: {res['failing_follower']['followers']}")
+    if not ranks[1]["failing_follower"]["error"] == "follower lost its card":
+        raise AssertionError(f"the failing follower's own error: {ranks[1]['failing_follower']}")
+    res["seconds"] = time.perf_counter() - t0
+    if device == "cuda":
+        res["device"] = smi_line()
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / CARDS_OUT).write_text(json.dumps(res, indent=1, default=str))
+    log(f"[cards] done in {res['seconds']:.1f} s; results in chip_smoke_out/{CARDS_OUT}")
+    return res
+
+
+def cards_arg(argv):
+    """The n of `--cards n` (None without it)."""
+    if "--cards" not in argv:
+        return None
+    return int(argv[argv.index("--cards") + 1])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
     from ray_tpu_torch.ops import _build
+
+    cards = cards_arg(sys.argv[1:])
+    if cards:
+        log(f"[device] {smi_line()} | torch {torch.__version__} cuda {torch.version.cuda} | "
+            f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+        main_cards(cards)
+        print(smi_line(), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
@@ -2257,6 +3058,7 @@ def main() -> int:
     train = dict(grads=check_train_grads(), head_bf16=check_head_bf16(), **run_train())
     topology, nccl = check_topology(), check_nccl_world()
     trainer = dict(run_trainer(), topology=topology, nccl=nccl)
+    mesh = run_mesh()
 
     # one row per kernel; launches counted on each main path that was driven
     # (serve slice and train slice), timings at the training shape for the
@@ -2267,14 +3069,16 @@ def main() -> int:
         by_path = {"serve": summary["launches"][name], "serve_moe": moe["launches"][name],
                    "serve_pd": pd["launches"][name], "serve_tiered": tiered["launches"][name],
                    "train": train["launches"][name],
-                   "train_resume": trainer["launches"][name]}
+                   "train_resume": trainer["launches"][name],
+                   "serve_tp": mesh["launches"][name]}
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=sum(by_path.values()), launches_by_path=by_path,
                     max_abs_err=max(err, t["max_abs_err"]), ms=t["ms"], plain_ms=t["plain_ms"],
                     bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                     library_ms=t["library_ms"])
 
-    serve_runs = {"serve": summary, "serve_moe": moe, "serve_pd": pd, "serve_tiered": tiered}
+    serve_runs = {"serve": summary, "serve_moe": moe, "serve_pd": pd, "serve_tiered": tiered,
+                  "serve_tp": mesh}
     kernels = [
         flash_row("flash_fwd", "ray_tpu_torch/ops/csrc/flash_fwd.cu",
                   "ray_tpu/ops/flash_attention.py:37", flash_err),
@@ -2300,7 +3104,7 @@ def main() -> int:
         flash_timing=list(flash_t.values()), train_kernel_timing=train_t,
         paged_timing=paged_t, paged_timing_long=paged_long, paged_plans=paged_plans,
         slice=summary, moe=moe, replica=replica, pd=pd, tiered=tiered, train=train,
-        trainer=trainer, kernels=kernels),
+        trainer=trainer, mesh=mesh, kernels=kernels),
         indent=1, default=str))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)

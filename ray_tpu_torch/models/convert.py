@@ -20,13 +20,22 @@ b @ a is the port weight's [out, in] delta.
 `init_params` fills a model from a `torch.Generator` the way the flax
 initializers do (normal with std 0.02 for kernels and the embedding, ones
 for norm scales), for runs with no JAX params.
+
+On a mesh: `shard_state_dict` takes this rank's blocks of a whole
+state_dict (the shard-local model's state_dict), and
+`init_params_sharded` draws `init_params`'s values one whole parameter at
+a time and keeps this rank's block, so a shard-local model is bitwise
+the blocks of the unsharded seeded model, and no rank ever holds more
+than one whole parameter.
 """
 
-from typing import Dict, Mapping
+from typing import Dict, Iterable, Mapping, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+
+from ray_tpu_torch.parallel import sharding as _sharding
 
 
 def _flatten(tree: Mapping, prefix: str = ""):
@@ -76,13 +85,51 @@ def flax_lora_to_port(lora: Mapping) -> Dict:
     return {"scale": _to_tensor(lora["scale"]), "factors": factors}
 
 
+def _draw(name: str, t: torch.Tensor, generator: torch.Generator, std: float):
+    if name.endswith("scale"):
+        t.fill_(1.0)
+    else:
+        t.normal_(0.0, std, generator=generator)
+
+
 @torch.no_grad()
 def init_params(model: nn.Module, generator: torch.Generator, std: float = 0.02):
     """Seeded init: normal(0, std) for Dense weights and the embedding,
     ones for norm scales. The generator must live on the model's device."""
     for name, p in model.named_parameters():
-        if name.endswith("scale"):
-            p.fill_(1.0)
-        else:
-            p.normal_(0.0, std, generator=generator)
+        _draw(name, p, generator, std)
+    return model
+
+
+def shard_state_dict(sd: Mapping[str, torch.Tensor], mesh,
+                     rules=None) -> Dict[str, torch.Tensor]:
+    """This rank's blocks of the whole state_dict `sd` (for example
+    `flax_to_state_dict(jax_params)`) under `rules` (`llama_rules()` by
+    default) on `mesh`: views of `sd`'s tensors, for the shard-local
+    model's `load_state_dict`."""
+    rules = rules or _sharding.llama_rules()
+    out = {}
+    for key, t in sd.items():
+        path = key.replace(".", "/")
+        spec = _sharding._filter_axes(rules.spec_for(path, t), mesh)
+        out[key] = _sharding.local_slice(t, spec, mesh)
+    return out
+
+
+@torch.no_grad()
+def init_params_sharded(model: nn.Module, full_shapes: Iterable[Tuple[str, torch.Size]],
+                        generator: torch.Generator, mesh, rules=None, std: float = 0.02):
+    """`init_params` for a shard-local model: `full_shapes` are the unsharded
+    model's (name, shape) pairs in its parameter order; each whole parameter
+    is drawn on the model's device from `generator`, this rank's block is
+    kept and the rest freed."""
+    rules = rules or _sharding.llama_rules()
+    local = dict(model.named_parameters())
+    for name, shape in full_shapes:
+        p = local[name]
+        whole = torch.empty(shape, dtype=p.dtype, device=p.device)
+        _draw(name, whole, generator, std)
+        spec = _sharding._filter_axes(rules.spec_for(name.replace(".", "/"), whole), mesh)
+        p.copy_(_sharding.local_slice(whole, spec, mesh))
+        del whole
     return model

@@ -24,6 +24,20 @@ Counterpart of `ray_tpu/models/llama.py` (flax). Design points kept:
 `n_experts > 0` swaps the FFN of every `moe_every`-th block for the expert
 bank of `models/moe.py` (child `moe`, as in the flax tree).
 `attn_impl="ring"` (sequence parallel) belongs to a later slice.
+
+Shard-local modules: given a mesh (`Llama(cfg, mesh=...)`, axes tp and
+ep), each rank holds its blocks of the parameters under
+`parallel.sharding.llama_rules` as plain tensors and calls
+`parallel.xla_ops` where GSPMD would put the collectives: wq, wk, wv,
+w_gate and w_up are split on their output dimension (no collective); wo
+and w_down on their input dimension, then a psum over tp; the embedding
+over d, then an all_gather of the last dimension (a tied head is a psum
+of partial products); lm_head over the vocabulary, then an all_gather of
+the logits, so every rank holds the same full row. Each rank holds H/tp
+query heads and Kh/tp KV heads in contiguous blocks, so the GQA group of
+a local head is local; head counts come from the local weights. The MoE
+bank's combine is followed by a psum over ep and tp (`models/moe.py`).
+No hand kernel sees a DTensor.
 """
 
 import dataclasses
@@ -39,6 +53,8 @@ from ray_tpu_torch.ops.attention import apply_rope, decode_attention, mha_refere
 from ray_tpu_torch.ops.flash_attention import flash_attention
 from ray_tpu_torch.ops.paged_attention import (PagedKVCache, paged_attention,
                                                write_layer_tokens)
+from ray_tpu_torch.parallel import xla_ops
+from ray_tpu_torch.parallel.mesh import axis_sizes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,6 +159,40 @@ class KVCache:
             length=torch.zeros((batch,), dtype=torch.int32, device=device))
 
 
+class ShardPlace:
+    """A shard-local model's place on its mesh: the tp and ep sizes, this
+    rank's index on each, and the collectives the modules call. Axes other
+    than tp and ep must have size 1: the forward computes tensor and expert
+    parallelism only."""
+
+    def __init__(self, mesh):
+        sizes = axis_sizes(mesh)
+        other = {a: n for a, n in sizes.items() if a not in ("tp", "ep") and n > 1}
+        if other:
+            raise ValueError(f"the shard-local Llama computes over tp and ep; mesh axes "
+                             f"{other} are not supported")
+        self.mesh = mesh
+        self.tp, self.ep = sizes.get("tp", 1), sizes.get("ep", 1)
+        self.tp_index = xla_ops.axis_index("tp", mesh) if "tp" in sizes else 0
+        self.ep_index = xla_ops.axis_index("ep", mesh) if "ep" in sizes else 0
+
+    def split(self, n: int, axis: str, what: str) -> int:
+        parts = self.tp if axis == "tp" else self.ep
+        if n % parts:
+            raise ValueError(f"{axis}={parts} must divide {what}={n}")
+        return n // parts
+
+    def psum(self, x, *axes):
+        for a in axes:
+            if (self.tp if a == "tp" else self.ep) > 1:
+                x = xla_ops.psum(x, a, self.mesh)
+        return x
+
+    def gather_tp(self, x):
+        """The tp blocks of the last dimension, concatenated."""
+        return xla_ops.all_gather(x, "tp", self.mesh, gather_axis=-1) if self.tp > 1 else x
+
+
 class Dense(nn.Module):
     """Bias-free projection; weight [out, in]. Input and weight are cast to
     the activation dtype before the product, as flax's Dense(dtype=...)."""
@@ -159,19 +209,28 @@ class Dense(nn.Module):
 
 
 class Embed(nn.Module):
-    """Token embedding [V, D]; `attend` is the tied head x @ E^T."""
+    """Token embedding [V, D]; `attend` is the tied head x @ E^T. Shard-local:
+    [V, D/tp], the lookup gathered over tp, the head a psum of partials."""
 
-    def __init__(self, vocab: int, dim: int, dtype, param_dtype, device=None):
+    def __init__(self, vocab: int, dim: int, dtype, param_dtype, device=None, place=None):
         super().__init__()
         self.dtype = dtype
+        self.place = place
+        if place is not None:
+            dim = place.split(dim, "tp", "d_model")
         self.embedding = nn.Parameter(torch.empty(vocab, dim, dtype=param_dtype,
                                                   device=device))
 
     def forward(self, tokens):
-        return F.embedding(tokens, self.embedding.to(self.dtype))
+        x = F.embedding(tokens, self.embedding.to(self.dtype))
+        return x if self.place is None else self.place.gather_tp(x)
 
     def attend(self, x):
-        return x.to(self.dtype) @ self.embedding.to(self.dtype).t()
+        if self.place is None:
+            return x.to(self.dtype) @ self.embedding.to(self.dtype).t()
+        d = self.embedding.shape[1]
+        part = x[..., self.place.tp_index * d:(self.place.tp_index + 1) * d]
+        return self.place.psum(part.to(self.dtype) @ self.embedding.to(self.dtype).t(), "tp")
 
 
 class RMSNorm(nn.Module):
@@ -196,23 +255,31 @@ def _resolve_attn_impl(impl: str, device: torch.device) -> str:
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: LlamaConfig, layer_idx: int = 0, device=None):
+    def __init__(self, cfg: LlamaConfig, layer_idx: int = 0, device=None, place=None):
         super().__init__()
         self.cfg = cfg
         self.layer_idx = layer_idx
+        self.place = place
+        heads, kv_heads = cfg.n_heads, cfg.n_kv_heads
+        if place is not None:
+            heads = place.split(heads, "tp", "n_heads")
+            kv_heads = place.split(kv_heads, "tp", "n_kv_heads")
         dense = lambda i, o: Dense(i, o, cfg.dtype, cfg.param_dtype, device)
-        self.wq = dense(cfg.d_model, cfg.n_heads * cfg.head_dim)
-        self.wk = dense(cfg.d_model, cfg.n_kv_heads * cfg.head_dim)
-        self.wv = dense(cfg.d_model, cfg.n_kv_heads * cfg.head_dim)
-        self.wo = dense(cfg.n_heads * cfg.head_dim, cfg.d_model)
+        self.wq = dense(cfg.d_model, heads * cfg.head_dim)
+        self.wk = dense(cfg.d_model, kv_heads * cfg.head_dim)
+        self.wv = dense(cfg.d_model, kv_heads * cfg.head_dim)
+        self.wo = dense(heads * cfg.head_dim, cfg.d_model)
 
     def forward(self, x, positions, cache=None, paged_chunk_local: bool = False):
         cfg = self.cfg
         layer_idx = self.layer_idx
         b, t, _ = x.shape
-        q = self.wq(x).reshape(b, t, cfg.n_heads, cfg.head_dim)
-        k = self.wk(x).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
-        v = self.wv(x).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
+        # head counts from the (local) weights: H/tp and Kh/tp on a mesh
+        n_heads = self.wq.weight.shape[0] // cfg.head_dim
+        n_kv_heads = self.wk.weight.shape[0] // cfg.head_dim
+        q = self.wq(x).reshape(b, t, n_heads, cfg.head_dim)
+        k = self.wk(x).reshape(b, t, n_kv_heads, cfg.head_dim)
+        v = self.wv(x).reshape(b, t, n_kv_heads, cfg.head_dim)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
@@ -265,32 +332,37 @@ class Attention(nn.Module):
             else:
                 raise NotImplementedError(f"attn_impl={impl!r}: later slice")
 
-        out = out.reshape(b, t, cfg.n_heads * cfg.head_dim)
-        return self.wo(out), new_cache_kv
+        out = self.wo(out.reshape(b, t, n_heads * cfg.head_dim))
+        if self.place is not None:
+            out = self.place.psum(out, "tp")
+        return out, new_cache_kv
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device=None):
+    def __init__(self, cfg: LlamaConfig, device=None, place=None):
         super().__init__()
+        self.place = place
+        ffn = cfg.ffn_dim if place is None else place.split(cfg.ffn_dim, "tp", "ffn_dim")
         dense = lambda i, o: Dense(i, o, cfg.dtype, cfg.param_dtype, device)
-        self.w_gate = dense(cfg.d_model, cfg.ffn_dim)
-        self.w_up = dense(cfg.d_model, cfg.ffn_dim)
-        self.w_down = dense(cfg.ffn_dim, cfg.d_model)
+        self.w_gate = dense(cfg.d_model, ffn)
+        self.w_up = dense(cfg.d_model, ffn)
+        self.w_down = dense(ffn, cfg.d_model)
 
     def forward(self, x):
-        return self.w_down(F.silu(self.w_gate(x)) * self.w_up(x))
+        out = self.w_down(F.silu(self.w_gate(x)) * self.w_up(x))
+        return out if self.place is None else self.place.psum(out, "tp")
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: LlamaConfig, layer_idx: int = 0, device=None):
+    def __init__(self, cfg: LlamaConfig, layer_idx: int = 0, device=None, place=None):
         super().__init__()
         self.attn_norm = RMSNorm(cfg.d_model, cfg.norm_eps, cfg.dtype, device)
-        self.attn = Attention(cfg, layer_idx, device)
+        self.attn = Attention(cfg, layer_idx, device, place)
         self.mlp_norm = RMSNorm(cfg.d_model, cfg.norm_eps, cfg.dtype, device)
         if cfg.n_experts > 0 and layer_idx % cfg.moe_every == 0:
-            self.moe = MoEMLP(cfg, device)
+            self.moe = MoEMLP(cfg, device, place)
         else:
-            self.mlp = MLP(cfg, device)
+            self.mlp = MLP(cfg, device, place)
 
     def forward(self, x, positions, cache, paged_chunk_local=False):
         h, new_kv = self.attn(self.attn_norm(x), positions, cache, paged_chunk_local)
@@ -301,20 +373,27 @@ class Block(nn.Module):
 
 
 class Llama(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device=None):
+    """The decoder. With `mesh` (a DeviceMesh with axes tp and/or ep), the
+    shard-local model: this rank's blocks of the parameters under
+    `llama_rules`, and the collectives of the module docstring."""
+
+    def __init__(self, cfg: LlamaConfig, device=None, mesh=None):
         super().__init__()
         if cfg.attn_impl == "ring":
             raise NotImplementedError("attn_impl='ring' (sequence parallel): later slice")
         if cfg.attn_impl not in ("auto", "flash", "xla"):
             raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
         self.cfg = cfg
-        self.embed = Embed(cfg.vocab_size, cfg.d_model, cfg.dtype, cfg.param_dtype, device)
+        self.place = place = None if mesh is None else ShardPlace(mesh)
+        self.embed = Embed(cfg.vocab_size, cfg.d_model, cfg.dtype, cfg.param_dtype, device,
+                           place)
         for i in range(cfg.n_layers):
-            self.add_module(f"layers_{i}", Block(cfg, i, device))
+            self.add_module(f"layers_{i}", Block(cfg, i, device, place))
         self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, cfg.dtype, device)
         if not cfg.tie_embeddings:
-            self.lm_head = Dense(cfg.d_model, cfg.vocab_size, cfg.dtype,
-                                 cfg.param_dtype, device)
+            vocab = (cfg.vocab_size if place is None
+                     else place.split(cfg.vocab_size, "tp", "vocab_size"))
+            self.lm_head = Dense(cfg.d_model, vocab, cfg.dtype, cfg.param_dtype, device)
 
     def blocks(self):
         return [getattr(self, f"layers_{i}") for i in range(self.cfg.n_layers)]
@@ -369,6 +448,8 @@ class Llama(nn.Module):
             logits = self.embed.attend(x)
         else:
             logits = self.lm_head(x)
+            if self.place is not None:
+                logits = self.place.gather_tp(logits)
         return logits.to(torch.float32), new_cache
 
 

@@ -20,6 +20,13 @@ the activation dtype and the process's TF32 setting: a near-tie flipped by
 rounding changes which experts a token gets. Top-k breaks ties to the
 lower expert index, as `jax.lax.top_k` does.
 
+Expert parallelism: on a mesh (`place`, a `models.llama.ShardPlace`), the
+banks hold this rank's E/ep experts and F/tp of the hidden width, as
+`llama_rules` places `[E, D, F]` / `[E, F, D]`; the router stays
+replicated, so every rank routes every token the same way, dispatches to
+its own experts only, and the combine is followed by a psum over ep and
+tp.
+
 Load balancing: the Switch aux loss E * sum_e f_e * P_e (f_e = share of
 tokens whose first choice is e, P_e = mean router prob) is kept on the
 module as `aux_loss` after each forward (flax sows it into "losses");
@@ -65,11 +72,15 @@ class MoEMLP(nn.Module):
     [B,T,D]). Parameters keep the flax names: `router.weight` [E, D] (f32),
     `w_gate`/`w_up` [E, D, F] and `w_down` [E, F, D] in param_dtype."""
 
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, device=None, place=None):
         super().__init__()
         self.cfg = cfg
+        self.place = place
         E, D, F_ = cfg.n_experts, cfg.d_model, cfg.ffn_dim
         self.router = nn.Linear(D, E, bias=False, dtype=torch.float32, device=device)
+        if place is not None:
+            E = place.split(E, "ep", "n_experts")
+            F_ = place.split(F_, "tp", "ffn_dim")
         bank = lambda *s: nn.Parameter(torch.empty(*s, dtype=cfg.param_dtype,
                                                    device=device))
         self.w_gate = bank(E, D, F_)
@@ -114,6 +125,10 @@ class MoEMLP(nn.Module):
         s_idx = torch.arange(S, device=x.device).expand(K, S)
         combine[s_idx, gate_idx.t(), torch.where(keep, posk, C)] = gates
         combine = combine[..., :C]
+        if self.place is not None:                             # this rank's experts
+            e_local = self.w_gate.shape[0]
+            e0 = self.place.ep_index * e_local
+            combine = combine[:, e0:e0 + e_local]
         dispatch = (combine > 0).to(dt)                        # [S, E, C]
 
         with torch.profiler.record_function("moe_einsums"):
@@ -122,6 +137,8 @@ class MoEMLP(nn.Module):
             u = torch.bmm(expert_in, self.w_up.to(dt))
             out = torch.bmm(F.silu(h) * u, self.w_down.to(dt))  # [E, C, D]
             y = torch.einsum("sec,ecd->sd", combine.to(dt), out)
+        if self.place is not None:
+            y = self.place.psum(y, "ep", "tp")
         return y.reshape(B, T, D)
 
 

@@ -1,10 +1,20 @@
-"""Parallelism over `torch.distributed`: process-group bring-up
-(`distributed.py`) and collective groups (`collective.py`). Meshes and
-sharding rules come with a later slice."""
+"""Parallelism over `torch.distributed`: device meshes (`mesh.py`), the
+sharding-rule engine (`sharding.py`), collectives over a mesh axis
+(`xla_ops.py`), process-group bring-up (`distributed.py`) and collective
+groups (`collective.py`). Pipeline parallelism comes with a later slice."""
 
+from ray_tpu_torch.parallel.mesh import (AXIS_ORDER, auto_mesh, hybrid_mesh, local_cpu_mesh,
+                                         make_mesh)
+from ray_tpu_torch.parallel.sharding import (ShardingRules, batch_spec, data_sharding,
+                                             llama_rules, shard_tree, tree_paths)
 from ray_tpu_torch.parallel.distributed import (barrier, initialize_multihost, is_multihost,
                                                 process_count, process_index)
 from ray_tpu_torch.parallel import collective
+from ray_tpu_torch.parallel import xla_ops
 
-__all__ = ["barrier", "collective", "initialize_multihost", "is_multihost", "process_count",
-           "process_index"]
+__all__ = [
+    "AXIS_ORDER", "make_mesh", "auto_mesh", "hybrid_mesh", "local_cpu_mesh",
+    "ShardingRules", "llama_rules", "batch_spec", "data_sharding", "shard_tree",
+    "tree_paths", "collective", "xla_ops", "initialize_multihost", "is_multihost",
+    "process_index", "process_count", "barrier",
+]

@@ -5,11 +5,19 @@ of `ray_tpu/parallel/collective.py` (reference: ray.util.collective).
   semantics (every reduction, PRODUCT included, is numpy's over the ranks'
   arrays in rank order). It runs over a gloo group in place of the
   rendezvous actor.
-- backend="nccl": the GPU path, in place of JAX's "xla" mesh-axis group.
-  CUDA tensors in, CUDA tensors out, per rank, with the operations and
-  block conventions of `XlaGroup`: allreduce SUM, MAX and MIN;
-  reducescatter SUM over the axis-0 blocks of each rank's tensor;
-  allgather and alltoall over axis-0 blocks.
+- backend="nccl": the GPU path over the whole world. CUDA tensors in,
+  CUDA tensors out, per rank, with the operations and block conventions
+  of `XlaGroup`: allreduce SUM, MAX and MIN; reducescatter SUM over the
+  axis-0 blocks of each rank's tensor; allgather and alltoall over axis-0
+  blocks.
+- backend="xla": JAX's mesh-axis group. The group is one axis of a
+  device mesh (`parallel/mesh.py`; `mesh=None` builds
+  `make_mesh({axis: world_size})`), its process group the axis's, and
+  its operations those of the nccl backend, run on the mesh's device.
+  Where JAX's single controller owns every shard and its `rank` is
+  conceptual, each process here is one member and its `rank` is its
+  index on the axis. Results are JAX's per rank: reduce gives every rank
+  the reduced tensor, as JAX's does, and send/recv raise JAX's error.
 
 Groups are made with `torch.distributed.new_group`, which every rank of
 the default process group must call, in the same order: a group spans the
@@ -125,14 +133,15 @@ class TensorGroup(BaseGroup):
     for CUDA tensors; every call is issued on the current stream.
     `device` holds the barrier's one-element tensor."""
 
+    backend = "nccl"
+
     def __init__(self, world_size: int, rank: int, group_name: str, pg, device):
         super().__init__(world_size, rank, group_name, pg)
         self.device = device
 
-    @staticmethod
-    def _op(op):
+    def _op(self, op):
         if op not in _TORCH_REDUCE:
-            raise ValueError(f"nccl backend does not support op={op}")
+            raise ValueError(f"{self.backend} backend does not support op={op}")
         return _TORCH_REDUCE[op]
 
     def allreduce(self, t, op=ReduceOp.SUM):
@@ -150,7 +159,7 @@ class TensorGroup(BaseGroup):
     def reducescatter(self, t, op=ReduceOp.SUM):
         """Axis-0 block r of the sum over ranks, on rank r."""
         if op != ReduceOp.SUM:
-            raise ValueError("reducescatter supports SUM on the nccl backend")
+            raise ValueError(f"reducescatter supports SUM on the {self.backend} backend")
         if t.shape[0] % self.world_size:
             raise ValueError(f"axis 0 of {tuple(t.shape)} does not split into "
                              f"{self.world_size} blocks")
@@ -196,6 +205,49 @@ class TensorGroup(BaseGroup):
         return out
 
 
+class XlaGroup(TensorGroup):
+    """Group = one axis of a device mesh: world_size is the axis's size and
+    rank this process's index on it; the tensors are each rank's blocks."""
+
+    backend = "xla"
+
+    def __init__(self, mesh, axis: str, group_name: str):
+        from ray_tpu_torch.parallel import xla_ops
+        super().__init__(xla_ops.axis_size(axis, mesh), xla_ops.axis_index(axis, mesh),
+                         group_name, mesh.get_group(axis), _mesh_device(mesh))
+        self.mesh = mesh
+        self.axis = axis
+
+    def broadcast(self, t, src_rank=0):
+        """Rank `src_rank`'s tensor on every rank (`src_rank` is an axis index)."""
+        out = t.clone()
+        dist.broadcast(out, src=dist.get_global_rank(self.pg, src_rank), group=self.pg)
+        return out
+
+    def reduce(self, t, dst_rank=0, op=ReduceOp.SUM):
+        # JAX's single controller returns the reduced array to the caller,
+        # whatever dst_rank: every rank gets it here too
+        return self.allreduce(t, op)
+
+    def send(self, t, dst_rank: int):
+        raise NotImplementedError(
+            "xla backend has no eager send/recv (one controller owns all "
+            "shards) — use ppermute inside shard_map (parallel.xla_ops) or "
+            "backend='host'")
+
+    def recv(self, src_rank: int, like=None):
+        raise NotImplementedError(
+            "xla backend has no eager send/recv (one controller owns all "
+            "shards) — use ppermute inside shard_map (parallel.xla_ops) or "
+            "backend='host'")
+
+
+def _mesh_device(mesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
 def _process_group(world_size: int, rank: int, backend: str):
     """The torch process group for a new collective group of `world_size`."""
     global _owned_world
@@ -220,20 +272,23 @@ def _process_group(world_size: int, rank: int, backend: str):
 
 def init_collective_group(world_size: int, rank: int, backend: str = "host",
                           group_name: str = "default", mesh=None, axis: str = "dp"):
-    """Join group `group_name` as `rank` of `world_size`. `mesh` and `axis`
-    keep the reference's signature; a device mesh comes with the mesh port."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "collective groups over a device mesh wait for the port's mesh "
-            "(slice 8); pass mesh=None")
-    if backend == "xla":
-        raise ValueError("backend 'xla' is the JAX package's mesh-axis group; "
-                         "the port's device backend is 'nccl' (host|nccl)")
-    if backend not in ("host", "nccl"):
-        raise ValueError(f"unknown backend '{backend}' (host|nccl)")
+    """Join group `group_name` as `rank` of `world_size`. backend="xla"
+    makes the group axis `axis` of `mesh` (`make_mesh({axis: world_size})`
+    over the default world when mesh is None); the other backends span the
+    whole default world, and ignore `mesh` and `axis`, as JAX's host
+    backend does."""
+    if backend not in ("host", "nccl", "xla"):
+        raise ValueError(f"unknown backend '{backend}' (host|nccl|xla)")
     with _lock:
         if group_name in _groups:
             raise RuntimeError(f"group '{group_name}' already initialized")
+        if backend == "xla":
+            if mesh is None:
+                from ray_tpu_torch.parallel.mesh import make_mesh
+                mesh = make_mesh({axis: world_size})
+            g = XlaGroup(mesh, axis, group_name)
+            _groups[group_name] = g
+            return g
         pg = _process_group(world_size, rank, "gloo" if backend == "host" else "nccl")
         if backend == "host":
             g = HostGroup(world_size, rank, group_name, pg)
@@ -256,6 +311,8 @@ def destroy_collective_group(group_name: str = "default"):
         g = _groups.pop(group_name, None)
         if g is None:
             return
+        if isinstance(g, XlaGroup):
+            return                      # the axis's process group is the mesh's
         dist.destroy_process_group(g.pg)
         if _owned_world and not _groups:
             dist.destroy_process_group()

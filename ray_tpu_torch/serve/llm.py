@@ -29,23 +29,65 @@ pooled final hidden states); `prefix_digest` for an affinity router; and
 the KV stash: with the radix prefix cache, a page the LRU evicts is
 demoted into shm (then disk) segments and restored byte for byte on the
 next matching request instead of being prefilled again
-(`serve/kv_transfer.py`; RAY_TPU_SPILL_KV=0 discards instead). A later
-slice brings tensor parallelism (`tp > 1`). Prefill/decode disaggregation
-over the same engine is `serve/pd.py`.
+(`serve/kv_transfer.py`; RAY_TPU_SPILL_KV=0 discards instead).
+Prefill/decode disaggregation over the same engine is `serve/pd.py`.
+
+Tensor parallelism (`tp > 1`, dense cache only, as in JAX): the server
+spans ranks 0..tp-1 of the default process group, one process per card,
+each holding the shard-local model (`Llama(cfg, mesh=...)`: its heads,
+its FFN and vocabulary blocks, the collectives where GSPMD puts them)
+and its Kh/tp heads of the dense KV cache. Where JAX's single controller
+runs one program over the mesh, here rank 0 drives and the other ranks
+follow:
+- every rank builds `LLMServer(config)` (building the mesh is collective);
+- rank 0 runs the engine (`generate`, `generate_stream`, `embed`): it
+  admits requests and schedules ticks, which depend on when requests
+  arrive, so no other rank may decide them;
+- ranks 1..tp-1 call `follow()`: for each model-step call rank 0 makes
+  (`_prefill_row`, `_decode_chunk`, `_spec_step`, `_sample_first`,
+  `_embed_pooled`) they receive its name and host arguments over a gloo
+  group and make the same call, so every collective meets its peers;
+- sampling runs on every rank, from the same generator state and the
+  same all-gathered logits, so every rank draws the same tokens; each
+  chunk ends with a check (a max and a min of the emitted tokens over
+  tp) that raises on a rank that drifted;
+- after each call a follower reports to rank 0 over the gloo group: ok,
+  or the error its call raised (and then follow() raises it). Rank 0
+  posts its receives before its own call, so a report arrives even while
+  rank 0 waits in a collective for the follower that failed. Rank 0
+  raises the follower's error from that step (a follower whose process
+  is gone reports through gloo's closed connection), and the server is
+  finished: every later step raises it too. The world is then the
+  caller's to end: the other followers wait in follow() until rank 0's
+  process group goes, and over NCCL the healthy ranks' streams may hold a
+  collective that waits for the failed rank, so exit the processes rather
+  than destroy the group. A follower that hangs without failing is not
+  detected;
+- rank 0's `shutdown()` ends the followers.
+Ranks at tp and beyond in a larger world hold no shard; `follow()`
+returns at once there. With `params=None` the weights are born sharded:
+each rank draws `init_params`'s values one whole parameter at a time and
+keeps its block, so the tp model is bitwise the tp=1 model's blocks.
 """
 
 import asyncio
 import collections
+import contextlib
 import dataclasses
+import datetime
+import os
 import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ray_tpu_torch.device import resolve_device
-from ray_tpu_torch.models.convert import init_params
+from ray_tpu_torch.models.convert import init_params, init_params_sharded, shard_state_dict
 from ray_tpu_torch.models.llama import KVCache, Llama, LlamaConfig
+from ray_tpu_torch.parallel import xla_ops
+from ray_tpu_torch.parallel.mesh import make_mesh
 from ray_tpu_torch.ops.paged_attention import PagedKVCache
 from ray_tpu_torch.serve import radix_cache as _radix
 from ray_tpu_torch.serve.kv_transfer import KVPageStash, kv_demote_enabled
@@ -81,7 +123,9 @@ class LLMConfig:
     # from the newest earlier match of the context's last n-gram
     speculate: int = 0
     spec_ngram: int = 3
-    tp: int = 1                     # tensor parallel degree (later slice)
+    # tensor-parallel serving over ranks 0..tp-1 (dense cache only): rank 0
+    # drives, the others call follow()
+    tp: int = 1
     # extra LlamaConfig kwargs applied over the preset
     model_overrides: Optional[Dict[str, Any]] = None
     device: str = "cuda"            # "cpu" runs the plain PyTorch path
@@ -114,6 +158,17 @@ class _Slot:
     first_token: asyncio.Event = dataclasses.field(default_factory=asyncio.Event)
 
 
+# A follower waits for rank 0's next call for as long as the server idles.
+_FOLLOW_TIMEOUT = datetime.timedelta(days=7)
+# In a call sent to the followers: "the result of the previous step".
+_PREV = "<previous step's result>"
+# A follower's report of one call: its error's text in utf-8, zero-padded;
+# all zeros when the call ran.
+_REPORT_BYTES = 512
+# How long rank 0, its own call failed, waits for each follower's report
+_REPORT_WAIT = datetime.timedelta(seconds=5)
+
+
 @dataclasses.dataclass
 class _PrefillJob:
     """A prompt being fed through the model chunk-by-chunk by the engine."""
@@ -133,15 +188,6 @@ class LLMServer:
     def __init__(self, config: Optional[LLMConfig] = None, params=None):
         self.config = cfg = config or LLMConfig()
         self.device = resolve_device(cfg.device)
-        if cfg.tp > 1:
-            raise NotImplementedError(
-                "tp > 1 (tensor-parallel serving on torch.distributed): later slice")
-        if cfg.speculate > 0 and cfg.paged:
-            # checked before the weights and the page pool are allocated
-            raise ValueError(
-                "speculate requires paged=False: the paged decode kernel "
-                "is single-position; the dense cache path verifies [B, K+1] "
-                "windows natively (set paged=False or speculate=0)")
         preset = getattr(LlamaConfig, cfg.preset)
         overrides = dict(max_seq_len=cfg.max_seq_len,
                          param_dtype=getattr(torch, cfg.param_dtype))
@@ -158,13 +204,36 @@ class LLMServer:
             if self.model_cfg.capacity_factor < dropless:
                 self.model_cfg = dataclasses.replace(self.model_cfg,
                                                      capacity_factor=dropless)
+        self.mesh = None
+        self._role = "leader"           # tp == 1: this process is the server
+        self._followers = False
+        self._prev = None
+        self._drift = None
+        self._failed = None             # tp: why the server can no longer step
+        if cfg.tp > 1:
+            self._join_tp_world()
+            if self._role == "idle":
+                return
+        if cfg.speculate > 0 and cfg.paged:
+            # checked before the weights and the page pool are allocated
+            raise ValueError(
+                "speculate requires paged=False: the paged decode kernel "
+                "is single-position; the dense cache path verifies [B, K+1] "
+                "windows natively (set paged=False or speculate=0)")
         B = cfg.max_batch_slots
-        self.model = Llama(self.model_cfg, device=self.device)
-        if params is None:
-            gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self.model = Llama(self.model_cfg, device=self.device, mesh=self.mesh)
+        gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        if self.mesh is None and params is None:
             init_params(self.model, gen)
-        else:
+        elif self.mesh is None:
             self.model.load_state_dict(params)
+        elif params is None:
+            # born sharded: one whole parameter at a time, this rank's block kept
+            whole = Llama(self.model_cfg, device="meta").named_parameters()
+            init_params_sharded(self.model, [(n, p.shape) for n, p in whole], gen, self.mesh)
+        else:
+            # each rank copies its own blocks from the host state_dict
+            self.model.load_state_dict(shard_state_dict(params, self.mesh))
         self.model.requires_grad_(False)
         self.model.eval()
 
@@ -189,8 +258,10 @@ class LLMServer:
                 cfg.page_size, B, max_pages, dtype=mc.dtype, device=self.device)
         else:
             self.page_mgr = None
-            self.cache = KVCache.init(self.model_cfg, B, cfg.max_seq_len,
-                                      device=self.device)
+            # tp: this rank's Kh/tp heads of [B, Smax, Kh, D], never the whole
+            kv_cfg = dataclasses.replace(
+                self.model_cfg, n_kv_heads=self.model_cfg.n_kv_heads // cfg.tp)
+            self.cache = KVCache.init(kv_cfg, B, cfg.max_seq_len, device=self.device)
         self._active: Dict[int, _Slot] = {}   # slot idx -> request state
         self._spec_stats = {"spec_ticks": 0, "decode_ticks": 0,
                             "drafted": 0, "accepted": 0}
@@ -246,6 +317,162 @@ class LLMServer:
         self._prefill_q: "collections.deque[_PrefillJob]" = collections.deque()
         # signaled whenever capacity frees (slot or pages)
         self._capacity_event = asyncio.Event()
+
+    # -- tensor parallelism: rank 0 drives, the other ranks follow ------------
+    def _join_tp_world(self):
+        """JAX's checks, in its order and with its messages; then the {"tp"}
+        mesh over ranks 0..tp-1 and the followers' gloo control group, both
+        made by every rank of the world."""
+        cfg = self.config
+        if cfg.paged:
+            raise ValueError(
+                "tp>1 requires paged=False: the paged pallas kernel "
+                "does not auto-partition under GSPMD (dense decode "
+                "attention does)")
+        if self.model_cfg.n_kv_heads % cfg.tp:
+            raise ValueError(
+                f"tp={cfg.tp} must divide n_kv_heads="
+                f"{self.model_cfg.n_kv_heads} (the KV cache shards on "
+                f"its kv-head axis)")
+        world = (dist.get_world_size() if dist.is_initialized()
+                 else int(os.environ.get("WORLD_SIZE", 1)))
+        if cfg.tp > world:
+            raise ValueError(f"tp={cfg.tp} but only {world} devices visible")
+        self.mesh = make_mesh({"tp": cfg.tp}, devices=range(cfg.tp), device=self.device.type)
+        self._ctrl = dist.new_group(list(range(cfg.tp)), backend="gloo",
+                                    timeout=_FOLLOW_TIMEOUT)
+        rank = dist.get_rank()
+        self._role = "leader" if rank == 0 else "follower" if rank < cfg.tp else "idle"
+        self._followers = rank == 0
+
+    def _require_leader(self):
+        if self._role != "leader":
+            raise RuntimeError(
+                f"rank {dist.get_rank()} is a {self._role} of the tp={self.config.tp} "
+                f"server: rank 0 serves requests, the other ranks call follow()")
+
+    def _step(self, name: str, *args):
+        """Make model-step call `name` on every rank of the server: with
+        followers, rank 0 sends it first and then reads each follower's
+        report of it. Host arrays among `args` become device tensors on
+        each rank; a tensor argument must be the previous step's result,
+        which each rank holds. A failed step fails the server."""
+        if self._failed is not None:
+            raise RuntimeError(self._failed)
+        if not self._followers:
+            return self._call(name, args)
+        sent = []
+        for a in args:
+            if isinstance(a, torch.Tensor):
+                if a is not self._prev:
+                    raise TypeError(f"{name}: a tensor argument must be the previous "
+                                    f"step's result")
+                a = _PREV
+            sent.append(a)
+        dist.broadcast_object_list([(name, tuple(sent))], src=0, group=self._ctrl)
+        reports = {r: torch.zeros(_REPORT_BYTES, dtype=torch.uint8)
+                   for r in range(1, self.config.tp)}
+        posted = {r: dist.irecv(buf, src=r, group=self._ctrl) for r, buf in reports.items()}
+        try:
+            out = self._call(name, args)
+        except Exception as e:
+            # a follower's failure can surface here first (gloo: the
+            # collective it left); its report says why
+            report = self._read_reports(name, reports, posted, _REPORT_WAIT)
+            self._failed = report or f"tp rank 0 failed in {name}: {type(e).__name__}: {e}"
+            if report is None:
+                raise
+            raise RuntimeError(report) from e
+        self._failed = self._read_reports(name, reports, posted, None)
+        if self._failed is not None:
+            raise RuntimeError(self._failed)
+        return out
+
+    @staticmethod
+    def _read_reports(name, reports, posted, wait):
+        """The followers' errors in one message, or None. `wait=None` waits
+        for every report and counts a receive that fails (the follower's
+        process is gone) as its error; else a report not in by `wait` is
+        taken as none."""
+        errors = []
+        for r, work in posted.items():
+            try:
+                work.wait() if wait is None else work.wait(wait)
+            except Exception as e:  # noqa: BLE001 - the receive itself failed
+                if wait is None:
+                    errors.append(f"rank {r}: {type(e).__name__}: {e}")
+                continue
+            text = bytes(reports[r].tolist()).rstrip(b"\0").decode("utf-8", "replace")
+            if text:
+                errors.append(f"rank {r}: {text}")
+        return f"tp follower failed in {name}: " + "; ".join(errors) if errors else None
+
+    def _report(self, error: Optional[BaseException]):
+        """A follower's report of its call to rank 0."""
+        buf = torch.zeros(_REPORT_BYTES, dtype=torch.uint8)
+        if error is not None:
+            text = f"{type(error).__name__}: {error}".encode()[:_REPORT_BYTES]
+            buf[:len(text)] = torch.tensor(list(text), dtype=torch.uint8)
+        dist.send(buf, dst=0, group=self._ctrl)
+
+    def _call(self, name: str, args):
+        args = [self._prev if isinstance(a, str) and a == _PREV
+                else self._tensor(a) if isinstance(a, np.ndarray) else a for a in args]
+        self._prev = getattr(self, name)(*args)
+        return self._prev
+
+    def _mark_lockstep(self, *tokens):
+        """tp: note whether the ranks' emitted tokens differ (a max and a
+        min over tp); `_check_lockstep` reads the flag after the sync."""
+        if self.mesh is None:
+            return
+        flat = torch.cat([t.reshape(-1).to(torch.int32) for t in tokens])
+        hi = xla_ops.pmax(flat, "tp", self.mesh)
+        lo = xla_ops.pmin(flat, "tp", self.mesh)
+        self._drift = (hi != lo).any()
+
+    def _check_lockstep(self):
+        drift, self._drift = self._drift, None
+        if drift is not None and bool(drift):
+            msg = (f"tp ranks emitted different tokens (rank {dist.get_rank()}): the "
+                   f"ranks left lockstep")
+            if self._role == "leader":
+                self._failed = msg
+            raise RuntimeError(msg)
+
+    def follow(self):
+        """On ranks 1..tp-1 of a tp server: make each model-step call rank 0
+        makes, until rank 0's shutdown(); raise the error of a call that
+        fails, after reporting it to rank 0. Returns at once on a rank that
+        holds no shard."""
+        if self._role == "idle":
+            return
+        if self._role != "follower":
+            raise RuntimeError("rank 0 drives the server; follow() runs on ranks 1..tp-1")
+        while True:
+            box = [None]
+            dist.broadcast_object_list(box, src=0, group=self._ctrl)
+            name, args = box[0]
+            try:
+                # the previous step's flag, read once rank 0 has gone on:
+                # its collectives are complete on every rank
+                self._check_lockstep()
+                if name == "shutdown":
+                    return
+                self._call(name, args)
+            except Exception as e:
+                if name != "shutdown":
+                    with contextlib.suppress(Exception):    # rank 0 may be gone
+                        self._report(e)
+                raise
+            self._report(None)
+
+    def shutdown(self):
+        """Rank 0 of a tp server: end the followers' loops (a failed server
+        has none to end)."""
+        if self._followers and self._failed is None:
+            dist.broadcast_object_list([("shutdown", ())], src=0, group=self._ctrl)
+        self._followers = False
 
     # -- device programs ----------------------------------------------------
     def _tensor(self, x, dtype=None) -> torch.Tensor:
@@ -357,7 +584,9 @@ class LLMServer:
             toks.append(nxt)
             logps.append(logp)
         self.cache = cache
-        return torch.stack(toks, dim=1), emitted, torch.stack(logps, dim=1)
+        toks = torch.stack(toks, dim=1)
+        self._mark_lockstep(toks, emitted)
+        return toks, emitted, torch.stack(logps, dim=1)
 
     @torch.no_grad()
     def _spec_step(self, tokens, active, temps, top_ps, top_ks, hot: bool,
@@ -394,6 +623,7 @@ class LLMServer:
         length = torch.where(active, cache.length + n_emit, cache.length)
         self.cache = KVCache(k=new_cache.k, v=new_cache.v,
                              length=length.to(torch.int32))
+        self._mark_lockstep(emit, n_emit)
         return emit, n_emit.to(torch.int32), lp
 
     def _chunk_len(self) -> int:
@@ -477,6 +707,7 @@ class LLMServer:
                      top_p: Optional[float] = None,
                      top_k: Optional[int] = None,
                      logprobs: bool = False) -> _Slot:
+        self._require_leader()
         P = len(prompt_ids)
         t_admit = time.monotonic()
         # feasibility (max_seq_len, page-pool capacity) raises in _reserve
@@ -566,17 +797,16 @@ class LLMServer:
                   if final else cfg.prefill_chunk)
         padded = np.zeros((1, bucket), np.int32)
         padded[0, :n] = job.prompt[start:start + n]
-        tokens = self._tensor(padded)
         self._prefill_stats["chunks"] += 1
         if cfg.paged:
             # start == 0: a fresh row's first chunk, exact with chunk-local
             # attention (the flash kernel on CUDA, no page gather)
             chunk_local = start == 0
             self._prefill_stats["chunk_local"] += int(chunk_local)
-            last_logits = self._prefill_paged(tokens, job.slot_idx, start,
+            last_logits = self._prefill_paged(self._tensor(padded), job.slot_idx, start,
                                               start + n, chunk_local)
         else:
-            last_logits = self._prefill_row(tokens, job.slot_idx, start, start + n)
+            last_logits = self._step("_prefill_row", padded, job.slot_idx, start, start + n)
         job.pos += n
         return last_logits if final else None
 
@@ -750,11 +980,10 @@ class LLMServer:
             toks[i, 1:1 + len(d)] = d
         any_logp = any(s.want_logprobs for s in self._active.values())
         t0 = time.perf_counter()
-        emit, n_emit, logp = self._spec_step(
-            self._tensor(toks), self._tensor(mask), self._tensor(temps),
-            self._tensor(top_ps), self._tensor(top_ks), bool((temps > 0).any()),
-            any_logp)
+        emit, n_emit, logp = self._step(
+            "_spec_step", toks, mask, temps, top_ps, top_ks, bool((temps > 0).any()), any_logp)
         finished, emitted, n_emit = self._emit_synced(emit, n_emit, logp)
+        self._check_lockstep()
         st = self._spec_stats
         st["spec_ticks"] += 1
         st["drafted"] += sum(len(d) for d in drafts.values())
@@ -783,12 +1012,11 @@ class LLMServer:
             room[i] = cfg.max_seq_len - (slot.prompt_len + len(slot.generated))
         any_logp = any(s.want_logprobs for s in self._active.values())
         t0 = time.perf_counter()
-        toks, n_valid, logp = self._decode_chunk(
-            self._tensor(last), self._tensor(mask), self._tensor(temps),
-            self._tensor(top_ps), self._tensor(top_ks), self._tensor(eos),
-            self._tensor(budget), self._tensor(room),
+        toks, n_valid, logp = self._step(
+            "_decode_chunk", last, mask, temps, top_ps, top_ks, eos, budget, room,
             bool((temps > 0).any()), any_logp, n)
         finished, emitted, _ = self._emit_synced(toks, n_valid, logp)
+        self._check_lockstep()
         self._spec_stats["decode_ticks"] += 1
         self._note_sync(emitted, time.perf_counter() - t0, chunk=n)
         return finished
@@ -834,8 +1062,8 @@ class LLMServer:
         if self.page_mgr is not None and self.config.prefix_cache:
             self.page_mgr.register_prefix(job.slot_idx, job.prompt.tolist())
         slot = job.slot
-        first, flogp = self._sample_first(last_logits, slot.temperature, slot.top_p,
-                                          slot.top_k, slot.want_logprobs)
+        first, flogp = self._step("_sample_first", last_logits, slot.temperature, slot.top_p,
+                                  slot.top_k, slot.want_logprobs)
         slot.generated.append(first)
         if slot.want_logprobs:
             slot.logprobs.append(flogp)
@@ -926,6 +1154,7 @@ class LLMServer:
         the prefill buckets; causal attention keeps pad rows past the
         prompt out of the pooled rows. On CUDA the forward runs the flash
         kernel (B1) in every layer."""
+        self._require_leader()
         P = len(prompt_ids)
         if P == 0:
             raise ValueError("cannot embed an empty prompt")
@@ -933,15 +1162,20 @@ class LLMServer:
             raise ValueError(
                 f"prompt has {P} tokens but max_seq_len is "
                 f"{self.config.max_seq_len}")
-        b = self._bucket(P)
-        tokens = np.zeros((1, b), np.int32)
+        tokens = np.zeros((1, self._bucket(P)), np.int32)
         tokens[0, :P] = prompt_ids
-        with torch.no_grad():
-            hidden, _ = self.model(self._tensor(tokens), return_hidden=True)
-            mask = (torch.arange(b, device=self.device) < P)[None, :, None]
-            pooled = ((hidden * mask.to(hidden.dtype)).sum(dim=1)
-                      / torch.tensor(P, dtype=hidden.dtype, device=self.device))
-        return [float(x) for x in pooled[0].to(torch.float32).cpu().numpy()]
+        pooled = self._step("_embed_pooled", tokens, P)
+        return [float(x) for x in pooled.to(torch.float32).cpu().numpy()]
+
+    @torch.no_grad()
+    def _embed_pooled(self, tokens, P: int):
+        """The mean of the final hidden states of the first P positions."""
+        b = tokens.shape[1]
+        hidden, _ = self.model(tokens, return_hidden=True)
+        mask = (torch.arange(b, device=self.device) < P)[None, :, None]
+        pooled = ((hidden * mask.to(hidden.dtype)).sum(dim=1)
+                  / torch.tensor(P, dtype=hidden.dtype, device=self.device))
+        return pooled[0]
 
     def prefix_digest(self, max_bytes: Optional[int] = None) -> Optional[Dict]:
         """Hot-prefix digest for an affinity router: the radix tree's

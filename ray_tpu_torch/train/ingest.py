@@ -7,6 +7,12 @@ and issues its host-to-device copies `non_blocking` on a side stream,
 ahead of use, so step N+1's copy overlaps step N's compute. The consumer
 makes its current stream wait for the copy's event before it yields the
 batch.
+
+With `sharding` (a `parallel.sharding.NamedSharding`, e.g.
+`data_sharding(mesh)`), each rank copies only its own block of every
+leaf (the batch dimension split over dp and fsdp) the same way, and the
+batch comes out as DTensors over the mesh whose `full_tensor()` is the
+host batch.
 """
 
 import collections
@@ -16,8 +22,10 @@ from typing import Any, Callable, Iterable, Iterator, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Shard
 
 from ray_tpu_torch.device import resolve_device
+from ray_tpu_torch.parallel import sharding as _sharding
 
 
 def _map(tree, fn):
@@ -50,6 +58,18 @@ def _host_tensor(x) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def _as_dtensor(local: torch.Tensor, sharding) -> DTensor:
+    """The DTensor whose block on this rank is `local`."""
+    placements = sharding.placements(local.ndim)
+    shape = list(local.shape)
+    for mesh_dim, pl in enumerate(placements):
+        if isinstance(pl, Shard):
+            shape[pl.dim] *= sharding.mesh.mesh.shape[mesh_dim]
+    return DTensor.from_local(local, sharding.mesh, placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
+
+
 def iter_device_batches(
     batches: Iterable[Any],
     device="cuda",
@@ -65,14 +85,18 @@ def iter_device_batches(
       the batches become CPU tensors with no pinning and no streams.
     prefetch: queue depth; 2 = double buffering.
     transform: host-side fn applied before the copy (e.g. cast/pad).
-    sharding: JAX's placement over a mesh; it waits for the mesh port.
+    sharding: a NamedSharding over a mesh; every leaf becomes a DTensor
+      with this rank's block on the mesh's device (`device` is then
+      ignored). Each split dimension must divide evenly, as in JAX.
 
     A producer error is raised here, on the consumer's side.
     """
     if sharding is not None:
-        raise NotImplementedError(
-            "iter_device_batches(sharding=...) waits for the port's device mesh "
-            "(slice 8); pass device= for one card")
+        device = sharding.mesh.device_type
+        block = lambda x: _sharding.local_slice(
+            x, _sharding._clip_spec(sharding.spec, x), sharding.mesh)
+    else:
+        block = lambda x: x
     dev = resolve_device(device)
     q: "queue.Queue" = queue.Queue(maxsize=max(1, prefetch))
     stop = threading.Event()
@@ -86,14 +110,14 @@ def iter_device_batches(
             # The pinned buffers come from the caching host allocator, which
             # keeps each one until the copy that reads it has finished.
             with torch.cuda.stream(copy_stream):
-                out = _map(b, lambda x: _host_tensor(x).pin_memory().to(
+                out = _map(b, lambda x: block(_host_tensor(x)).pin_memory().to(
                     dev, non_blocking=True))
                 ready = torch.cuda.Event()
                 ready.record(copy_stream)
             return out, ready
     else:
         def to_device(b):
-            return _map(b, lambda x: _host_tensor(x).clone()), None
+            return _map(b, lambda x: block(_host_tensor(x)).clone()), None
 
     def offer(item) -> bool:
         while not stop.is_set():
@@ -133,6 +157,8 @@ def iter_device_batches(
                 current.wait_event(ready)
                 for x in _leaves(batch):
                     x.record_stream(current)
+            if sharding is not None:
+                batch = _map(batch, lambda x: _as_dtensor(x, sharding))
             yield batch
     finally:
         stop.set()          # a consumer that stops early releases the producer

@@ -11,6 +11,7 @@ world is smaller than ScalingConfig(num_workers=N).
 `run_ranks` is the spawner test_torch_collective.py uses too."""
 
 import multiprocessing as mp
+import pickle
 import queue
 import sys
 import traceback
@@ -22,8 +23,10 @@ from ray_tpu_torch.parallel import distributed as tdist
 from ray_tpu_torch.train import worker_group as twg
 
 
-def _rank_main(target, rank, world, store, results, args):
+def _rank_main(target, rank, world, store, results, args_path):
     try:
+        with open(args_path, "rb") as f:
+            args = pickle.load(f)
         results.put((rank, target(rank, world, store, *args), None))
     except BaseException:  # noqa: BLE001 - reported to the parent, which fails the test
         results.put((rank, None, traceback.format_exc()))
@@ -32,11 +35,17 @@ def _rank_main(target, rank, world, store, results, args):
 def run_ranks(target, world, tmp_path, *args, timeout=90):
     """Run target(rank, world, store_url, *args) in `world` spawned
     processes; returns the results in rank order. `target` is a
-    module-level function of a module that imports no jax."""
+    module-level function of a module that imports no jax. `args` go
+    through a file under tmp_path: a large argument in the spawn pipe
+    would hold each start until the previous child has read it."""
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     store = f"file://{tmp_path}/store-{target.__name__}-{world}"
-    procs = [ctx.Process(target=_rank_main, args=(target, r, world, store, results, args),
+    args_path = tmp_path / f"args-{target.__name__}-{world}.pkl"
+    with open(args_path, "wb") as f:
+        pickle.dump(args, f)
+    procs = [ctx.Process(target=_rank_main,
+                         args=(target, r, world, store, results, str(args_path)),
                          daemon=True) for r in range(world)]
     for p in procs:
         p.start()

@@ -6,6 +6,7 @@ prefetch_iterator lookahead is JAX's. The pinned copy on a side stream is
 checked on the card (chip_smoke.py, phase trainer)."""
 
 import threading
+import types
 
 import jax
 import numpy as np
@@ -86,8 +87,13 @@ def test_early_stop_releases_the_producer():
 
 
 def test_sharding_waits_for_the_mesh_and_cuda_needs_a_card():
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        next(tingest.iter_device_batches(_batches(1), device="cpu", sharding=object()))
+    """A sharding places the batch on its mesh's device, whatever `device`
+    says: a cuda mesh needs a card, as the default device does (sharded
+    feeds themselves: test_torch_xla_ops.py)."""
+    from ray_tpu_torch.parallel.sharding import P
+    on_cuda = types.SimpleNamespace(mesh=types.SimpleNamespace(device_type="cuda"), spec=P())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        next(tingest.iter_device_batches(_batches(1), device="cpu", sharding=on_cuda))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         next(tingest.iter_device_batches(_batches(1)))
 

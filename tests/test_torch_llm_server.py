@@ -143,12 +143,14 @@ def test_reconfigure_decode_chunk():
         srv.reconfigure({"decode_chunk": 0})
 
 
-@pytest.mark.parametrize("kw,exc", [(dict(tp=2), NotImplementedError),
+@pytest.mark.parametrize("kw,exc", [(dict(tp=2), ValueError),
                                     (dict(speculate=2, paged=True), ValueError)],
                          ids=["tp", "speculate-paged"])
 def test_later_slices_raise(kw, exc, monkeypatch):
-    """tp > 1 is a later slice; speculation on the paged cache is refused
-    for good, as in the JAX engine, before any weight or page allocation."""
+    """tp beyond the world (one process here) raises JAX's ValueError;
+    speculation on the paged cache is refused for good, as in the JAX
+    engine; both before any weight or page allocation (tp serving itself:
+    test_torch_tensor_parallel.py)."""
     def no_alloc(*a, **k):
         raise AssertionError("allocated before the config check")
     monkeypatch.setattr(tllm, "Llama", no_alloc)
@@ -178,6 +180,8 @@ def _imports(path: Path):
 def test_port_imports_no_jax_flax_or_ray_tpu():
     files = sorted((REPO / "ray_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    scanned = {str(f.relative_to(REPO)) for f in files}
+    assert {f"ray_tpu_torch/parallel/{m}.py" for m in ("mesh", "sharding", "xla_ops")} <= scanned
     banned = ("jax", "jaxlib", "flax", "optax", "orbax", "ray_tpu")
     bad = [(str(f.relative_to(REPO)), mod) for f in files for mod in _imports(f)
            if mod.split(".")[0] in banned]
