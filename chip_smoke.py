@@ -20,7 +20,9 @@ Phases, in order; a failing phase raises and the script exits non-zero:
              token); the bf16 forward on the same bf16 inputs, with a
              mean limit that a control (scores rounded to bf16 before the
              softmax) must miss at long T (also at Mixtral's D=128, G=4,
-             T 16/128/2048; paged decode also at D=128, G=4, page 64);
+             T 16/128/2048, and at the `pipeline` path's B=1, T=1024,
+             G=4 in f32 and bf16, forward and backward; paged decode also
+             at D=128, G=4, page 64);
              the backward ones also against
              a control without the bf16 roundings that their limit must
              reject; a grad-tracking call launches forward, dQ and dK/dV
@@ -127,11 +129,49 @@ Phases, in order; a failing phase raises and the script exits non-zero:
              would need two ranks on one device: NCCL refuses that, and
              gloo's all-gather of CUDA tensors crashes the process, so
              tp > 1 runs with --cards 4 only.
+13. seqpipe - sequence and pipeline parallelism at llama_1b width on world
+             1 (NCCL): (a) path `ring`: the shard-local llama_1b (bf16,
+             seed 0) with attn_impl="ring" on an {"sp": 1} mesh, B=1,
+             T=2048, global positions, its batch placed with
+             iter_device_batches(sharding=data_sharding(mesh, True)): the
+             summed CE loss, the logits and the parameter gradients against
+             a witness, the same weights in f32 with attn_impl="flash",
+             and against that model in bf16 (RING_TOL; its own distance
+             from the witness logged); two
+             planted faults (RING_CONTROLS: scores rounded to bf16, the
+             causal diagonal one key right) read against the witness, the
+             second of which the limits must reject; then a 2-layer f32
+             case held to 1e-4; no hand kernel may launch; (b)
+             pipeline_apply on a {"pp": 1} mesh equal to the sequential
+             blocks; (c) path `pipeline`: llama_1b in f32 split into 4
+             PipelineStages of 4 blocks (the embedding in stage 0, the final
+             norm, head and mean CE loss in stage 3) driven in process in
+             1F1B order (run_1f1b, MPMDPipeline.train_step's schedule) over
+             8 microbatches of B=1, T=1024 with one sgd(0.1) step: the mean
+             loss and every parameter after the step within 1e-5 of the
+             whole model's step; B1 launched twice a layer a microbatch
+             (forward and recompute), B2 and B3 once; (d) the 1F1B step in
+             bf16 timed beside the whole model's step.
 
     python3 chip_smoke.py --cards 4
 
 runs the multi-card phases instead, one spawned rank per card over NCCL
-(it needs four visible cards): the xla_ops at world 4 on one layer's bytes
+(it needs four visible cards): `seqpipe`, then `tp`, in the same ranks,
+then MPMD in this process. `--phases seqpipe` or `--phases tp` runs one
+group alone: a rehearsal aid for a change that touches one of them; the
+check of a change is the default run. `seqpipe`: ring attention at sp=4
+(llama_1b, bf16, B=1, T=16384, 4096 tokens a card, the batch placed by
+data_sharding(mesh, True)) against the f32 witness on one card at the
+whole T (loss, gathered logits, the sp-psum'd gradients), the bf16 flash
+model beside it, and the controls of the one-card run and a block
+dropped by the ring's last rank, both rejected; with the ms of a forward
+and a forward and backward, the peak memory a card and the ms of one K/V
+shift, and an f32 2-layer case held to 1e-4; pipeline_apply at pp=4 (llama_1b blocks, 4
+a stage, 8 microbatches of [1, 2048, 2048]) against the sequential blocks,
+f32 outputs and gradients within 1e-5, bf16 timed; then, in this process,
+MPMD 1F1B with stage i on card i (check_1f1b in f32, and in bf16 the
+tokens/s and each stage's device-busy share against the GPipe bound).
+`tp`: the xla_ops at world 4 on one layer's bytes
 (ms and NCCL-tests bus bandwidth, beside `nvidia-smi nvlink -s`);
 llama_1b f32 at tp 1, 2 and 4 with greedy ids equal (near-ties logged),
 and speculate=4 at tp=4 equal to the plain tp=4 server; llama_1b bf16 at
@@ -177,6 +217,7 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # max-abs vs the plain version
 # and their rounding is no larger than P's.
 FWD_MEAN_TOL = 2e-3
 FWD_CONTROL_MIN_T = 1024
+PIPE_SEQ = 1024          # the `pipeline` path's microbatch length (B=1)
 # backward kernels vs their plain version, per gradient: max |err| over max
 # |grad|, and mean |err| over mean |grad|. The mean limit is the one that
 # a backward without the dS and P roundings (the control) must exceed.
@@ -393,9 +434,13 @@ def check_flash(rng, record, device="cuda"):
     # later check keep the inputs they had before these were added
     cases += [(torch.bfloat16, True, 4, 8, t, 128, 1, 32) for t in (16, 128, 2048)]
     moe_rng = np.random.default_rng(128)
+    # the pipeline path's shape (B=1, T=PIPE_SEQ, G=4), both routes, on
+    # inputs of their own too
+    cases += [(dt, True, 4, 8, PIPE_SEQ, 64, 1, 32) for dt in (torch.float32, torch.bfloat16)]
+    pipe_rng = np.random.default_rng(PIPE_SEQ)
     for dtype, causal, g, kh, t, d, b, h in cases:
         name = str(dtype).split(".")[1]
-        src = moe_rng if (d, h) == (128, 32) else rng
+        src = moe_rng if (d, h) == (128, 32) else pipe_rng if t == PIPE_SEQ else rng
         q, k, v = flash_inputs(src, b, t, h, kh, d, dtype, device)
         out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
         r = check_fwd(f"{name} causal={causal} G={g} T={t} D={d}", q, k, v, causal, out,
@@ -488,11 +533,17 @@ def check_flash_bwd(rng, record, device="cuda"):
     cases = [(dt, causal, g, t, 64) for dt in (torch.float32, torch.bfloat16)
              for causal in (True, False) for g in (1, 4) for t in (16, 100, 128, 2048)]
     cases += [(torch.bfloat16, True, 4, 100, d) for d in (16, 32, 128)]
+    # the pipeline path's shape (B=1, T=PIPE_SEQ, G=4), both routes, on
+    # inputs of their own so that the cases above keep theirs
+    cases += [(dt, True, 4, PIPE_SEQ, 64) for dt in (torch.float32, torch.bfloat16)]
+    pipe_rng = np.random.default_rng(PIPE_SEQ)
     for dtype, causal, g, t, d in cases:
         name = str(dtype).split(".")[1]
         h = 32 if d == 64 else 8
-        q, k, v = flash_inputs(rng, 1 if t == 2048 else 2, t, h, h // g, d, dtype, device)
-        do = flash_inputs(rng, q.shape[0], t, h, 1, d, dtype, device)[0]
+        src = pipe_rng if t == PIPE_SEQ else rng
+        q, k, v = flash_inputs(src, 1 if t in (PIPE_SEQ, 2048) else 2, t, h, h // g, d, dtype,
+                               device)
+        do = flash_inputs(src, q.shape[0], t, h, 1, d, dtype, device)[0]
         out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
         got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal)
         want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, causal)
@@ -2573,18 +2624,595 @@ def run_mesh(device="cuda", preset="llama_1b"):
     return out
 
 
+# --------------------------------------------------------------- seqpipe
+# The ring Llama against a witness: the same weights widened to f32 with
+# attn_impl="flash" on the whole sequence (the f32 kernels, remat). Each
+# reading is the summed CE loss's relative error, the logits' max |error|
+# over max |logit|, and the worst parameter's ||error|| / ||grad|| of the
+# sp-psum'd gradients (its max |error| over max |grad| is logged). In f32
+# the witness holds the ring's arithmetic. In bf16 each limit sits between
+# the sound ring and a planted fault it must reject: llama_1b, T=2048, on
+# an NVIDIA H100 80GB HBM3 (700 W) read loss 4.3e-5, logits 2.4e-2, grads
+# 4.0e-2 for the ring (the bf16 flash model 2.3e-5, 2.6e-2, 4.0e-2: both
+# bf16 paths lie as far from f32), and 3.8e-4, 9.5e-1, 7.7e-1 for the
+# causal diagonal one key right (`see_next`). Scores rounded to bf16 read
+# as the sound ring: no model-level limit can see that fault; the flash
+# kernel's own check holds its scores in f32.
+RING_TOL = {"bfloat16": {"loss": 1.2e-4, "logits": 5e-2, "grads": 1e-1},
+            "float32": {"loss": 1e-5, "logits": 1e-4, "grads": 1e-4}}
+# faults planted in ops/ring_attention.py for the bf16 control runs (see
+# ring_control), and whether the limits must reject each (any reading over)
+RING_CONTROLS = {"bf16_scores": False, "see_next": True, "drop_block": True}
+PIPE_TOL = 1e-5         # pipelines against the whole model, f32, relative
+
+
+def worst_rel(got, want, err=None):
+    """The largest err(got, want) (rel_err: max |got - want| / max |want|)
+    over matching tensors of two dicts, and its key."""
+    errs = {k: (err or rel_err)(got[k], w) for k, w in want.items()}
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
+
+
+def l2_rel_err(got, want):
+    """||got - want|| / ||want||, in f32."""
+    want = want.float()
+    return float((got.float() - want).norm() / want.norm())
+
+
+def ring_readings(got, want):
+    """The readings of `got` against `want` (each a dict of loss, logits and
+    grads): loss, logits and grads (L2) as RING_TOL names them, the worst
+    parameter, and the worst max |error| over max |grad|."""
+    grads, worst = worst_rel(got["grads"], want["grads"], l2_rel_err)
+    grads_max, worst_max = worst_rel(got["grads"], want["grads"])
+    return dict(loss=abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+                logits=rel_err(got["logits"], want["logits"]), grads=grads,
+                grads_worst=worst, grads_max=grads_max, grads_max_worst=worst_max)
+
+
+def over_tol(readings, tol):
+    """The readings that exceed their limits."""
+    return [k for k in tol if readings[k] > tol[k]]
+
+
+def fmt_readings(r):
+    return (f"loss {r['loss']:.3e}, logits {r['logits']:.3e}, grads {r['grads']:.3e} "
+            f"({r['grads_worst']}; max {r['grads_max']:.3e})")
+
+
+@contextlib.contextmanager
+def ring_control(name, sp):
+    """A fault planted in ray_tpu_torch.ops.ring_attention for one control
+    run, forward and backward alike: "bf16_scores" rounds every score to
+    bf16 before the softmax (the port keeps them in f32, as JAX does);
+    "see_next" moves the causal diagonal one key right, so that each query
+    also sees the next token; "drop_block" (sp > 1) makes the ring's last
+    rank skip the block from its first."""
+    import importlib
+    # the module, not the function that ray_tpu_torch.ops exports by its name
+    ra = importlib.import_module("ray_tpu_torch.ops.ring_attention")
+    scores, masked = ra._scores, ra._masked_out
+    patch = {
+        "bf16_scores": dict(_scores=lambda *a: scores(*a).bfloat16().float()),
+        "see_next": dict(_scores=lambda q, k, scale, row, col, causal:
+                         scores(q, k, scale, row + 1, col, causal)),
+        "drop_block": dict(_masked_out=lambda causal, src, rank:
+                           masked(causal, src, rank) or (src == 0 and rank == sp - 1)),
+    }[name]
+    for k, f in patch.items():
+        setattr(ra, k, f)
+    try:
+        yield
+    finally:
+        ra._scores, ra._masked_out = scores, masked
+
+
+def llama_outputs(model, tokens, labels, positions=None):
+    """A summed CE loss's forward and backward: dict(loss, logits, grads)."""
+    import torch.nn.functional as F
+    model.zero_grad(set_to_none=True)
+    logits = model(tokens, positions)[0]
+    loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), labels.reshape(-1),
+                           reduction="sum")
+    loss.backward()
+    return dict(loss=loss.detach(), logits=logits.detach(),
+                grads={k: p.grad for k, p in model.named_parameters()})
+
+
+def check_ring(mesh, dev, preset, dtype, b, t, overrides=None, timed=False, tag="seqpipe"):
+    """Path `ring`: the shard-local Llama with attn_impl="ring" on `mesh`'s
+    sp axis (weights from seed 0, broadcast from the axis's first rank),
+    its [B, T] batch placed with iter_device_batches(sharding=
+    data_sharding(mesh, True)) and global positions: the summed CE loss,
+    the logits (gathered over sp) and the sp-psum'd parameter gradients
+    against the witness (the same weights in f32 with attn_impl="flash" on
+    the whole sequence, on the lead rank), within RING_TOL. In bf16 also
+    the ring against the plain model with attn_impl="flash" in bf16 within
+    RING_TOL, that model against the witness (logged), and each control
+    of RING_CONTROLS against the witness: one the limits must reject that
+    they pass fails the check. No
+    hand kernel may launch on the ring path (on the card). With `timed`:
+    the ms of a forward and of a forward + backward, the peak memory a
+    card and the ms of one K/V shift. Every rank of the mesh calls it;
+    the lead rank returns the readings."""
+    import torch
+    import torch.distributed as dist
+    from ray_tpu_torch.models.convert import init_params
+    from ray_tpu_torch.models.llama import Llama, LlamaConfig
+    from ray_tpu_torch.parallel import xla_ops
+    from ray_tpu_torch.parallel.sharding import data_sharding
+    from ray_tpu_torch.train.ingest import iter_device_batches
+
+    dt = getattr(torch, dtype)
+    sp, r = xla_ops.axis_size("sp", mesh), xla_ops.axis_index("sp", mesh)
+    lead = dist.get_rank() == 0
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    cfg = getattr(LlamaConfig, preset)(**dict(overrides or {}, attn_impl="ring", dtype=dt,
+                                              param_dtype=dt))
+    model = init_params(Llama(cfg, device=dev, mesh=mesh),
+                        torch.Generator(device=dev).manual_seed(0))
+    group = mesh.get_group("sp")
+    for p in model.parameters():
+        dist.broadcast(p.data, dist.get_process_group_ranks(group)[0], group=group)
+    rng = np.random.default_rng(6)
+    host = {k: rng.integers(0, cfg.vocab_size, (b, t)) for k in ("tokens", "labels")}
+    batch = next(iter(iter_device_batches(iter([host]), sharding=data_sharding(mesh, True))))
+    tok, lab = (batch[k].to_local() for k in ("tokens", "labels"))
+    tl = t // sp
+    pos = (r * tl + torch.arange(tl, device=dev))[None].expand(b, tl)
+
+    def ring_step():
+        """The ring's loss, gathered logits and sp-psum'd grads (on every
+        rank; the lead keeps them)."""
+        got = llama_outputs(model, tok, lab, pos)
+        got = dict(loss=float(xla_ops.psum(got["loss"], "sp", mesh)),
+                   logits=xla_ops.all_gather(got["logits"], "sp", mesh, gather_axis=1),
+                   grads={k: xla_ops.psum(g, "sp", mesh) for k, g in got["grads"].items()})
+        model.zero_grad(set_to_none=True)
+        return got if lead else None
+
+    _reset_peak(dev.type)
+    reset_launch_counts()
+    llama_outputs(model, tok, lab, pos)
+    sync()
+    launches = launch_counts()
+    out = dict(preset=preset, dtype=dtype, n_layers=cfg.n_layers, batch=b, seq=t, sp=sp,
+               launches=launches)
+    if timed and dev.type == "cuda":
+        out["peak_bytes_per_card"] = [p for p, _ in _per_card(dev.type)][:sp]
+        with torch.no_grad():
+            out["forward_ms"] = op_ms(lambda: model(tok, pos), iters=3)
+        out["forward_backward_ms"] = op_ms(lambda: llama_outputs(model, tok, lab, pos),
+                                           iters=3)
+        kv = torch.empty((b, tl, cfg.n_kv_heads, cfg.head_dim), dtype=dt, device=dev)
+        out["kv_shift_ms"] = op_ms(lambda: xla_ops.ppermute_shift(kv, "sp", mesh, 1))
+        del kv
+    ring = ring_step()
+
+    def flash_outputs(ref_dtype):
+        """The lead's whole-sequence model with attn_impl="flash" in
+        `ref_dtype` on the ring's weights (remat, to hold T=16384 in f32)."""
+        ref = Llama(dataclasses.replace(cfg, attn_impl="flash", dtype=ref_dtype,
+                                        param_dtype=ref_dtype, remat=True), device=dev)
+        ref.load_state_dict(model.state_dict())
+        got = llama_outputs(ref, torch.from_numpy(host["tokens"]).to(dev),
+                            torch.from_numpy(host["labels"]).to(dev))
+        got["loss"] = float(got["loss"])
+        return got
+
+    tol = RING_TOL[dtype]
+    readings, bad = {}, []
+    if lead:
+        witness = flash_outputs(torch.float32)
+        readings["ring"] = ring_readings(ring, witness)
+        bad += [f"ring {k}" for k in over_tol(readings["ring"], tol)]
+        if dt != torch.float32:
+            flash = flash_outputs(dt)
+            readings["flash"] = ring_readings(flash, witness)
+            readings["ring_vs_flash"] = ring_readings(ring, flash)
+            bad += [f"ring_vs_flash {k}" for k in over_tol(readings["ring_vs_flash"], tol)]
+            del flash
+        out.update(loss=ring["loss"], witness_loss=witness["loss"])
+    del ring
+    _world_barrier(dev.type)
+    controls = [c for c in RING_CONTROLS if sp > 1 or c != "drop_block"]
+    for name in controls if dt != torch.float32 else ():
+        with ring_control(name, sp):
+            got = ring_step()
+        if lead:
+            readings[name] = ring_readings(got, witness)
+            if RING_CONTROLS[name] and not over_tol(readings[name], tol):
+                bad.append(f"control {name} within the limits")
+        del got
+    if lead:
+        del witness
+        out.update(readings=readings, tol=tol)
+        log(f"[{tag}] ring: {preset} x {cfg.n_layers} layers {dtype}, sp={sp}, B={b} T={t} "
+            f"({tl} a card), global positions; against the f32 flash model (limits "
+            f"{tol}): ring {fmt_readings(readings['ring'])}"
+            + "".join(f"; {k} {fmt_readings(v)}" for k, v in readings.items() if k != "ring")
+            + f"; launches {launches}"
+            + (f"; forward {out['forward_ms']:.1f} ms, forward+backward "
+               f"{out['forward_backward_ms']:.1f} ms, one K/V shift {out['kv_shift_ms']:.4f} "
+               f"ms, peak {[round(p / 2**30, 2) for p in out['peak_bytes_per_card']]} GiB "
+               f"a card" if "forward_ms" in out else ""))
+        if bad:
+            raise AssertionError(f"{tag} ring {dtype} sp={sp}: {bad}: {out}")
+    if any(launches.values()):
+        raise AssertionError(f"{tag}: a kernel launched on the ring path: {launches}")
+    del model
+    _reset_peak(dev.type)
+    _world_barrier(dev.type)
+    return out if lead else None
+
+
+class LlamaStage:
+    """Blocks [lo, hi) of a Llama as one pipeline stage: the embedding in
+    front of the first, the final norm, the head and f32 logits behind the
+    last. `fn(params, x)` runs it through torch.func.functional_call on
+    `params` (named as in `module`), positions arange(T)."""
+
+    def __init__(self, model, lo, hi, first, last):
+        import torch
+        from torch import nn
+
+        class Stage(nn.Module):
+            def __init__(self):
+                super().__init__()
+                if first:
+                    self.embed = model.embed
+                self.blocks = nn.ModuleList(model.blocks()[lo:hi])
+                if last:
+                    self.final_norm, self.lm_head = model.final_norm, model.lm_head
+
+            def forward(self, x):
+                if first:
+                    x = self.embed(x)
+                b, t = x.shape[:2]
+                pos = torch.arange(t, device=x.device, dtype=torch.int32)[None].expand(b, t)
+                for blk in self.blocks:
+                    x, _ = blk(x, pos, None)
+                return self.lm_head(self.final_norm(x)).float() if last else x
+
+        self.module = Stage()
+        ids = {id(p): k for k, p in model.named_parameters()}
+        # the stage's parameter names -> the model's
+        self.names = {k: ids[id(p)] for k, p in self.module.named_parameters()}
+
+    def fn(self, params, x):
+        import torch
+        return torch.func.functional_call(self.module, params, (x,))
+
+    def params(self, device):
+        """Copies of the stage's parameters on `device`."""
+        return {k: p.detach().to(device, copy=True) for k, p in self.module.named_parameters()}
+
+
+def llama_stages(model, n_stages):
+    per = model.cfg.n_layers // n_stages
+    return [LlamaStage(model, i * per, (i + 1) * per, i == 0, i == n_stages - 1)
+            for i in range(n_stages)]
+
+
+def ce_mean(logits, labels):
+    import torch.nn.functional as F
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]), labels.reshape(-1))
+
+
+def run_1f1b(stages, mbs, tgts, watch=None):
+    """One 1F1B step of MPMDPipeline.train_step's schedule, in process: scan
+    the stages round-robin, running each stage's next planned op once its
+    input exists (the microbatch or the previous stage's activation for a
+    forward, the next stage's input grad for a backward), then apply_grads
+    on every stage. `watch(i, fn)` may wrap each op of stage i. Returns the
+    per-microbatch losses (tensors) and the apply_grads results."""
+    from collections import deque
+    from ray_tpu_torch.train.mpmd import _one_f_one_b_plan
+    n_stages, n_micro = len(stages), len(mbs)
+    watch = watch or (lambda i, fn: fn())
+    plans = [deque(_one_f_one_b_plan(i, n_stages, n_micro)) for i in range(n_stages)]
+    acts, grads, losses = {}, {}, []
+    last = n_stages - 1
+    while any(plans):
+        progressed = False
+        for i, plan in enumerate(plans):
+            if not plan:
+                continue
+            kind, m = plan[0]
+            st = stages[i]
+            if kind == "F":
+                src = mbs[m] if i == 0 else acts.pop((i - 1, m), None)
+                if src is None:
+                    continue
+                out = watch(i, lambda: st.forward(m, src, tgts[m] if i == last else None))
+                (losses.append(out) if i == last else acts.__setitem__((i, m), out))
+            else:
+                g = None if i == last else grads.pop((i + 1, m), None)
+                if i != last and g is None:
+                    continue
+                dx = watch(i, lambda: st.backward(m, g))
+                if i:
+                    grads[(i, m)] = dx
+            plan.popleft()
+            progressed = True
+        if not progressed:
+            raise RuntimeError(f"1F1B deadlock: {[list(p)[:3] for p in plans]}")
+    return losses, [st.apply_grads(n_micro) for st in stages]
+
+
+def whole_step(model, mbs, tgts, lr):
+    """The whole model's step: the mean of the per-microbatch gradients and
+    SGD(lr), in place. Returns the per-microbatch losses."""
+    import torch
+    model.zero_grad(set_to_none=True)
+    losses = []
+    for x, y in zip(mbs, tgts):
+        loss = ce_mean(model(x)[0], y)
+        loss.backward()
+        losses.append(loss.detach())
+    with torch.no_grad():
+        for p in model.parameters():
+            p -= lr * (p.grad / len(mbs))
+    model.zero_grad(set_to_none=True)
+    return losses
+
+
+def pipeline_batch(vocab, n_micro, b, t, devices):
+    """M microbatches of tokens (on devices[0]) and labels (on devices[-1])."""
+    import torch
+    rng = np.random.default_rng(10)
+    return ([torch.from_numpy(rng.integers(0, vocab, (b, t))).to(devices[0])
+             for _ in range(n_micro)],
+            [torch.from_numpy(rng.integers(0, vocab, (b, t))).to(devices[-1])
+             for _ in range(n_micro)])
+
+
+def check_1f1b(devices, preset="llama_1b", n_micro=8, b=1, t=PIPE_SEQ, lr=0.1, overrides=None,
+               tag="seqpipe"):
+    """Path `pipeline`: the preset in f32 split into len(devices) PipelineStages
+    (stage i on devices[i]; the embedding in stage 0, the final norm, head
+    and mean CE loss in the last) driven by run_1f1b over M microbatches,
+    with one sgd(lr) step, against whole_step on devices[0] from the same
+    weights: the mean loss and every parameter after the step within
+    PIPE_TOL relative; launches of each kernel counted over the step."""
+    import torch
+    from ray_tpu_torch.models.convert import init_params
+    from ray_tpu_torch.models.llama import Llama, LlamaConfig
+    from ray_tpu_torch.train.mpmd import PipelineStage, sgd
+
+    cfg = getattr(LlamaConfig, preset)(**dict(overrides or {}, dtype=torch.float32,
+                                              param_dtype=torch.float32))
+    model = init_params(Llama(cfg, device=devices[0]),
+                        torch.Generator(device=devices[0]).manual_seed(0))
+    split = llama_stages(model, len(devices))
+    first = [s.params(dev) for s, dev in zip(split, devices)]
+    stages = [PipelineStage(i, len(split), s.fn, p, loss_fn=ce_mean if i == len(split) - 1
+                            else None, optimizer=sgd(lr), device=dev)
+              for i, (s, p, dev) in enumerate(zip(split, first, devices))]
+    mbs, tgts = pipeline_batch(cfg.vocab_size, n_micro, b, t, devices)
+    reset_launch_counts()
+    losses, stats = run_1f1b(stages, mbs, tgts)
+    launches = launch_counts()
+    want_losses = whole_step(model, mbs, [y.to(devices[0]) for y in tgts], lr)
+    loss = float(sum(float(x) for x in losses)) / n_micro
+    want = float(sum(float(x) for x in want_losses)) / n_micro
+    loss_err = abs(loss - want) / abs(want)
+    ref = dict(model.named_parameters())
+    param_err, upd_err = 0.0, 0.0
+    for s, st, p0 in zip(split, stages, first):
+        for k, p in st.get_params().items():
+            w = ref[s.names[k]].detach()
+            param_err = max(param_err, rel_err(p, w.to(p.device)))
+            upd_err = max(upd_err, rel_err(p - p0[k], w.to(p.device) - p0[k]))
+    n_layers = cfg.n_layers
+    want_launches = dict(flash_fwd=2 * n_layers * n_micro, flash_bwd_dq=n_layers * n_micro,
+                         flash_bwd_dkv=n_layers * n_micro, paged_decode=0,
+                         paged_decode_combine=0)
+    if devices[0].type != "cuda":
+        want_launches = dict.fromkeys(want_launches, 0)
+    log(f"[{tag}] pipeline: {preset} f32 in {len(split)} PipelineStages on "
+        f"{[str(d) for d in devices]}, 1F1B over M={n_micro} of B={b} T={t}, sgd({lr}): "
+        f"mean loss {loss:.6f} vs the whole model's {want:.6f} (rel {loss_err:.2e}), params "
+        f"after the step {param_err:.2e} of max |param| (tol {PIPE_TOL}), updates "
+        f"{upd_err:.2e} of max |update|; stash depths {[x['stash_depth'] for x in stats]}; "
+        f"launches {launches} (want {want_launches})")
+    if loss_err > PIPE_TOL or param_err > PIPE_TOL or launches != want_launches:
+        raise AssertionError(f"{tag} pipeline check failed: loss {loss_err}, params "
+                             f"{param_err}, launches {launches}")
+    return dict(preset=preset, stages=len(split), microbatches=n_micro, batch=b, seq=t,
+                loss=loss, whole_loss=want, loss_rel_err=loss_err, params_rel_err=param_err,
+                updates_rel_err=upd_err, tol=PIPE_TOL, launches=launches)
+
+
+def time_1f1b(devices, preset="llama_1b", n_micro=8, b=1, t=PIPE_SEQ, lr=0.1, overrides=None,
+              tag="seqpipe"):
+    """The preset with bf16 activations (f32 params), as check_1f1b splits
+    it: one 1F1B step (after a warm one) and one whole-model step on
+    devices[0], each ended by a synchronize of every card; per stage, the
+    device time of its ops (CUDA events around each op on its card) over
+    the step's wall time, against the GPipe bound of the idle share,
+    (S - 1) / (M + S - 1)."""
+    import torch
+    from ray_tpu_torch.models.convert import init_params
+    from ray_tpu_torch.models.llama import Llama, LlamaConfig
+    from ray_tpu_torch.train.mpmd import PipelineStage, sgd
+
+    cfg = getattr(LlamaConfig, preset)(**(overrides or {}))
+    model = init_params(Llama(cfg, device=devices[0]),
+                        torch.Generator(device=devices[0]).manual_seed(0))
+    split = llama_stages(model, len(devices))
+    stages = [PipelineStage(i, len(split), s.fn, s.params(dev),
+                            loss_fn=ce_mean if i == len(split) - 1 else None,
+                            optimizer=sgd(lr), device=dev)
+              for i, (s, dev) in enumerate(zip(split, devices))]
+    mbs, tgts = pipeline_batch(cfg.vocab_size, n_micro, b, t, devices)
+    sync = lambda: [torch.cuda.synchronize(d) for d in devices]
+    events = [[] for _ in devices]
+
+    def watch(i, fn):
+        stream = torch.cuda.current_stream(devices[i])
+        pair = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        pair[0].record(stream)
+        out = fn()
+        pair[1].record(stream)
+        events[i].append(pair)
+        return out
+
+    run_1f1b(stages, mbs, tgts)
+    sync()
+    events = [[] for _ in devices]
+    t0 = time.perf_counter()
+    run_1f1b(stages, mbs, tgts, watch)
+    sync()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    busy = [sum(a.elapsed_time(z) for a, z in ev) for ev in events]
+    del stages
+    tgts0 = [y.to(devices[0]) for y in tgts]
+    whole_step(model, mbs, tgts0, lr)
+    sync()
+    t0 = time.perf_counter()
+    whole_step(model, mbs, tgts0, lr)
+    sync()
+    whole_ms = (time.perf_counter() - t0) * 1e3
+    n = len(devices)
+    tokens = n_micro * b * t
+    out = dict(step_ms=step_ms, whole_step_ms=whole_ms, tokens_per_s=tokens / step_ms * 1e3,
+               whole_tokens_per_s=tokens / whole_ms * 1e3, busy_ms=busy,
+               busy_share=[x / step_ms for x in busy],
+               gpipe_idle_bound=(n - 1) / (n_micro + n - 1))
+    log(f"[{tag}] 1F1B step, {preset} bf16, {n} stages on {[str(d) for d in devices]}, M="
+        f"{n_micro} of B={b} T={t}: {step_ms:.1f} ms ({out['tokens_per_s']:.0f} tokens/s), "
+        f"the whole model's step on {devices[0]} {whole_ms:.1f} ms "
+        f"({out['whole_tokens_per_s']:.0f} tokens/s); each stage's device-busy share "
+        f"{[round(x, 3) for x in out['busy_share']]} (GPipe idle bound "
+        f"{out['gpipe_idle_bound']:.3f})")
+    return out
+
+
+def check_pipeline_apply(mesh, dev, dtype, n_micro, t, grad=True, timed=False,
+                         preset="llama_1b", overrides=None, tag="seqpipe"):
+    """pipeline_apply over `mesh`'s pp axis: the preset's blocks, n_layers / pp
+    a stage, one stage a rank, M microbatches of hidden states [1, T, D]
+    (made on each card from one seed) against the sequential blocks on the
+    same weights (on every rank; the lead rank compares the outputs, each
+    rank the gradients of its stage): the outputs, and with `grad` the
+    gradient of sum(out * w), within PIPE_TOL relative. With `timed`, the
+    ms of a forward (no grad) and of the sequential forward on one card.
+    Every rank calls it; the lead rank returns the readings."""
+    import torch
+    import torch.distributed as dist
+    from ray_tpu_torch.models.convert import init_params
+    from ray_tpu_torch.models.llama import Llama, LlamaConfig
+    from ray_tpu_torch.parallel import xla_ops
+    from ray_tpu_torch.parallel.pipeline import (pipeline_apply, shard_pipeline_params,
+                                                 stack_stage_params)
+
+    n_stages, s = xla_ops.axis_size("pp", mesh), xla_ops.axis_index("pp", mesh)
+    lead = dist.get_rank() == 0
+    cfg = getattr(LlamaConfig, preset)(**dict(overrides or {}, dtype=getattr(torch, dtype),
+                                              param_dtype=torch.float32))
+    model = init_params(Llama(cfg, device=dev), torch.Generator(device=dev).manual_seed(0))
+    split = [LlamaStage(model, i * cfg.n_layers // n_stages,
+                        (i + 1) * cfg.n_layers // n_stages, False, False)
+             for i in range(n_stages)]
+    mine = {k: v.clone().requires_grad_(grad) for k, v in shard_pipeline_params(
+        stack_stage_params([st.params(dev) for st in split]), mesh, "pp").items()}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    xs = torch.randn((n_micro, 1, t, cfg.d_model), generator=gen, device=dev).to(cfg.dtype)
+    w = torch.randn(xs.shape, generator=gen, device=dev)
+    fn = split[0].fn           # every stage has the same structure
+
+    def sequential(x):
+        for blk in model.blocks():
+            x, _ = blk(x, torch.arange(t, device=dev)[None], None)
+        return x
+
+    with torch.set_grad_enabled(grad):
+        outs = pipeline_apply(fn, mine, xs, mesh, "pp")
+        if grad:
+            (outs.float() * w).sum().backward()
+    with torch.set_grad_enabled(grad):
+        seq = []
+        for x, wm in zip(xs, w):
+            y = sequential(x)
+            if grad:
+                (y.float() * wm).sum().backward()
+            seq.append(y.detach())
+        seq = torch.stack(seq)
+    out_err = rel_err(outs.detach(), seq)
+    res = dict(dtype=dtype, stages=n_stages, microbatches=n_micro, seq=t,
+               outputs_rel_err=out_err, tol=PIPE_TOL)
+    if grad:
+        ref = dict(model.named_parameters())
+        names = split[s].names
+        mine_err = worst_rel({names[k]: v.grad[0] for k, v in mine.items()},
+                             {names[k]: ref[names[k]].grad for k in mine})[0]
+        errs = [None] * dist.get_world_size()
+        dist.all_gather_object(errs, mine_err)
+        res["grads_rel_err_per_stage"] = errs
+    if timed and dev.type == "cuda":
+        with torch.no_grad():
+            res["forward_ms"] = op_ms(lambda: pipeline_apply(fn, mine, xs, mesh, "pp"), iters=3)
+            res["sequential_forward_ms"] = op_ms(lambda: [sequential(x) for x in xs], iters=3)
+    if lead:
+        log(f"[{tag}] pipeline_apply: {preset} blocks, {dtype}, pp={n_stages} "
+            f"({cfg.n_layers // n_stages} blocks a stage), M={n_micro} of [1, {t}, "
+            f"{cfg.d_model}]: outputs {out_err:.2e} of max |out| from the sequential blocks"
+            + (f", stage grads {res['grads_rel_err_per_stage']}" if grad else "")
+            + (f" (tol {PIPE_TOL})" if dtype == "float32" else "")
+            + (f"; forward {res['forward_ms']:.1f} ms, sequential forward on one card "
+               f"{res['sequential_forward_ms']:.1f} ms" if "forward_ms" in res else ""))
+    bad = dtype == "float32" and (out_err > PIPE_TOL or any(
+        e > PIPE_TOL for e in res.get("grads_rel_err_per_stage", [])))
+    del model, mine, outs, seq
+    _reset_peak(dev.type)
+    _world_barrier(dev.type)
+    if bad:
+        raise AssertionError(f"{tag} pipeline_apply pp={n_stages}: {res}")
+    return res if lead else None
+
+
+def run_seqpipe(device="cuda", preset="llama_1b", t=2048, t_pipe=PIPE_SEQ, n_micro=8,
+                overrides=None):
+    """The `seqpipe` phase on one card (world 1 on NCCL): path `ring` (bf16
+    at the preset's depth, then f32 at 2 layers), path `pipeline` (f32
+    check, then the bf16 timing), and pipeline_apply at pp=1 against the
+    stacked sequential forward. Takes the world down."""
+    import torch
+    import torch.distributed as dist
+    from ray_tpu_torch.parallel import mesh as pmesh
+
+    dev = torch.device(device) if device == "cpu" else torch.device("cuda", 0)
+    mesh = pmesh.make_mesh({"sp": 1}, device=device)
+    ov = overrides or {}
+    ring = dict(bf16=check_ring(mesh, dev, preset, "bfloat16", 1, t, ov),
+                f32_2layer=check_ring(mesh, dev, preset, "float32", 1, t,
+                                      dict(ov, n_layers=2)))
+    pp1 = check_pipeline_apply(pmesh.make_mesh({"pp": 1}, device=device), dev, "float32",
+                               n_micro=4, t=t_pipe, grad=False, preset=preset, overrides=ov)
+    dist.destroy_process_group()
+    pipe = check_1f1b([dev] * 4, preset, n_micro=n_micro, t=t_pipe, overrides=ov)
+    timing = (time_1f1b([dev] * 4, preset, n_micro=n_micro, t=t_pipe, overrides=ov)
+              if dev.type == "cuda" else None)
+    return dict(ring=ring, pipeline=pipe, pipeline_timing=timing, pipeline_apply_pp1=pp1,
+                launches={"ring": ring["bf16"]["launches"], "pipeline": pipe["launches"]})
+
+
 # ------------------------------------------------------------------ cards
 CARDS_OUT = "chip_smoke_cards4.json"
+CARDS_PHASES = ("seqpipe", "tp")
+RING_SEQ_CARDS = 16384          # ring at sp=4: 4096 tokens a card
 
 
-def _cards_rank(rank, world, store, results, device, presets, max_tokens):
+def _cards_rank(rank, world, store, results, device, presets, max_tokens, phases):
     import os
     import traceback
     ok = False
     try:
         _tp_rank_world(rank, world, store, "nccl" if device == "cuda" else "gloo",
                        rank if device == "cuda" else None)
-        out = cards_phases(rank, world, device, presets, max_tokens)
+        out = cards_phases(rank, world, device, presets, max_tokens, phases)
         results.put((rank, out, None))
         ok = True
     except BaseException:  # noqa: BLE001 - reported to the parent
@@ -2693,9 +3321,31 @@ def _spec_tp_world(rank, world, device):
     return out if rank == 0 else None
 
 
-def cards_phases(rank, world, device, presets, max_tokens):
+def seqpipe_cards(world, dev, presets):
+    """The ranks' `seqpipe` phases: ring at sp=world (bf16 at the preset's
+    depth, timed; f32 at 2 layers) and pipeline_apply at pp=world (f32 with
+    its gradient; bf16 timed). Returns the lead rank's readings."""
+    from ray_tpu_torch.parallel.mesh import make_mesh
+    llama, ov = presets["llama"], presets.get("seqpipe_overrides", {})
+    t_ring, t_pipe = presets.get("ring_seq", RING_SEQ_CARDS), presets.get("pipe_seq", 2048)
+    sp_mesh = make_mesh({"sp": world}, device=dev.type)
+    ring = dict(bf16=check_ring(sp_mesh, dev, llama, "bfloat16", 1, t_ring, ov, timed=True,
+                                tag="cards"),
+                f32_2layer=check_ring(sp_mesh, dev, llama, "float32", 1, t_ring // 4,
+                                      dict(ov, n_layers=2), tag="cards"))
+    pp_mesh = make_mesh({"pp": world}, device=dev.type)
+    pipe = dict(f32=check_pipeline_apply(pp_mesh, dev, "float32", 8, t_pipe, preset=llama,
+                                         overrides=ov, tag="cards"),
+                bf16=check_pipeline_apply(pp_mesh, dev, "bfloat16", 8, t_pipe, grad=False,
+                                          timed=True, preset=llama, overrides=ov, tag="cards"))
+    return dict(ring_sp=ring, pipeline_apply_pp=pipe)
+
+
+def cards_phases(rank, world, device, presets, max_tokens, phases=CARDS_PHASES):
     """The four-card phases, on every rank; rank 0 returns the results and
-    writes them to chip_smoke_out/chip_smoke_cards4.json after each phase."""
+    writes them to chip_smoke_out/chip_smoke_cards4.json after each phase.
+    `phases` selects "tp" (the collectives, tp serving, the MoE model and
+    the failing follower) and "seqpipe" (seqpipe_cards)."""
     import gc
     import torch
     import torch.distributed as dist
@@ -2714,6 +3364,12 @@ def cards_phases(rank, world, device, presets, max_tokens):
         if lead:
             OUT_DIR.mkdir(exist_ok=True)
             (OUT_DIR / CARDS_OUT).write_text(json.dumps(res, indent=1, default=str))
+
+    if "seqpipe" in phases:
+        res.update(seqpipe_cards(world, dev, presets))
+        save()
+    if "tp" not in phases:
+        return res if lead else {}
 
     # (5) first, as the cheapest: the collectives at world 4 on one layer's bytes
     mesh = make_mesh({"tp": world}, device=device)
@@ -2949,11 +3605,13 @@ def _failing_follower_world(rank, world, device):
     return None, time.perf_counter() - t0
 
 
-def main_cards(n, device="cuda", presets=None, max_tokens=32):
-    """`--cards n`: one rank per card over NCCL, the phases of cards_phases.
-    `presets` names the dense and MoE presets (llama_1b and Mixtral-8x7B at
-    all 32 layers by default), with optional overrides, for rehearsals at a
-    small size."""
+def main_cards(n, device="cuda", presets=None, max_tokens=32, phases=CARDS_PHASES):
+    """`--cards n`: one rank per card over NCCL, the phases of cards_phases;
+    then, with "seqpipe", MPMD 1F1B in this process with stage i on card i
+    (check_1f1b in f32, time_1f1b in bf16). `presets` names the dense and
+    MoE presets (llama_1b and Mixtral-8x7B at all 32 layers by default),
+    with optional overrides and sequence lengths, for rehearsals at a small
+    size."""
     presets = presets or dict(llama="llama_1b", moe=MOE_PRESET)
     import torch
     if device == "cuda" and torch.cuda.device_count() < n:
@@ -2963,14 +3621,27 @@ def main_cards(n, device="cuda", presets=None, max_tokens=32):
     if device == "cuda":
         from ray_tpu_torch.ops import _build
         _build.build()             # once, before the ranks load it
-    ranks = spawn_ranks(_cards_rank, n, (device, presets, max_tokens))
+    ranks = spawn_ranks(_cards_rank, n, (device, presets, max_tokens, tuple(phases)))
     res = ranks[0]
-    # the failed follower raised its own error; the others ended when rank
-    # 0's process went
-    res["failing_follower"]["followers"] = [r["failing_follower"] for r in ranks[1:]]
-    log(f"[cards] the followers of the failed server: {res['failing_follower']['followers']}")
-    if not ranks[1]["failing_follower"]["error"] == "follower lost its card":
-        raise AssertionError(f"the failing follower's own error: {ranks[1]['failing_follower']}")
+    if "tp" in phases:
+        # the failed follower raised its own error; the others ended when
+        # rank 0's process went
+        res["failing_follower"]["followers"] = [r["failing_follower"] for r in ranks[1:]]
+        log(f"[cards] the followers of the failed server: "
+            f"{res['failing_follower']['followers']}")
+        if not ranks[1]["failing_follower"]["error"] == "follower lost its card":
+            raise AssertionError(f"the failing follower's own error: "
+                                 f"{ranks[1]['failing_follower']}")
+    if "seqpipe" in phases:
+        import torch
+        devices = ([torch.device("cuda", i) for i in range(n)] if device == "cuda"
+                   else [torch.device("cpu")] * n)
+        ov = presets.get("seqpipe_overrides", {})
+        res["mpmd"] = dict(check=check_1f1b(devices, presets["llama"], overrides=ov,
+                                            tag="cards"))
+        if device == "cuda":
+            res["mpmd"]["timing"] = time_1f1b(devices, presets["llama"], overrides=ov,
+                                              tag="cards")
     res["seconds"] = time.perf_counter() - t0
     if device == "cuda":
         res["device"] = smi_line()
@@ -2987,6 +3658,17 @@ def cards_arg(argv):
     return int(argv[argv.index("--cards") + 1])
 
 
+def phases_arg(argv):
+    """The four-card phases of `--phases a,b` (all of CARDS_PHASES without
+    it, the run that checks a change; one group alone is a rehearsal aid)."""
+    if "--phases" not in argv:
+        return CARDS_PHASES
+    phases = tuple(argv[argv.index("--phases") + 1].split(","))
+    if not set(phases) <= set(CARDS_PHASES):
+        raise ValueError(f"--phases takes some of {CARDS_PHASES}, got {phases}")
+    return phases
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2998,7 +3680,7 @@ def main() -> int:
     if cards:
         log(f"[device] {smi_line()} | torch {torch.__version__} cuda {torch.version.cuda} | "
             f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-        main_cards(cards)
+        main_cards(cards, phases=phases_arg(sys.argv[1:]))
         print(smi_line(), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3059,26 +3741,29 @@ def main() -> int:
     topology, nccl = check_topology(), check_nccl_world()
     trainer = dict(run_trainer(), topology=topology, nccl=nccl)
     mesh = run_mesh()
+    seqpipe = run_seqpipe()
 
-    # one row per kernel; launches counted on each main path that was driven
-    # (serve slice and train slice), timings at the training shape for the
-    # flash kernels (the serving shapes are in chip_smoke.json and PERF.md),
-    # max-abs error over the checked cases and the training shape
+    # one row per kernel; launches counted on each main path that was driven,
+    # timings at the training shape for the flash kernels (the serving shapes
+    # are in chip_smoke.json and PERF.md), max-abs error over the checked
+    # cases and the training shape
+    paths = {"serve": summary["launches"], "serve_moe": moe["launches"],
+             "serve_pd": pd["launches"], "serve_tiered": tiered["launches"],
+             "train": train["launches"], "train_resume": trainer["launches"],
+             "serve_tp": mesh["launches"], "ring": seqpipe["launches"]["ring"],
+             "pipeline": seqpipe["launches"]["pipeline"]}
+    serve_paths = ("serve", "serve_moe", "serve_pd", "serve_tiered", "serve_tp", "ring",
+                   "pipeline")
+
     def flash_row(name, source, replaces, err):
         t = train_t[name]
-        by_path = {"serve": summary["launches"][name], "serve_moe": moe["launches"][name],
-                   "serve_pd": pd["launches"][name], "serve_tiered": tiered["launches"][name],
-                   "train": train["launches"][name],
-                   "train_resume": trainer["launches"][name],
-                   "serve_tp": mesh["launches"][name]}
+        by_path = {k: v[name] for k, v in paths.items()}
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=sum(by_path.values()), launches_by_path=by_path,
                     max_abs_err=max(err, t["max_abs_err"]), ms=t["ms"], plain_ms=t["plain_ms"],
                     bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                     library_ms=t["library_ms"])
 
-    serve_runs = {"serve": summary, "serve_moe": moe, "serve_pd": pd, "serve_tiered": tiered,
-                  "serve_tp": mesh}
     kernels = [
         flash_row("flash_fwd", "ray_tpu_torch/ops/csrc/flash_fwd.cu",
                   "ray_tpu/ops/flash_attention.py:37", flash_err),
@@ -3089,11 +3774,9 @@ def main() -> int:
         dict(name="paged_decode", route="cuda",
              source="ray_tpu_torch/ops/csrc/paged_decode.cu",
              replaces="ray_tpu/ops/paged_attention.py:38",
-             launches=sum(r["launches"]["paged_decode"] for r in serve_runs.values()),
-             launches_by_path={k: r["launches"]["paged_decode"]
-                               for k, r in serve_runs.items()},
-             combine_launches=sum(r["launches"]["paged_decode_combine"]
-                                  for r in serve_runs.values()),
+             launches=sum(paths[k]["paged_decode"] for k in serve_paths),
+             launches_by_path={k: paths[k]["paged_decode"] for k in serve_paths},
+             combine_launches=sum(paths[k]["paged_decode_combine"] for k in serve_paths),
              max_abs_err=paged_err, ms=paged_t["ms"], plain_ms=paged_t["plain_ms"],
              bound_ms=paged_t["bound_ms"], bound_by=paged_t["bound_by"], library_ms=None),
     ]
@@ -3104,7 +3787,7 @@ def main() -> int:
         flash_timing=list(flash_t.values()), train_kernel_timing=train_t,
         paged_timing=paged_t, paged_timing_long=paged_long, paged_plans=paged_plans,
         slice=summary, moe=moe, replica=replica, pd=pd, tiered=tiered, train=train,
-        trainer=trainer, mesh=mesh, kernels=kernels),
+        trainer=trainer, mesh=mesh, seqpipe=seqpipe, kernels=kernels),
         indent=1, default=str))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)

@@ -23,7 +23,18 @@ Counterpart of `ray_tpu/models/llama.py` (flax). Design points kept:
 
 `n_experts > 0` swaps the FFN of every `moe_every`-th block for the expert
 bank of `models/moe.py` (child `moe`, as in the flax tree).
-`attn_impl="ring"` (sequence parallel) belongs to a later slice.
+
+`attn_impl="ring"` is sequence parallelism (`ops/ring_attention.py`): on a
+mesh with the axis `cfg.sp_axis`, each rank holds every parameter and its
+block of the sequence, and attention without a cache runs the ring over
+that axis, as JAX's decoder does under `shard_map`. The paged first chunk
+and the caches attend locally, as in JAX. Positions default to
+`arange(t)` of the local block, as JAX's do: a sequence-sharded caller
+passes the global positions of its block (`rank * t + arange(t)`), or
+RoPE turns at the wrong offsets. Parameter gradients are this rank's
+part; their sum over the axis (`xla_ops.psum`) is the whole sequence's.
+`sp` > 1 with tp or ep > 1 raises: JAX's ring model runs with replicated
+parameters and has no tensor-parallel form.
 
 Shard-local modules: given a mesh (`Llama(cfg, mesh=...)`, axes tp and
 ep), each rank holds its blocks of the parameters under
@@ -53,6 +64,7 @@ from ray_tpu_torch.ops.attention import apply_rope, decode_attention, mha_refere
 from ray_tpu_torch.ops.flash_attention import flash_attention
 from ray_tpu_torch.ops.paged_attention import (PagedKVCache, paged_attention,
                                                write_layer_tokens)
+from ray_tpu_torch.ops.ring_attention import check_even_split, ring_attention
 from ray_tpu_torch.parallel import xla_ops
 from ray_tpu_torch.parallel.mesh import axis_sizes
 
@@ -72,7 +84,7 @@ class LlamaConfig:
     tie_embeddings: bool = False
     dtype: Any = torch.bfloat16       # activations
     param_dtype: Any = torch.float32  # master weights
-    attn_impl: str = "auto"           # auto | flash | xla (ring: later slice)
+    attn_impl: str = "auto"           # auto | flash | xla | ring
     sp_axis: str = "sp"               # mesh axis for ring attention
     remat: bool = False
     # mixture-of-experts (models/moe.py). 0 = dense.
@@ -161,18 +173,24 @@ class KVCache:
 
 class ShardPlace:
     """A shard-local model's place on its mesh: the tp and ep sizes, this
-    rank's index on each, and the collectives the modules call. Axes other
-    than tp and ep must have size 1: the forward computes tensor and expert
+    rank's index on each, and the collectives the modules call. The axis
+    `sp_axis` holds replicated parameters and splits the sequence (ring
+    attention); it may exceed 1 only where tp and ep are 1. Other axes must
+    have size 1: the forward computes tensor, expert and sequence
     parallelism only."""
 
-    def __init__(self, mesh):
+    def __init__(self, mesh, sp_axis: str = "sp"):
         sizes = axis_sizes(mesh)
-        other = {a: n for a, n in sizes.items() if a not in ("tp", "ep") and n > 1}
+        other = {a: n for a, n in sizes.items() if a not in ("tp", "ep", sp_axis) and n > 1}
         if other:
-            raise ValueError(f"the shard-local Llama computes over tp and ep; mesh axes "
-                             f"{other} are not supported")
+            raise ValueError(f"the shard-local Llama computes over tp, ep and {sp_axis}; mesh "
+                             f"axes {other} are not supported")
         self.mesh = mesh
         self.tp, self.ep = sizes.get("tp", 1), sizes.get("ep", 1)
+        self.sp = sizes.get(sp_axis, 1)
+        if self.sp > 1 and (self.tp > 1 or self.ep > 1):
+            raise ValueError(f"{sp_axis}={self.sp} with tp={self.tp}, ep={self.ep}: sequence "
+                             f"parallelism runs with replicated parameters (tp and ep 1)")
         self.tp_index = xla_ops.axis_index("tp", mesh) if "tp" in sizes else 0
         self.ep_index = xla_ops.axis_index("ep", mesh) if "ep" in sizes else 0
 
@@ -247,9 +265,11 @@ class RMSNorm(nn.Module):
         return (normed * self.scale).to(self.dtype)
 
 
-def _resolve_attn_impl(impl: str, device: torch.device) -> str:
-    """"auto": the flash kernel on CUDA, the plain reference on the CPU."""
-    if impl == "auto":
+def _resolve_attn_impl(impl: str, device: torch.device, local: bool = False) -> str:
+    """"auto": the flash kernel on CUDA, the plain reference on the CPU.
+    `local`: attention over a chunk this rank holds whole (the paged first
+    chunk), where "ring" means "auto" too, as in JAX."""
+    if impl == "auto" or (local and impl == "ring"):
         return "flash" if device.type == "cuda" else "xla"
     return impl
 
@@ -296,7 +316,7 @@ class Attention(nn.Module):
             elif paged_chunk_local:
                 # FIRST chunk of a fresh row (start == 0, no cached prefix):
                 # chunk-local causal attention is exact, no page gather
-                impl = _resolve_attn_impl(cfg.attn_impl, x.device)
+                impl = _resolve_attn_impl(cfg.attn_impl, x.device, local=True)
                 out = (flash_attention(q, k, v, causal=True) if impl == "flash"
                        else mha_reference(q, k, v, causal=True))
             else:
@@ -327,10 +347,12 @@ class Attention(nn.Module):
             impl = _resolve_attn_impl(cfg.attn_impl, x.device)
             if impl == "flash":
                 out = flash_attention(q, k, v, causal=True)
-            elif impl == "xla":
-                out = mha_reference(q, k, v, causal=True)
+            elif impl == "ring":
+                # Llama.forward checked the split once for every layer
+                out = ring_attention(q, k, v, axis_name=cfg.sp_axis, causal=True,
+                                     mesh=self.place.mesh, check_split=False)
             else:
-                raise NotImplementedError(f"attn_impl={impl!r}: later slice")
+                out = mha_reference(q, k, v, causal=True)
 
         out = self.wo(out.reshape(b, t, n_heads * cfg.head_dim))
         if self.place is not None:
@@ -373,18 +395,24 @@ class Block(nn.Module):
 
 
 class Llama(nn.Module):
-    """The decoder. With `mesh` (a DeviceMesh with axes tp and/or ep), the
-    shard-local model: this rank's blocks of the parameters under
-    `llama_rules`, and the collectives of the module docstring."""
+    """The decoder. With `mesh` (a DeviceMesh with axes tp, ep and/or
+    `cfg.sp_axis`), the shard-local model: this rank's blocks of the
+    parameters under `llama_rules`, and the collectives of the module
+    docstring. `attn_impl="ring"` needs a mesh with `cfg.sp_axis`."""
 
     def __init__(self, cfg: LlamaConfig, device=None, mesh=None):
         super().__init__()
-        if cfg.attn_impl == "ring":
-            raise NotImplementedError("attn_impl='ring' (sequence parallel): later slice")
-        if cfg.attn_impl not in ("auto", "flash", "xla"):
+        if cfg.attn_impl not in ("auto", "flash", "xla", "ring"):
             raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
+        if cfg.attn_impl == "ring" and (mesh is None or cfg.sp_axis not in mesh.mesh_dim_names):
+            raise ValueError(f"attn_impl='ring' needs a mesh with the sequence axis "
+                             f"{cfg.sp_axis!r}, got "
+                             f"{None if mesh is None else tuple(mesh.mesh_dim_names)}")
         self.cfg = cfg
-        self.place = place = None if mesh is None else ShardPlace(mesh)
+        self.place = place = None if mesh is None else ShardPlace(mesh, cfg.sp_axis)
+        if place is not None and place.sp > 1 and cfg.attn_impl != "ring":
+            raise ValueError(f"{cfg.sp_axis}={place.sp} splits the sequence: it needs "
+                             f"attn_impl='ring', got {cfg.attn_impl!r}")
         self.embed = Embed(cfg.vocab_size, cfg.d_model, cfg.dtype, cfg.param_dtype, device,
                            place)
         for i in range(cfg.n_layers):
@@ -405,6 +433,12 @@ class Llama(nn.Module):
         Prefill/train: cache=None, full causal attention. Decode: pass a
         KVCache or PagedKVCache; T is the number of new tokens.
 
+        Positions default to `arange(T)` (after the cache's length). Under
+        `attn_impl="ring"` tokens is this rank's block of the sequence, and
+        the caller passes the block's global positions: the default is
+        JAX's, local to the block. Blocks of unequal length over the sp
+        axis raise ValueError on every rank, checked once a forward.
+
         `paged_chunk_local=True` (paged prefill only): the chunk is the FIRST
         tokens of a fresh row (start == 0, no cached prefix), so chunk-local
         causal attention is exact and skips the page gather.
@@ -419,6 +453,8 @@ class Llama(nn.Module):
                 positions = cache.length[:, None].to(torch.int32) + steps
             else:
                 positions = steps.expand(b, t)
+        if cfg.attn_impl == "ring" and cache is None:
+            check_even_split(t, cfg.sp_axis, self.place.mesh, tokens.device)
 
         x = self.embed(tokens)
         paged = isinstance(cache, PagedKVCache)

@@ -302,16 +302,33 @@ __device__ __forceinline__ void wgmma_rs_tb<128>(float (&d)[64], const uint32_t 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
 }
 
-// Raise the dynamic shared-memory cap of `kernel` when it needs more than
-// it was allowed so far (48 KB by default). `allowed` is the caller's record
-// for this one kernel instantiation, so the attribute is set once and not on
-// every launch (which also keeps later launches legal under CUDA-graph
-// capture).
+// The dynamic shared-memory cap of one kernel instantiation as raised so
+// far on each device (48 KB by default). The attribute belongs to a
+// device's context, so a process that launches on several cards raises it
+// on each.
+struct SmemCap {
+  static constexpr int kMaxDevices = 64;
+  size_t bytes[kMaxDevices];
+  SmemCap() {
+    for (size_t& b : bytes) b = 48 * 1024;
+  }
+};
+
+// Raise the dynamic shared-memory cap of `kernel` on the current device when
+// it needs more than it was allowed so far. `cap` is the caller's record for
+// this one kernel instantiation, so the attribute is set once a device and
+// not on every launch (which also keeps later launches legal under
+// CUDA-graph capture).
 template <typename K>
-inline cudaError_t allow_smem(K kernel, size_t bytes, size_t& allowed) {
+inline cudaError_t allow_smem(K kernel, size_t bytes, SmemCap& cap) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= SmemCap::kMaxDevices) return cudaErrorInvalidDevice;
+  size_t& allowed = cap.bytes[dev];
   if (bytes <= allowed) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
   if (err == cudaSuccess) allowed = bytes;
   return err;
 }

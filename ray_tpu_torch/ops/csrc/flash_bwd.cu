@@ -755,7 +755,7 @@ template <int D>
 cudaError_t launch_dq(const Args& a) {
   auto kernel = flash_bwd_dq_kernel<float, D>;
   const size_t smem = dq_smem_bytes<D>();
-  static size_t allowed = 48 * 1024;  // per D instantiation
+  static rtt::SmemCap allowed;  // per D instantiation
   cudaError_t err = rtt::allow_smem(kernel, smem, allowed);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Tq + BQ - 1) / BQ, a.H, a.B);
@@ -771,7 +771,7 @@ template <int D>
 cudaError_t launch_dq_tc(const Args& a) {
   auto kernel = flash_bwd_dq_tc_kernel<D>;
   const size_t smem = dq_tc_smem_bytes<D>();
-  static size_t allowed = 48 * 1024;  // per D instantiation
+  static rtt::SmemCap allowed;  // per D instantiation
   cudaError_t err = rtt::allow_smem(kernel, smem, allowed);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Tq + DQ_BQ - 1) / DQ_BQ, a.H, a.B);
@@ -787,7 +787,7 @@ template <int D>
 cudaError_t launch_dkv(const Args& a) {
   auto kernel = flash_bwd_dkv_kernel<float, D>;
   const size_t smem = dkv_smem_bytes<D>();
-  static size_t allowed = 48 * 1024;  // per D instantiation
+  static rtt::SmemCap allowed;  // per D instantiation
   cudaError_t err = rtt::allow_smem(kernel, smem, allowed);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.S + BK - 1) / BK, a.Kh, a.B);
@@ -803,7 +803,7 @@ template <int D>
 cudaError_t launch_dkv_tc(const Args& a) {
   auto kernel = flash_bwd_dkv_tc_kernel<D>;
   const size_t smem = dkv_tc_smem_bytes<D>();
-  static size_t allowed = 48 * 1024;  // per D instantiation
+  static rtt::SmemCap allowed;  // per D instantiation
   cudaError_t err = rtt::allow_smem(kernel, smem, allowed);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.S + TC_BK - 1) / TC_BK, a.Kh, a.B);

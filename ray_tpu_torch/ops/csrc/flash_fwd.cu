@@ -381,7 +381,7 @@ template <int D>
 cudaError_t launch_simt(const Args& a) {
   auto kernel = flash_fwd_kernel<float, D>;
   const size_t smem = smem_bytes<D>();
-  static size_t allowed = 48 * 1024;  // per D instantiation
+  static rtt::SmemCap allowed;  // per D instantiation
   cudaError_t err = rtt::allow_smem(kernel, smem, allowed);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Tq + BQ - 1) / BQ, a.H, a.B);
@@ -397,7 +397,7 @@ template <int D>
 cudaError_t launch_tc(const Args& a) {
   auto kernel = flash_fwd_tc_kernel<D>;
   const size_t smem = tc_smem_bytes<D>();
-  static size_t allowed = 48 * 1024;  // per D instantiation
+  static rtt::SmemCap allowed;  // per D instantiation
   cudaError_t err = rtt::allow_smem(kernel, smem, allowed);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Tq + TC_BQ - 1) / TC_BQ, a.H, a.B);

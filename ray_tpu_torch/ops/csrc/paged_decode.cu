@@ -319,7 +319,7 @@ template <typename T, int D, int GM>
 cudaError_t launch_split(const SplitArgs& a) {
   auto kernel = paged_decode_split_kernel<T, D, GM>;
   const size_t smem = Layout<T, D, GM>::BYTES;
-  static size_t allowed = 48 * 1024;  // per (T, D, GM) instantiation
+  static rtt::SmemCap allowed;  // per (T, D, GM) instantiation
   cudaError_t err = rtt::allow_smem(kernel, smem, allowed);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.Kh, a.B, a.n_split);

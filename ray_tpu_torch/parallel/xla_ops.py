@@ -14,6 +14,20 @@ group must make the same calls in the same order.
 the functional `permute_tensor` is an all-to-all with empty splits, which
 gloo refuses. A mesh on cards runs over NCCL (one rank per card); gloo
 groups hold CPU tensors.
+
+Gradients. JAX differentiates through its collectives; here `psum` and
+`ppermute_shift` are `torch.autograd.Function`s with JAX's results:
+- `ppermute_shift`'s backward shifts the cotangent by -shift (the
+  transpose of `ppermute`);
+- `psum`'s backward is the identity on each rank's cotangent (Megatron's
+  "g" operator): a loss computed alike on every rank from a psum'd value
+  gets JAX's gradient, not the axis size times it, which is what
+  `torch.distributed.nn.functional.all_reduce`'s summing backward gives.
+A backward that shifts is a collective too: every rank of the axis must
+run the same backward ops in the same order, so each rank's graph must
+hold the same shifts (a stage that ignores what it received keeps it in
+its graph with `torch.where`, as `parallel/pipeline.py` does). The other
+ops carry no gradient.
 """
 
 import torch
@@ -40,8 +54,20 @@ def axis_index(axis: str, mesh: DeviceMesh) -> int:
     return mesh.get_local_rank(axis)
 
 
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh):
+        return _wait(fc.all_reduce(x, "sum", mesh.get_group(axis)))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
 def psum(x: torch.Tensor, axis: str, mesh: DeviceMesh) -> torch.Tensor:
-    return _wait(fc.all_reduce(x, "sum", mesh.get_group(axis)))
+    """The sum over the axis, on every rank; its gradient is the identity
+    (module docstring)."""
+    return _PSum.apply(x, axis, mesh)
 
 
 def pmean(x: torch.Tensor, axis: str, mesh: DeviceMesh) -> torch.Tensor:
@@ -79,11 +105,7 @@ def reduce_scatter(x: torch.Tensor, axis: str, mesh: DeviceMesh, *,
     return _wait(_reduce_scatter(x.contiguous(), "sum", scatter_axis, mesh.get_group(axis)))
 
 
-def ppermute_shift(x: torch.Tensor, axis: str, mesh: DeviceMesh,
-                   shift: int = 1) -> torch.Tensor:
-    """Ring shift by `shift` along the axis: the rank at index i receives
-    the block of index (i - shift) mod n (ring attention's data motion). A
-    shift by a multiple of n is a copy."""
+def _shift(x: torch.Tensor, axis: str, mesh: DeviceMesh, shift: int) -> torch.Tensor:
     n = axis_size(axis, mesh)
     if shift % n == 0:
         return x.clone()
@@ -97,6 +119,26 @@ def ppermute_shift(x: torch.Tensor, axis: str, mesh: DeviceMesh,
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return out
+
+
+class _PPermuteShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh, shift):
+        ctx.axis, ctx.mesh, ctx.shift = axis, mesh, shift
+        return _shift(x, axis, mesh, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift(g, ctx.axis, ctx.mesh, -ctx.shift), None, None, None
+
+
+def ppermute_shift(x: torch.Tensor, axis: str, mesh: DeviceMesh,
+                   shift: int = 1) -> torch.Tensor:
+    """Ring shift by `shift` along the axis: the rank at index i receives
+    the block of index (i - shift) mod n (ring attention's data motion). A
+    shift by a multiple of n is a copy. Its gradient is the cotangent
+    shifted by -shift."""
+    return _PPermuteShift.apply(x, axis, mesh, shift)
 
 
 def all_to_all(x: torch.Tensor, axis: str, mesh: DeviceMesh, split_axis: int,

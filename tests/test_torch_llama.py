@@ -151,5 +151,8 @@ def test_param_count_and_flops(preset):
 
 
 def test_later_slices_raise():
-    with pytest.raises(NotImplementedError):
+    """attn_impl="ring" is ported (tests/test_torch_sequence_parallel.py);
+    without a mesh that has the sequence axis it raises ValueError, where
+    JAX fails at trace time on the unbound axis name."""
+    with pytest.raises(ValueError, match="needs a mesh with the sequence axis 'sp'"):
         tllama.Llama(tllama.LlamaConfig.tiny(attn_impl="ring"), device="cpu")

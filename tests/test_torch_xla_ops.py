@@ -5,6 +5,10 @@ ranks (spawned with run_ranks; the rank functions import no jax).
 - Each xla_ops op, run by every rank on its block, equals JAX's op under
   `shard_map` on 4 CPU devices (block r on device r): over the one axis
   of a {"dp": 4} mesh, and over each axis of a {"dp": 2, "tp": 2} mesh.
+- The gradients of `ppermute_shift` and `psum` equal `jax.grad` through
+  `shard_map` on the same inputs: a shift's loss is each block's own, a
+  psum's is taken alike on every rank of the axis (JAX's output
+  replicated over it).
 - `init_collective_group(backend="xla", mesh=..., axis=...)` gives each
   rank the block of JAX's `XlaGroup` result that its device holds; send
   and recv raise JAX's error.
@@ -67,6 +71,27 @@ class _Bound:
         return call
 
 
+GRAD_OPS = ("ppermute_1", "ppermute_-1", "psum")
+
+
+def _grad_w(names, axis, name):
+    """The loss weights of a gradient case, over the op's whole output:
+    [16, 8] for a shift (block r on rank r), and for a psum over `axis`
+    one [4, 8] block for each index of the other axis (replicated over
+    `axis`)."""
+    rows = 16 if name != "psum" else 4 * (2 if len(names) > 1 else 1)
+    return np.random.default_rng(7).normal(size=(rows, 8)).astype(np.float32)
+
+
+def _grad_block(names, axis, name, mesh):
+    """This rank's block of _grad_w."""
+    w = _grad_w(names, axis, name)
+    if name != "psum":
+        return np.split(w, 4)[torch.distributed.get_rank()]
+    other = [a for a in names if a != axis]
+    return np.split(w, len(w) // 4)[mesh.get_local_rank(other[0]) if other else 0]
+
+
 def _batches():
     rng = np.random.default_rng(4)
     return [{"tokens": rng.integers(0, 256, (8, 5), dtype=np.int32),
@@ -106,6 +131,14 @@ def _rank(rank, world, store):
                 {k: v.numpy() for k, v in res.items() if k != "p2p"}, p2p=res.get("p2p"),
                 rank=g.rank, world=g.world_size)
             tcol.destroy_collective_group(f"{names}-{axis}")
+    out["grads"] = {}
+    for names, mesh in meshes.items():
+        for axis in names:
+            for name in GRAD_OPS:
+                xg = x.clone().requires_grad_()
+                y = _ops(axis)[name](xg, _Bound(mesh))
+                (y * torch.from_numpy(_grad_block(names, axis, name, mesh))).sum().backward()
+                out["grads"][(names, axis, name)] = xg.grad.numpy()
     batches = []
     for names, mesh in meshes.items():
         for b in iter_device_batches(iter(_batches()), sharding=data_sharding(mesh), prefetch=2):
@@ -158,6 +191,29 @@ def test_ops_match_shard_map(ranks, names, axis):
         for rank, res in enumerate(ranks):
             np.testing.assert_array_equal(res["ops"][(names, axis, name)], want[rank],
                                           err_msg=f"{names} over {axis}: {name} rank {rank}")
+
+
+@pytest.mark.parametrize("names,axis", [(("dp",), "dp"), (("dp", "tp"), "dp"),
+                                        (("dp", "tp"), "tp")],
+                         ids=["dp4", "dp2xtp2-over-dp", "dp2xtp2-over-tp"])
+def test_grads_match_jax_grad(ranks, names, axis):
+    import jax
+    from jax import shard_map
+    from jax.sharding import PartitionSpec as P
+    from ray_tpu.parallel import xla_ops as jops
+    mesh = _jax_mesh(names)
+    spec = P(names if len(names) > 1 else names[0])
+    other = [a for a in names if a != axis]
+    for name in GRAD_OPS:
+        out_spec = spec if name != "psum" else P(*other)
+        fn = shard_map(lambda x: _ops(axis)[name](x, jops), mesh=mesh, in_specs=spec,
+                       out_specs=out_spec, check_vma=False)
+        w = _grad_w(names, axis, name)
+        want = np.split(np.asarray(jax.grad(lambda x: (fn(x) * w).sum())(_x())), 4)
+        for rank, res in enumerate(ranks):
+            np.testing.assert_allclose(res["grads"][(names, axis, name)], want[rank],
+                                       rtol=1e-6, atol=1e-6,
+                                       err_msg=f"{names} over {axis}: d{name} rank {rank}")
 
 
 @pytest.mark.parametrize("names,axis", [(("dp",), "dp"), (("dp", "tp"), "tp")],
