@@ -152,6 +152,27 @@ Phases, in order; a failing phase raises and the script exits non-zero:
              whole model's step; B1 launched twice a layer a microbatch
              (forward and recompute), B2 and B3 once; (d) the 1F1B step in
              bf16 timed beside the whole model's step.
+14. rl      - RLlib's core (ray_tpu_torch.rllib), f32: (a) each learner's
+             update on the card against the same update on the CPU from
+             the same weights and batch (PPOLearner.update, 2 epochs;
+             IMPALALearner.update on [50, 64]; the Nature CNN module's
+             update_once on [8, 4, 84, 84, 4] uint8), metrics within
+             RL_METRIC_TOL and params within the Adam bound with at most
+             RL_FAR_SHARE of them lr / 100 apart, and TorchCartPole.step
+             within CARTPOLE_TOL with equal flags; (b) path `rl_device`:
+             DeviceRollout(TorchCartPole, 64 envs, 50 steps) on the card
+             feeding the IMPALA learner at (256, 256) (lr 3e-3, entropy
+             0.01) until the best episode_return_mean passes 60 (JAX's
+             bar; at most 50 iterations), the return curve, env-steps/s
+             and ms an update logged; then 3 PPO iterations at PPO's
+             defaults on 8 x 500 device rollouts through compute_gae and
+             PPOLearner.update, the last under torch.profiler (busy
+             share); (c) path `rl_cnn`: 10 timed CNN update_once calls on
+             [50, 32, 84, 84, 4] uint8 frames from the seed (45 MB), ms
+             an update, peak memory, finite losses. No kernel may launch
+             on either path. The PPO entry point on gymnasium's CartPole
+             (path `rl_ppo`) is not driven: the chip machine has no
+             gymnasium.
 
     python3 chip_smoke.py --cards 4
 
@@ -3199,6 +3220,280 @@ def run_seqpipe(device="cuda", preset="llama_1b", t=2048, t_pipe=PIPE_SEQ, n_mic
                 launches={"ring": ring["bf16"]["launches"], "pipeline": pipe["launches"]})
 
 
+# ------------------------------------------------------------------ rl
+RL_METRIC_TOL = 1e-4     # cuda vs cpu learner metrics, of max(1, |value|)
+# Params after an update. Adam's first steps move each coordinate by about
+# lr * sign(g), so one whose gradient is at rounding level may land up to
+# 2 lr a step from the other side's: every coordinate is held to that
+# bound, and at most RL_FAR_SHARE of them may lie more than lr / 100 apart
+# (a wrong gradient moves most coordinates by ~lr).
+RL_FAR_SHARE = 1e-3
+CARTPOLE_TOL = 1e-6      # TorchCartPole.step state, cuda vs cpu, absolute
+RL_BAR = 60.0            # JAX's IMPALA bar (tests/test_rllib_algos.py): best return
+
+
+def rl_batch(rng, t, b, obs_shape=(4,), n_actions=2):
+    """A numpy-seeded [T, B] batch with every column PPO and IMPALA read
+    (uint8 frames for an image obs_shape)."""
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    obs = (rng.integers(0, 256, (t, b) + obs_shape).astype(np.uint8) if len(obs_shape) == 3
+           else f(t, b, *obs_shape))
+    return {"obs": obs, "actions": rng.integers(0, n_actions, (t, b)),
+            "action_logp": np.log(rng.uniform(0.3, 0.7, (t, b))).astype(np.float32),
+            "advantages": f(t, b), "vf_preds": f(t, b) * 0.1, "value_targets": f(t, b),
+            "rewards": np.ones((t, b), np.float32),
+            "dones": (rng.random((t, b)) < 0.05).astype(np.float32),
+            "bootstrap_value": f(b)}
+
+
+def learner_pair(learner_cls, cfg_cls, spec, device, **training):
+    """The learner on `device` and on the CPU, holding the same weights."""
+    from ray_tpu_torch.rllib import RLModule
+    cpu = learner_cls(RLModule(spec), cfg_cls().training(**training).resources(device="cpu"))
+    dev = learner_cls(RLModule(spec), cfg_cls().training(**training).resources(device=device))
+    dev.set_weights(cpu.get_weights())
+    return dev, cpu
+
+
+def param_gap(got, want, lr):
+    """(max |got - want| over every coordinate, share of coordinates more
+    than lr / 100 apart) of two state_dicts."""
+    import torch
+    diff = torch.cat([(got[k] - want[k]).abs().flatten() for k in want])
+    return float(diff.max()), float((diff > lr / 100).float().mean())
+
+
+def compare_updates(tag, dev, cpu, update, lr, steps):
+    """`update(learner)` on both; metrics within RL_METRIC_TOL, params
+    within the Adam bound (2 lr a step) with at most RL_FAR_SHARE of the
+    coordinates more than lr / 100 apart, while the update itself moved
+    most of them that far. Returns the readings."""
+    before = cpu.get_weights()
+    got, want = update(dev), update(cpu)
+    errs = {k: abs(got[k] - w) / max(1.0, abs(w)) for k, w in want.items()}
+    worst = max(errs, key=errs.get)
+    metric_err = errs[worst]
+    wc = cpu.get_weights()
+    worst_abs, far = param_gap(dev.get_weights(), wc, lr)
+    moved = param_gap(wc, before, lr)[1]
+    out = dict(metric_err=metric_err, metric_errs=errs, param_max_abs=worst_abs,
+               far_share=far, moved_share=moved, adam_bound=2 * lr * steps,
+               loss=want["total_loss"])
+    log(f"[rl] {tag} {dev.device} vs cpu: metrics {metric_err:.3e} ({worst}; limit "
+        f"{RL_METRIC_TOL:g}), params max |err| {worst_abs:.3e} (Adam bound "
+        f"{2 * lr * steps:.1e}), share > lr/100 apart {far:.2e} (limit {RL_FAR_SHARE:g}; "
+        f"the update moved {moved:.3f} of them)")
+    if (metric_err > RL_METRIC_TOL or worst_abs > 2 * lr * steps or far > RL_FAR_SHARE
+            or moved < 0.5 or not np.isfinite(want["total_loss"])):
+        raise AssertionError(f"rl: {tag} on {dev.device} disagrees with the CPU: {out}")
+    return out
+
+
+def check_rl_parity(device="cuda"):
+    """(a) Each learner's update on `device` against the same update on the
+    CPU, from the same weights on the same numpy-seeded batch: PPO (2
+    epochs, 4 minibatches of 128 each) and IMPALA ([50, 64]) at (256, 256),
+    and one CNN update_once on [8, 4, 84, 84, 4] uint8 frames; then
+    TorchCartPole.step on both devices."""
+    import torch
+    from ray_tpu_torch.rllib import IMPALAConfig, ModuleSpec, PPOConfig, SampleBatch, TorchCartPole
+    from ray_tpu_torch.rllib.algorithms.impala import IMPALALearner
+    from ray_tpu_torch.rllib.algorithms.ppo import PPOLearner
+
+    rng = np.random.default_rng(10)
+    mlp = ModuleSpec((4,), "discrete", 2)
+    cnn = ModuleSpec((84, 84, 4), "discrete", 6, use_cnn=True)
+    out = {}
+    dev, cpu = learner_pair(PPOLearner, PPOConfig, mlp, device, num_epochs=2,
+                            entropy_coeff=0.01)
+    batch = SampleBatch(rl_batch(rng, 64, 8))
+    out["ppo"] = compare_updates("PPOLearner.update (2 epochs)", dev, cpu,
+                                 lambda l: l.update(batch), 3e-4, 2 * 4)
+    dev, cpu = learner_pair(IMPALALearner, IMPALAConfig, mlp, device)
+    batch = SampleBatch(rl_batch(rng, 50, 64))
+    out["impala"] = compare_updates("IMPALALearner.update", dev, cpu,
+                                    lambda l: l.update(batch), 5e-4, 1)
+    dev, cpu = learner_pair(IMPALALearner, IMPALAConfig, cnn, device)
+    batch = {k: v for k, v in rl_batch(rng, 8, 4, (84, 84, 4), 6).items()
+             if k in IMPALALearner._TRAIN_KEYS}
+    from ray_tpu_torch.rllib.learner import _host_metrics
+    out["cnn"] = compare_updates("CNN IMPALALearner.update_once [8, 4, 84, 84, 4]", dev, cpu,
+                                 lambda l: _host_metrics([l.update_once(batch)]), 5e-4, 1)
+    x = (rng.uniform(-1, 1, (4096, 4)) * [2.6, 2.0, 0.25, 2.5]).astype(np.float32)
+    t = rng.integers(490, 500, 4096).astype(np.int32)
+    a = rng.integers(0, 2, 4096)
+    args = [torch.from_numpy(v) for v in (x, t, a)]
+    want = TorchCartPole.step(*args)
+    got = [v.cpu() for v in TorchCartPole.step(*(v.to(device) for v in args))]
+    state_err = float((got[0] - want[0]).abs().max())
+    flags_equal = all(torch.equal(g, w) for g, w in zip(got[1:], want[1:]))
+    log(f"[rl] TorchCartPole.step {device} vs cpu on 4096 states: state max |err| {state_err:.3e} "
+        f"(limit {CARTPOLE_TOL:g}), step counts, rewards and flags equal: {flags_equal}")
+    if state_err > CARTPOLE_TOL or not flags_equal:
+        raise AssertionError(f"rl: TorchCartPole.step on {device} disagrees with the CPU")
+    out["cartpole"] = dict(state_max_abs=state_err, flags_equal=flags_equal)
+    return out
+
+
+def run_rl_device(device="cuda", iters=50, ppo_iters=3):
+    """(b) Path `rl_device`: DeviceRollout(TorchCartPole, 64 envs, 50 steps)
+    on `device` feeding the IMPALA learner at (256, 256), lr 3e-3, entropy
+    0.01 (JAX's test settings), until the best episode_return_mean passes
+    RL_BAR or `iters` iterations; then `ppo_iters` PPO iterations at PPO's
+    defaults on DeviceRollout(8 envs, 500 steps) batches through
+    compute_gae and PPOLearner.update, the last under torch.profiler. The
+    kernel counters are reset before and read after; none may launch."""
+    import torch
+    from ray_tpu_torch.rllib import DeviceRollout, IMPALAConfig, PPOConfig, TorchCartPole
+    from ray_tpu_torch.rllib.algorithms.impala import IMPALALearner
+    from ray_tpu_torch.rllib.algorithms.ppo import PPOLearner
+    from ray_tpu_torch.rllib.connectors import compute_gae, standardize_advantages
+
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    reset_launch_counts()
+    roll = DeviceRollout(TorchCartPole, num_envs=64, rollout_len=50, seed=0, device=device)
+    cfg = IMPALAConfig().training(lr=3e-3, entropy_coeff=0.01).resources(device=device)
+    learner = IMPALALearner(roll.module, cfg, seed=0)
+    curve, best, sample_s, update_s = [], 0.0, [], []
+    for i in range(iters):
+        t0 = time.perf_counter()
+        batch = roll.sample(learner.net.state_dict())
+        t1 = time.perf_counter()
+        m = learner.update(batch)
+        t2 = time.perf_counter()
+        sample_s.append(t1 - t0)
+        update_s.append(t2 - t1)
+        ret = roll.pop_metrics().get("episode_return_mean")
+        curve.append(ret)
+        best = max(best, ret or 0.0)
+        if not np.isfinite(m["total_loss"]):
+            raise AssertionError(f"rl_device: IMPALA loss {m['total_loss']} at iteration {i}")
+        if best > RL_BAR:
+            break
+    steps = roll.num_envs * roll.rollout_len
+    warm = sample_s[1:] or sample_s            # the first sample builds the net
+    impala = dict(iterations=len(curve), best_return=best, return_curve=curve,
+                  env_steps_per_s=steps * len(warm) / sum(warm),
+                  sample_ms=1e3 * float(np.median(warm)),
+                  update_ms=1e3 * float(np.median(update_s[1:] or update_s)))
+    log(f"[rl] rl_device IMPALA: best episode_return_mean {best:.1f} after {len(curve)} "
+        f"iterations (bar {RL_BAR}); curve " + " ".join(f"{r:.1f}" if r else "-" for r in curve))
+    log(f"[rl] rl_device IMPALA: {impala['env_steps_per_s']:.0f} env-steps/s acting "
+        f"(sample of 64 x 50 {impala['sample_ms']:.2f} ms), update on 3200 rows "
+        f"{impala['update_ms']:.2f} ms (medians)")
+    if best <= RL_BAR:
+        raise AssertionError(f"rl_device: IMPALA best return {best:.1f} <= {RL_BAR}")
+
+    roll = DeviceRollout(TorchCartPole, num_envs=8, rollout_len=500, seed=1, device=device)
+    pcfg = PPOConfig().resources(device=device)
+    ppo = PPOLearner(roll.module, pcfg, seed=1)
+
+    def ppo_iteration():
+        t0 = time.perf_counter()
+        b = roll.sample(ppo.net.state_dict())
+        t1 = time.perf_counter()
+        b = standardize_advantages(compute_gae(b, pcfg.gamma, pcfg.lambda_))
+        t2 = time.perf_counter()
+        m = ppo.update(b)
+        sync()
+        t3 = time.perf_counter()
+        return m, (t1 - t0, t2 - t1, t3 - t2)
+
+    rows = []
+    for _ in range(ppo_iters - 1 if cuda else ppo_iters):
+        m, (ts, tg, tu) = ppo_iteration()
+        rows.append(dict(sample_ms=1e3 * ts, gae_ms=1e3 * tg, update_ms=1e3 * tu,
+                         total_loss=m["total_loss"], return_mean=roll.pop_metrics().get(
+                             "episode_return_mean")))
+    prof = None
+    if cuda:   # the last iteration under the profiler
+        holder, t0 = {}, time.perf_counter()
+        prof = profile_call(lambda: holder.update(out=ppo_iteration()))
+        prof["seconds_with_processing"] = time.perf_counter() - t0
+        m, (ts, tg, tu) = holder["out"]
+        rows.append(dict(sample_ms=1e3 * ts, gae_ms=1e3 * tg, update_ms=1e3 * tu,
+                         total_loss=m["total_loss"], profiled=True))
+        log_profile("rl", "one PPO iteration (8 x 500 rollout, 310 minibatch steps)", prof)
+    n_mb = (roll.num_envs * roll.rollout_len // pcfg.minibatch_size) * pcfg.num_epochs
+    for r in rows:
+        log(f"[rl] rl_device PPO iteration: sample {r['sample_ms']:.1f} ms, gae "
+            f"{r['gae_ms']:.1f} ms, update {r['update_ms']:.1f} ms ({r['update_ms'] / n_mb:.3f} "
+            f"ms a minibatch step), total_loss {r['total_loss']:.4f}")
+        if not np.isfinite(r["total_loss"]):
+            raise AssertionError(f"rl_device: PPO loss {r['total_loss']}")
+    sync()
+    launches = launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"rl_device: a kernel launched on the RL path: {launches}")
+    return dict(impala=impala, ppo=rows, ppo_minibatch_steps=n_mb, profile=prof,
+                launches=launches)
+
+
+def run_rl_cnn(device="cuda", t=50, b=32, n=10, warmup=2):
+    """(c) Path `rl_cnn`: the Nature CNN module (84x84x4 uint8, 6 actions)
+    in an IMPALALearner, `n` timed update_once calls (after `warmup`) on
+    [T, B] frames from seed 0; ms an update, peak memory, finite losses;
+    no kernel may launch."""
+    import torch
+    from ray_tpu_torch.rllib import IMPALAConfig, ModuleSpec, RLModule
+    from ray_tpu_torch.rllib.algorithms.impala import IMPALALearner
+
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    batch = {k: v for k, v in rl_batch(np.random.default_rng(0), t, b, (84, 84, 4), 6).items()
+             if k in IMPALALearner._TRAIN_KEYS}
+    learner = IMPALALearner(RLModule(ModuleSpec((84, 84, 4), "discrete", 6, use_cnn=True)),
+                            IMPALAConfig().resources(device=device))
+    reset_launch_counts()
+    for _ in range(warmup):
+        learner.update_once(batch)
+    sync()
+    _reset_peak("cuda" if cuda else "cpu")
+    losses, times = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        m = learner.update_once(batch)
+        sync()
+        times.append(time.perf_counter() - t0)
+        losses.append(m["total_loss"])
+    losses = [float(v) for v in losses]
+    sync()
+    launches = launch_counts()
+    out = dict(batch=[t, b, 84, 84, 4], frame_bytes=int(batch["obs"].nbytes),
+               update_ms=1e3 * float(np.median(times)), update_ms_all=[1e3 * v for v in times],
+               peak_memory_bytes=torch.cuda.max_memory_allocated() if cuda else None,
+               losses=losses, launches=launches)
+    peak = f"{out['peak_memory_bytes'] / 2**30:.2f} GiB" if cuda else "not measured"
+    log(f"[rl] rl_cnn: IMPALA update_once on [{t}, {b}, 84, 84, 4] uint8 "
+        f"({out['frame_bytes'] / 1e6:.1f} MB): {out['update_ms']:.2f} ms (median of {n}), "
+        f"peak {peak}, losses {losses[0]:.4f} .. {losses[-1]:.4f}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"rl_cnn: losses not finite: {losses}")
+    if any(launches.values()):
+        raise AssertionError(f"rl_cnn: a kernel launched on the RL path: {launches}")
+    return out
+
+
+def run_rl(device="cuda"):
+    """The `rl` phase: (a) cuda-against-cpu parity, (b) path `rl_device`, (c)
+    path `rl_cnn`. Path `rl_ppo` (PPOConfig().environment("CartPole-v1")...
+    .build().train()) needs gymnasium, which the chip machine does not
+    have: the EnvRunner path is held by the CPU tests."""
+    out, seconds = {}, {}
+    for name, fn in (("parity", check_rl_parity), ("rl_device", run_rl_device),
+                     ("rl_cnn", run_rl_cnn)):
+        t0 = time.perf_counter()
+        out[name] = fn(device)
+        seconds[name] = time.perf_counter() - t0
+    out["seconds"] = sum(seconds.values())
+    out["launches"] = {"rl_device": out["rl_device"]["launches"],
+                       "rl_cnn": out["rl_cnn"]["launches"]}
+    log(f"[rl] phase took {out['seconds']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in seconds.items()) + ")")
+    return out
+
+
 # ------------------------------------------------------------------ cards
 CARDS_OUT = "chip_smoke_cards4.json"
 CARDS_PHASES = ("seqpipe", "tp")
@@ -3742,6 +4037,7 @@ def main() -> int:
     trainer = dict(run_trainer(), topology=topology, nccl=nccl)
     mesh = run_mesh()
     seqpipe = run_seqpipe()
+    rl = run_rl()
 
     # one row per kernel; launches counted on each main path that was driven,
     # timings at the training shape for the flash kernels (the serving shapes
@@ -3751,9 +4047,9 @@ def main() -> int:
              "serve_pd": pd["launches"], "serve_tiered": tiered["launches"],
              "train": train["launches"], "train_resume": trainer["launches"],
              "serve_tp": mesh["launches"], "ring": seqpipe["launches"]["ring"],
-             "pipeline": seqpipe["launches"]["pipeline"]}
+             "pipeline": seqpipe["launches"]["pipeline"], **rl["launches"]}
     serve_paths = ("serve", "serve_moe", "serve_pd", "serve_tiered", "serve_tp", "ring",
-                   "pipeline")
+                   "pipeline", "rl_device", "rl_cnn")
 
     def flash_row(name, source, replaces, err):
         t = train_t[name]
@@ -3787,7 +4083,7 @@ def main() -> int:
         flash_timing=list(flash_t.values()), train_kernel_timing=train_t,
         paged_timing=paged_t, paged_timing_long=paged_long, paged_plans=paged_plans,
         slice=summary, moe=moe, replica=replica, pd=pd, tiered=tiered, train=train,
-        trainer=trainer, mesh=mesh, seqpipe=seqpipe, kernels=kernels),
+        trainer=trainer, mesh=mesh, seqpipe=seqpipe, rl=rl, kernels=kernels),
         indent=1, default=str))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)

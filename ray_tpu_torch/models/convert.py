@@ -17,6 +17,13 @@ become state_dict keys, and a = [in, r], b = [r, out], whose product is a
 kernel's [in, out] delta, become a = [r, in], b = [out, r], whose product
 b @ a is the port weight's [out, in] delta.
 
+`flax_rl_module_to_state_dict` does the same for an RLModule's flax
+params (`ray_tpu.rllib.RLModule.init`'s tree) into the state_dict of
+`ray_tpu_torch.rllib.rl_module.PolicyValueNet`: flax's auto-named torso
+(`MLPTorso_0` or `CNNTorso_0`) becomes `torso`, Dense kernels are
+transposed, Conv kernels go from HWIO to OIHW, and `log_std` passes
+through. (`flax_to_state_dict` would call `.t()` on a 4-D conv kernel.)
+
 `init_params` fills a model from a `torch.Generator` the way the flax
 initializers do (normal with std 0.02 for kernels and the embedding, ones
 for norm scales), for runs with no JAX params.
@@ -64,6 +71,28 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
         if path.endswith("/kernel"):
             key = path[:-len("/kernel")].replace("/", ".") + ".weight"
             t = t.t().contiguous()
+        else:
+            key = path.replace("/", ".")
+        out[key] = t
+    return out
+
+
+_RL_TORSOS = ("MLPTorso_0", "CNNTorso_0")
+
+
+def flax_rl_module_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax RLModule params (with or without the top-level "params" key) ->
+    the port's PolicyValueNet state_dict, on the CPU."""
+    tree = params["params"] if "params" in params else params
+    out = {}
+    for path, value in _flatten(tree):
+        head, _, rest = path.partition("/")
+        if head in _RL_TORSOS:
+            path = "torso/" + rest
+        t = _to_tensor(value)
+        if path.endswith("/kernel"):
+            key = path[:-len("/kernel")].replace("/", ".") + ".weight"
+            t = (t.permute(3, 2, 0, 1) if t.ndim == 4 else t.t()).contiguous()
         else:
             key = path.replace("/", ".")
         out[key] = t

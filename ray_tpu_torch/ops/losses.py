@@ -1,8 +1,12 @@
-"""Token cross-entropy for the Llama training step.
+"""Token cross-entropy for the Llama training step, and the RL losses.
 
-Counterpart of `ray_tpu/ops/losses.py` (`cross_entropy`,
-`chunked_cross_entropy`); the RL losses (GAE, V-trace, PPO) come with the
-RLlib slice. Plain PyTorch: the JAX package has no kernel here either.
+Counterpart of `ray_tpu/ops/losses.py`: `cross_entropy` and
+`chunked_cross_entropy` for the Llama, and `gae`, `vtrace`,
+`ppo_surrogate`, `clipped_value_loss`, `huber` and `td_target` for RLlib.
+Plain PyTorch: the JAX package has no kernel here either. JAX's GAE and
+V-trace are `lax.scan`s over T; here they are Python loops over T, each
+step a few elementwise ops on a [B] (or scalar) row, and they take [T]
+and [T, B] alike, so IMPALA and APPO need no vmap over the env axis.
 
 The head product. JAX computes the logits as hidden (activation dtype) x
 lm_head kernel (param dtype) with an f32 result (`losses.py:76-78`). The
@@ -17,7 +21,7 @@ and the head's gradient is summed over the chunks in f32 and cast to its
 dtype once.
 """
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -133,3 +137,77 @@ def chunked_cross_entropy(hidden: torch.Tensor, w_head: torch.Tensor,
     n = b * t
     loss = nll_sum / n
     return loss, {"loss": loss, "accuracy": hits / n, "tokens": n}
+
+
+# -- RL -----------------------------------------------------------------------
+def _reverse_scan(deltas, decay):
+    """acc_t = deltas_t + decay_t acc_{t+1}, from t = T-1 down, acc_T = 0;
+    returns [acc_0, ..., acc_{T-1}] stacked on dim 0."""
+    acc = torch.zeros_like(deltas[0])
+    out = [None] * deltas.shape[0]
+    for t in range(deltas.shape[0] - 1, -1, -1):
+        acc = deltas[t] + decay[t] * acc
+        out[t] = acc
+    return torch.stack(out)
+
+
+def gae(rewards: torch.Tensor, values: torch.Tensor, dones: torch.Tensor,
+        gamma: float = 0.99, lam: float = 0.95):
+    """Generalized advantage estimation by a reverse scan over T.
+
+    rewards [T] or [T, B]; values [T+1] or [T+1, B] (the bootstrap value
+    appended); dones [T] or [T, B], 1 where the episode ended at step t.
+    Returns (advantages, value_targets), each shaped like rewards."""
+    not_done = 1.0 - dones.float()
+    deltas = rewards + gamma * values[1:] * not_done - values[:-1]
+    adv = _reverse_scan(deltas, gamma * lam * not_done)
+    return adv, adv + values[:-1]
+
+
+class VTraceReturns(NamedTuple):
+    vs: torch.Tensor             # [T] or [T, B] V-trace value targets
+    pg_advantages: torch.Tensor
+
+
+def vtrace(behaviour_log_probs, target_log_probs, rewards, values, dones,
+           gamma: float = 0.99, clip_rho: float = 1.0, clip_c: float = 1.0) -> VTraceReturns:
+    """IMPALA's V-trace (Espeholt et al. 2018): value targets corrected by
+    truncated importance weights, in reverse-scan form. Shapes as `gae`'s:
+    log-probs, rewards and dones [T] or [T, B], values [T+1] or [T+1, B]."""
+    rhos = torch.exp(target_log_probs - behaviour_log_probs)
+    clipped_rhos = torch.clamp(rhos, max=clip_rho)
+    cs = torch.clamp(rhos, max=clip_c)
+    not_done = 1.0 - dones.float()
+    deltas = clipped_rhos * (rewards + gamma * values[1:] * not_done - values[:-1])
+    vs = _reverse_scan(deltas, gamma * cs * not_done) + values[:-1]
+    vs_next = torch.cat([vs[1:], values[-1:]])
+    pg_adv = clipped_rhos * (rewards + gamma * vs_next * not_done - values[:-1])
+    return VTraceReturns(vs=vs, pg_advantages=pg_adv)
+
+
+def ppo_surrogate(log_probs, old_log_probs, advantages, clip: float = 0.2):
+    """Clipped PPO policy loss (to minimize) and the clip-fraction metric."""
+    ratio = torch.exp(log_probs - old_log_probs)
+    unclipped = ratio * advantages
+    clipped = torch.clamp(ratio, 1 - clip, 1 + clip) * advantages
+    loss = -torch.minimum(unclipped, clipped).mean()
+    clip_frac = ((ratio - 1.0).abs() > clip).float().mean()
+    return loss, clip_frac
+
+
+def clipped_value_loss(values, old_values, targets, clip: float = 10.0):
+    """PPO's clipped value loss (max of clipped and unclipped squared
+    error), halved."""
+    clipped = old_values + torch.clamp(values - old_values, -clip, clip)
+    err = torch.maximum((values - targets).square(), (clipped - targets).square())
+    return 0.5 * err.mean()
+
+
+def huber(x: torch.Tensor, delta: float = 1.0) -> torch.Tensor:
+    """Elementwise Huber; the caller reduces (DQN's TD errors)."""
+    abs_x = x.abs()
+    return torch.where(abs_x <= delta, 0.5 * x.square(), delta * (abs_x - 0.5 * delta))
+
+
+def td_target(rewards, next_q, dones, gamma: float = 0.99):
+    return rewards + gamma * (1.0 - dones.float()) * next_q
