@@ -166,13 +166,30 @@ Phases, in order; a failing phase raises and the script exits non-zero:
              bar; at most 50 iterations), the return curve, env-steps/s
              and ms an update logged; then 3 PPO iterations at PPO's
              defaults on 8 x 500 device rollouts through compute_gae and
-             PPOLearner.update, the last under torch.profiler (busy
-             share); (c) path `rl_cnn`: 10 timed CNN update_once calls on
-             [50, 32, 84, 84, 4] uint8 frames from the seed (45 MB), ms
-             an update, peak memory, finite losses. No kernel may launch
-             on either path. The PPO entry point on gymnasium's CartPole
-             (path `rl_ppo`) is not driven: the chip machine has no
-             gymnasium.
+             PPOLearner.update, then 200 minibatch steps under
+             torch.profiler (busy share); (c) path `rl_cnn`: 10 timed CNN
+             update_once calls on [50, 32, 84, 84, 4] uint8 frames from
+             the seed (45 MB), ms an update, peak memory, finite losses;
+             (a, continued) DQN (double-Q, PER weights), SAC, TQC, CQL (a
+             bc_iters step and a SAC step), IQL, BC and MARWIL updates on
+             the card against the CPU's from the same weights, minibatch
+             and injected draws; (d) path `rl_offline`: BCConfig(...)
+             .build().train() on JAX's expert data to action_accuracy
+             over 0.95, one MARWIL iteration, CQL and IQL at their
+             defaults on 3000 Pendulum-v1 transitions (its dynamics in
+             numpy), CQL's penalty below its cql_alpha=0 ablation's; (e)
+             path `rl_offpolicy`: DQN's learner from ReplayBuffer and
+             PrioritizedReplayBuffer (CartPole shapes) and on the Nature
+             CNN (a 4000-transition buffer of 84x84x4 frames), SAC's and
+             TQC's learners (Pendulum shapes), each at its defaults; (f)
+             path `rl_multi_agent`: a MultiAgentEnvRunner on the host
+             feeding per-policy PPOLearners on the card, 3 iterations
+             shared and 3 independent. Each of (d)-(f) logs ms an update,
+             its busy share and launches an update over 10 profiled
+             updates. No kernel may launch on any RL path. The entry
+             points that make a gymnasium env (path `rl_ppo`, DQN's,
+             SAC's and TQC's `train()`, `PPOConfig().multi_agent(...)`)
+             are not driven: the chip machine has no gymnasium.
 
     python3 chip_smoke.py --cards 4
 
@@ -3230,6 +3247,7 @@ RL_METRIC_TOL = 1e-4     # cuda vs cpu learner metrics, of max(1, |value|)
 RL_FAR_SHARE = 1e-3
 CARTPOLE_TOL = 1e-6      # TorchCartPole.step state, cuda vs cpu, absolute
 RL_BAR = 60.0            # JAX's IMPALA bar (tests/test_rllib_algos.py): best return
+PPO_PROFILE_STEPS = 200  # PPO minibatch steps in the profiled window of `rl_device`
 
 
 def rl_batch(rng, t, b, obs_shape=(4,), n_actions=2):
@@ -3263,29 +3281,130 @@ def param_gap(got, want, lr):
     return float(diff.max()), float((diff > lr / 100).float().mean())
 
 
-def compare_updates(tag, dev, cpu, update, lr, steps):
-    """`update(learner)` on both; metrics within RL_METRIC_TOL, params
-    within the Adam bound (2 lr a step) with at most RL_FAR_SHARE of the
-    coordinates more than lr / 100 apart, while the update itself moved
-    most of them that far. Returns the readings."""
+def compare_updates(tag, dev, cpu, update, lr, steps, online=None):
+    """`update(learner)` on both (host-float metrics); metrics within
+    RL_METRIC_TOL and finite, every param within the Adam bound (2 lr a
+    step) with at most RL_FAR_SHARE of the coordinates more than lr / 100
+    apart, while the update itself moved most of them that far. `online`,
+    when given, picks the state_dict keys the share and the moved share are
+    taken over (the nets the update steps, not their Polyak targets, which
+    move by tau of a step). Returns the readings."""
     before = cpu.get_weights()
     got, want = update(dev), update(cpu)
     errs = {k: abs(got[k] - w) / max(1.0, abs(w)) for k, w in want.items()}
     worst = max(errs, key=errs.get)
     metric_err = errs[worst]
-    wc = cpu.get_weights()
-    worst_abs, far = param_gap(dev.get_weights(), wc, lr)
-    moved = param_gap(wc, before, lr)[1]
+    wc, wd = cpu.get_weights(), dev.get_weights()
+    pick = (lambda d: {k: v for k, v in d.items() if online(k)}) if online else (lambda d: d)
+    worst_abs = param_gap(wd, wc, lr)[0]
+    far = param_gap(pick(wd), pick(wc), lr)[1]
+    moved = param_gap(pick(wc), pick(before), lr)[1]
     out = dict(metric_err=metric_err, metric_errs=errs, param_max_abs=worst_abs,
                far_share=far, moved_share=moved, adam_bound=2 * lr * steps,
-               loss=want["total_loss"])
+               loss=want.get("total_loss", want.get("loss", want.get("critic_loss"))))
     log(f"[rl] {tag} {dev.device} vs cpu: metrics {metric_err:.3e} ({worst}; limit "
         f"{RL_METRIC_TOL:g}), params max |err| {worst_abs:.3e} (Adam bound "
         f"{2 * lr * steps:.1e}), share > lr/100 apart {far:.2e} (limit {RL_FAR_SHARE:g}; "
         f"the update moved {moved:.3f} of them)")
     if (metric_err > RL_METRIC_TOL or worst_abs > 2 * lr * steps or far > RL_FAR_SHARE
-            or moved < 0.5 or not np.isfinite(want["total_loss"])):
+            or moved < 0.5 or not all(np.isfinite(v) for v in want.values())):
         raise AssertionError(f"rl: {tag} on {dev.device} disagrees with the CPU: {out}")
+    return out
+
+
+def replay_batch(rng, n, obs_shape, n_actions=None, action_dim=1, low=-2.0, high=2.0):
+    """n numpy-seeded transitions: uint8 frames for an image obs_shape,
+    discrete actions below n_actions or continuous ones in [low, high]."""
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    frames = lambda: rng.integers(0, 256, (n,) + obs_shape, dtype=np.uint8)
+    image = len(obs_shape) == 3
+    return {"obs": frames() if image else f(n, *obs_shape),
+            "actions": (rng.integers(0, n_actions, n) if n_actions
+                        else rng.uniform(low, high, (n, action_dim)).astype(np.float32)),
+            "rewards": f(n), "next_obs": frames() if image else f(n, *obs_shape),
+            "terminateds": (rng.random(n) < 0.05).astype(np.float32)}
+
+
+def sac_draws(rng, b, d, n_act=None, low=-2.0, high=2.0):
+    """Standard normals for SAC's two draws (the target's action at s', the
+    actor's at s); with n_act, CQL's three more (uniform actions in [low,
+    high] and the policy's draws at the repeated s and s')."""
+    f = lambda n: rng.standard_normal((n, d)).astype(np.float32)
+    out = {"next": f(b), "pi": f(b)}
+    if n_act:
+        out.update(rand=rng.uniform(low, high, (n_act * b, d)).astype(np.float32),
+                   pi_rep=f(n_act * b), pin_rep=f(n_act * b))
+    return out
+
+
+def offpolicy_pair(learner_cls, cfg, spec, device, *args):
+    """An off-policy learner on `device` and on the CPU, holding the same
+    weights (targets included)."""
+    cpu = learner_cls(spec, cfg.copy().resources(device="cpu"), *args)
+    dev = learner_cls(spec, cfg.copy().resources(device=device), *args)
+    dev.set_weights(cpu.get_weights())
+    return dev, cpu
+
+
+def not_target(key):
+    return "_target" not in key.split(".")[0]
+
+
+def check_offpolicy_parity(device="cuda"):
+    """(a, continued) Each off-policy and offline update on `device` against
+    the CPU's from the same weights, minibatch and injected draws, at the
+    configs' defaults: DQN (MLP, double-Q, with PER weights), SAC, TQC,
+    CQL (a bc_iters step and a SAC-objective step), IQL, BC and MARWIL."""
+    from ray_tpu_torch.rllib import (BCConfig, CQLConfig, DQNConfig, IQLConfig, MARWILConfig,
+                                     ModuleSpec, SACConfig, TQCConfig)
+    from ray_tpu_torch.rllib.algorithms.bc import BCLearner
+    from ray_tpu_torch.rllib.algorithms.cql import CQLLearner
+    from ray_tpu_torch.rllib.algorithms.dqn import DQNLearner
+    from ray_tpu_torch.rllib.algorithms.iql import IQLLearner
+    from ray_tpu_torch.rllib.algorithms.sac import SACLearner
+    from ray_tpu_torch.rllib.algorithms.tqc import TQCLearner
+    from ray_tpu_torch.rllib.learner import _host_metrics
+
+    rng = np.random.default_rng(11)
+    out = {}
+    cartpole = ModuleSpec((4,), "discrete", 2)
+    batch = replay_batch(rng, 32, (4,), n_actions=2)
+    batch["_weights"] = rng.uniform(0.2, 1.0, 32).astype(np.float32)
+    cfg = DQNConfig()
+    dev, cpu = offpolicy_pair(DQNLearner, cfg, cartpole, device)
+    out["dqn"] = compare_updates("DQNLearner.update (double-Q, PER weights)", dev, cpu,
+                                 lambda l: _host_metrics([l.update(batch)]), cfg.lr, 1)
+
+    pendulum = ModuleSpec((3,), "continuous", 1)
+    batch = replay_batch(rng, 256, (3,))
+    for name, cls, cfg in (("sac", SACLearner, SACConfig()), ("tqc", TQCLearner, TQCConfig())):
+        draws = sac_draws(rng, 256, 1)
+        dev, cpu = offpolicy_pair(cls, cfg, pendulum, device, -2.0, 2.0)
+        out[name] = compare_updates(f"{cls.__name__}.update", dev, cpu,
+                                    lambda l: _host_metrics([l.update(batch, draws)]), cfg.lr, 1,
+                                    online=not_target)
+    cfg = CQLConfig()
+    for bc_phase in (True, False):
+        draws = sac_draws(rng, 256, 1, cfg.num_cql_actions)
+        dev, cpu = offpolicy_pair(CQLLearner, cfg, pendulum, device, -2.0, 2.0)
+        out[f"cql_bc{int(bc_phase)}"] = compare_updates(
+            f"CQLLearner.update (bc_phase={bc_phase})", dev, cpu,
+            lambda l: _host_metrics([l.update(batch, draws, bc_phase=bc_phase)]), cfg.lr, 1,
+            online=not_target)
+    cfg = IQLConfig()
+    dev, cpu = offpolicy_pair(IQLLearner, cfg, pendulum, device, -2.0, 2.0)
+    out["iql"] = compare_updates("IQLLearner.update", dev, cpu,
+                                 lambda l: _host_metrics([l.update(batch)]), cfg.lr, 1,
+                                 online=not_target)
+
+    data = expert_data()
+    batch = {k: v[:256] for k, v in data.items()}
+    batch["advantages"] = rng.standard_normal(256).astype(np.float32) * 3
+    for name, cfg_cls in (("bc", BCConfig), ("marwil", MARWILConfig)):
+        dev, cpu = learner_pair(BCLearner, cfg_cls, ModuleSpec((4,), "discrete", 2), device)
+        out[name] = compare_updates(f"BCLearner.update_once ({name})", dev, cpu,
+                                    lambda l: _host_metrics([l.update_once(batch)]),
+                                    cfg_cls().lr, 1)
     return out
 
 
@@ -3341,8 +3460,10 @@ def run_rl_device(device="cuda", iters=50, ppo_iters=3):
     0.01 (JAX's test settings), until the best episode_return_mean passes
     RL_BAR or `iters` iterations; then `ppo_iters` PPO iterations at PPO's
     defaults on DeviceRollout(8 envs, 500 steps) batches through
-    compute_gae and PPOLearner.update, the last under torch.profiler. The
-    kernel counters are reset before and read after; none may launch."""
+    compute_gae and PPOLearner.update; then one PPOLearner.update of about
+    PPO_PROFILE_STEPS minibatch steps (fewer epochs) on the last batch
+    under torch.profiler. The kernel
+    counters are reset before and read after; none may launch."""
     import torch
     from ray_tpu_torch.rllib import DeviceRollout, IMPALAConfig, PPOConfig, TorchCartPole
     from ray_tpu_torch.rllib.algorithms.impala import IMPALALearner
@@ -3393,29 +3514,31 @@ def run_rl_device(device="cuda", iters=50, ppo_iters=3):
         t0 = time.perf_counter()
         b = roll.sample(ppo.net.state_dict())
         t1 = time.perf_counter()
-        b = standardize_advantages(compute_gae(b, pcfg.gamma, pcfg.lambda_))
+        b = holder_batch["b"] = standardize_advantages(compute_gae(b, pcfg.gamma, pcfg.lambda_))
         t2 = time.perf_counter()
         m = ppo.update(b)
         sync()
         t3 = time.perf_counter()
         return m, (t1 - t0, t2 - t1, t3 - t2)
 
-    rows = []
-    for _ in range(ppo_iters - 1 if cuda else ppo_iters):
+    rows, holder_batch = [], {}
+    for _ in range(ppo_iters):
         m, (ts, tg, tu) = ppo_iteration()
         rows.append(dict(sample_ms=1e3 * ts, gae_ms=1e3 * tg, update_ms=1e3 * tu,
                          total_loss=m["total_loss"], return_mean=roll.pop_metrics().get(
                              "episode_return_mean")))
     prof = None
-    if cuda:   # the last iteration under the profiler
-        holder, t0 = {}, time.perf_counter()
-        prof = profile_call(lambda: holder.update(out=ppo_iteration()))
-        prof["seconds_with_processing"] = time.perf_counter() - t0
-        m, (ts, tg, tu) = holder["out"]
-        rows.append(dict(sample_ms=1e3 * ts, gae_ms=1e3 * tg, update_ms=1e3 * tu,
-                         total_loss=m["total_loss"], profiled=True))
-        log_profile("rl", "one PPO iteration (8 x 500 rollout, 310 minibatch steps)", prof)
     n_mb = (roll.num_envs * roll.rollout_len // pcfg.minibatch_size) * pcfg.num_epochs
+    if cuda:   # one PPOLearner.update of about PPO_PROFILE_STEPS minibatch steps
+        epochs = max(1, round(PPO_PROFILE_STEPS * pcfg.num_epochs / n_mb))
+        window = PPOLearner(roll.module, pcfg.copy().training(num_epochs=epochs), seed=1)
+        window.set_weights(ppo.get_weights())
+        t0 = time.perf_counter()
+        prof = profile_call(lambda: window.update(holder_batch["b"]))
+        prof["seconds_with_processing"] = time.perf_counter() - t0
+        log_profile("rl", f"PPOLearner.update of {epochs} epochs "
+                    f"({epochs * n_mb // pcfg.num_epochs} minibatch steps of "
+                    f"{pcfg.minibatch_size} rows)", prof)
     for r in rows:
         log(f"[rl] rl_device PPO iteration: sample {r['sample_ms']:.1f} ms, gae "
             f"{r['gae_ms']:.1f} ms, update {r['update_ms']:.1f} ms ({r['update_ms'] / n_mb:.3f} "
@@ -3475,20 +3598,339 @@ def run_rl_cnn(device="cuda", t=50, b=32, n=10, warmup=2):
     return out
 
 
+RL_WARM = 3            # untimed updates before each timing
+RL_TIMED = 10          # timed updates an algorithm (their median is reported)
+RL_PROFILED = 10       # updates in each profiled window
+CNN_REPLAY = 4000      # the CNN DQN's buffer (DQN's default capacity is 50,000)
+
+
+def expert_data(n=2000, seed=0):
+    """JAX's BC case (tests/test_rllib_algos.py): 2000 x 4 normal obs,
+    action obs[0] > 0."""
+    obs = np.random.default_rng(seed).normal(size=(n, 4)).astype(np.float32)
+    return {"obs": obs, "actions": (obs[:, 0] > 0).astype(np.int64)}
+
+
+def pendulum_dataset(n_steps=3000, seed=0):
+    """Offline transitions of Pendulum-v1 (gymnasium's dynamics written out
+    in numpy, as the chip machine has no gymnasium: g 10, m 1, l 1, dt 0.05,
+    speed clipped to 8, torque to 2, reward -(θ² + 0.1 θ̇² + 0.001 u²) with
+    θ wrapped to [-π, π), episodes cut at 200 steps, a reset drawing θ in
+    [-π, π] and θ̇ in [-1, 1]), recorded from tests/test_rllib_cql.py's
+    noisy energy controller, every draw from one generator seeded `seed`."""
+    rng = np.random.default_rng(seed)
+    g, m, length, dt = 10.0, 1.0, 1.0, 0.05
+    cols = {k: [] for k in ("obs", "actions", "rewards", "next_obs", "terminateds")}
+    th, thdot, t = rng.uniform(-np.pi, np.pi), rng.uniform(-1.0, 1.0), 0
+    for _ in range(n_steps):
+        obs = [np.cos(th), np.sin(th), thdot]
+        u = float(np.clip(-1.0 * obs[1] - 0.3 * thdot + rng.normal(0, 0.4), -2, 2))
+        wrapped = (th + np.pi) % (2 * np.pi) - np.pi
+        cost = wrapped ** 2 + 0.1 * thdot ** 2 + 0.001 * u ** 2
+        thdot = float(np.clip(thdot + (3 * g / (2 * length) * np.sin(th)
+                                       + 3.0 / (m * length ** 2) * u) * dt, -8, 8))
+        th, t = th + thdot * dt, t + 1
+        for k, v in zip(cols, (obs, [u], -cost, [np.cos(th), np.sin(th), thdot], 0.0)):
+            cols[k].append(v)
+        if t == 200:
+            th, thdot, t = rng.uniform(-np.pi, np.pi), rng.uniform(-1.0, 1.0), 0
+    return {k: np.asarray(v, np.float32) for k, v in cols.items()}
+
+
+def time_updates(step, device, n=RL_TIMED, warm=RL_WARM, profiled=RL_PROFILED):
+    """`step()` (one update) timed: the median ms of `n` synced calls after
+    `warm`, then `profiled` more under torch.profiler on the card (busy
+    share of the window, kernel launches an update)."""
+    import torch
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    for _ in range(warm):
+        step()
+    times = []
+    for _ in range(n):
+        sync()
+        t0 = time.perf_counter()
+        step()
+        sync()
+        times.append(time.perf_counter() - t0)
+    out = dict(ms=1e3 * float(np.median(times)), ms_all=[1e3 * v for v in times])
+    if cuda:
+        prof = profile_call(lambda: [step() for _ in range(profiled)])
+        out.update(busy_share=prof["busy_share"], launches_per_update=prof["launches"] / profiled,
+                   profile_wall_s=prof["wall_s"], top=prof["top"][:5])
+    else:
+        out.update(busy_share="not measured", launches_per_update="not measured")
+    return out
+
+
+def log_timing(tag, what, r):
+    share = r["busy_share"]
+    share = f"{share:.4f}" if isinstance(share, float) else share
+    per = r["launches_per_update"]
+    per = f"{per:.0f}" if isinstance(per, float) else per
+    log(f"[rl] {tag} {what}: {r['ms']:.3f} ms an update (median of {len(r['ms_all'])}), "
+        f"busy share {share} over {RL_PROFILED} profiled updates, {per} launches an update")
+
+
+def no_launches(tag, device):
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    launches = launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"{tag}: a kernel launched on the RL path: {launches}")
+    return launches
+
+
+def run_rl_offline(device="cuda", bc_iters=60, iters=4):
+    """(d) Path `rl_offline`, through the Algorithms' entry points on
+    `device`: BC on JAX's expert data (lr 1e-2, batch 256) until
+    action_accuracy passes 0.95 (at most `bc_iters` iterations); one
+    MARWIL iteration (an advantages column, finite loss); CQL and IQL at
+    their defaults ((256, 256), batch 256, CQL's 4 sampled actions, seed 7)
+    for `iters` iterations on 3000 Pendulum-v1 transitions, IQL at its
+    train_intensity 8, CQL at JAX's ablation's 10 updates an iteration and
+    10 bc_iters, its cql_penalty at cql_alpha 1.0 below the one at 0.0;
+    ms an update of each. No kernel may launch."""
+    from ray_tpu_torch.rllib import BCConfig, CQLConfig, IQLConfig, MARWILConfig
+
+    reset_launch_counts()
+    out = {}
+    bc = BCConfig().training(lr=1e-2, train_batch_size=256).resources(device=device)
+    algo = bc.offline_data_source(expert_data()).build()
+    curve = []
+    for _ in range(bc_iters):
+        curve.append(algo.train()["learner"]["action_accuracy"])
+        if curve[-1] > 0.95:
+            break
+    mb = {k: v[:256] for k, v in algo._data.items()}
+    out["bc"] = dict(iterations=len(curve), accuracy=curve[-1], curve=curve,
+                     **time_updates(lambda: algo.learner.update_once(mb), device))
+    log(f"[rl] rl_offline BC: action_accuracy {curve[-1]:.4f} after {len(curve)} iterations "
+        f"(bar 0.95)")
+    log_timing("rl_offline", "BC update_once (batch 256)", out["bc"])
+    if curve[-1] <= 0.95:
+        raise AssertionError(f"rl_offline: BC accuracy {curve[-1]:.4f} <= 0.95")
+
+    data = expert_data()
+    data["advantages"] = np.random.default_rng(1).standard_normal(2000).astype(np.float32)
+    marwil = MARWILConfig().resources(device=device).offline_data_source(data).build()
+    loss = marwil.train()["learner"]["total_loss"]
+    out["marwil"] = dict(total_loss=loss)
+    log(f"[rl] rl_offline MARWIL: one iteration, total_loss {loss:.4f}")
+    if not np.isfinite(loss):
+        raise AssertionError(f"rl_offline: MARWIL loss {loss}")
+
+    data = pendulum_dataset()
+    ablation = dict(train_intensity=10, bc_iters=10)      # tests/test_rllib_cql.py's settings
+    for name, cfg in (("cql", CQLConfig().training(**ablation)),
+                      ("cql_ablation", CQLConfig().training(cql_alpha=0.0, **ablation)),
+                      ("iql", IQLConfig())):
+        algo = cfg.offline_data_source(data).resources(device=device).debugging(seed=7).build()
+        rows = [algo.train()["learner"] for _ in range(iters)]
+        if not all(np.isfinite(v) for r in rows for v in r.values()):
+            raise AssertionError(f"rl_offline: {name} metrics not finite: {rows}")
+        out[name] = dict(last=rows[-1])
+        log(f"[rl] rl_offline {name}: " + ", ".join(f"{k} {v:.4f}" for k, v in rows[-1].items()))
+        if name != "cql_ablation":
+            mb = {k: v[:256] for k, v in algo._data.items()}
+            out[name].update(time_updates(lambda: algo.learner.update(mb), device))
+            log_timing("rl_offline", f"{name.upper()} update (batch 256)", out[name])
+    pen, ablation = out["cql"]["last"]["cql_penalty"], out["cql_ablation"]["last"]["cql_penalty"]
+    log(f"[rl] rl_offline CQL: cql_penalty {pen:.4f} at cql_alpha 1.0 against {ablation:.4f} at 0.0")
+    if not pen < ablation:
+        raise AssertionError(f"rl_offline: CQL's penalty {pen} is not below its ablation's "
+                             f"{ablation}")
+    if not 0 < out["iql"]["last"]["awr_weight_mean"] < 101:
+        raise AssertionError(f"rl_offline: IQL awr_weight_mean {out['iql']['last']}")
+    out["launches"] = no_launches("rl_offline", device)
+    return out
+
+
+def run_rl_offpolicy(device="cuda", fill=10_000):
+    """(e) Path `rl_offpolicy`: the online algorithms' learners at their
+    defaults fed from the port's replay buffers, filled with `fill`
+    numpy-seeded transitions (their Algorithms' setup probes a gymnasium
+    env, which the chip machine lacks): DQN ((256, 256), batch 32,
+    double-Q) on CartPole-v1's shapes from ReplayBuffer and from
+    PrioritizedReplayBuffer (priorities written back), through
+    dqn.learn_from_replay; DQN on the Nature CNN (84x84x4 uint8 frames, 6
+    actions, batch 32) from a CNN_REPLAY-transition buffer, with the
+    learner's peak memory; SAC and TQC ((256, 256), batch 256, 25 quantiles
+    x 2 critics, 2 dropped a net) on Pendulum-v1's shapes. ms an update,
+    busy share and launches an update of each; finite losses; no kernel
+    may launch."""
+    import torch
+    from ray_tpu_torch.rllib import (DQNConfig, ModuleSpec, PrioritizedReplayBuffer,
+                                     ReplayBuffer, SACConfig, TQCConfig)
+    from ray_tpu_torch.rllib.algorithms.dqn import DQNLearner, learn_from_replay
+    from ray_tpu_torch.rllib.algorithms.sac import SACLearner
+    from ray_tpu_torch.rllib.algorithms.tqc import TQCLearner
+    from ray_tpu_torch.rllib.learner import _host_metrics
+
+    cuda = torch.device(device).type == "cuda"
+    rng = np.random.default_rng(12)
+    reset_launch_counts()
+    out = {}
+
+    def dqn_case(name, spec, cfg, buffer):
+        learner = DQNLearner(spec, cfg.resources(device=device))
+        state = {"sgd": 0, "losses": []}
+
+        def step():
+            losses, state["sgd"] = learn_from_replay(learner, buffer, cfg, state["sgd"])
+            state["losses"] += losses
+        r = time_updates(step, device)
+        r["loss_last"] = float(state["losses"][-1])
+        r["sgd_steps"] = state["sgd"]
+        if not np.isfinite([float(v) for v in state["losses"]]).all():
+            raise AssertionError(f"rl_offpolicy: {name} losses not finite")
+        return r
+
+    cartpole = ModuleSpec((4,), "discrete", 2)
+    for per in (False, True):
+        cfg = DQNConfig().training(prioritized_replay=per)
+        buf = (PrioritizedReplayBuffer(cfg.replay_buffer_capacity, alpha=cfg.per_alpha)
+               if per else ReplayBuffer(cfg.replay_buffer_capacity))
+        buf.add_batch(replay_batch(rng, fill, (4,), n_actions=2))
+        name = "dqn_per" if per else "dqn"
+        out[name] = dqn_case(name, cartpole, cfg, buf)
+        log_timing("rl_offpolicy", f"DQN {'PER' if per else 'uniform'} replay (batch 32)",
+                   out[name])
+
+    buf = ReplayBuffer(CNN_REPLAY)
+    buf.add_batch(replay_batch(rng, CNN_REPLAY, (84, 84, 4), n_actions=6))
+    _reset_peak("cuda" if cuda else "cpu")
+    out["dqn_cnn"] = dqn_case("dqn_cnn", ModuleSpec((84, 84, 4), "discrete", 6, use_cnn=True),
+                              DQNConfig(), buf)
+    out["dqn_cnn"].update(replay_bytes=int(sum(v.nbytes for v in buf._store.values())),
+                          peak_memory_bytes=torch.cuda.max_memory_allocated() if cuda else None)
+    del buf
+    peak = (f"{out['dqn_cnn']['peak_memory_bytes'] / 2**30:.3f} GiB" if cuda
+            else "not measured")
+    log_timing("rl_offpolicy", "DQN Nature CNN (84x84x4 uint8, batch 32)", out["dqn_cnn"])
+    log(f"[rl] rl_offpolicy DQN CNN: learner peak {peak}, replay of {CNN_REPLAY} transitions "
+        f"{out['dqn_cnn']['replay_bytes'] / 1e6:.1f} MB on the host")
+
+    pendulum = ModuleSpec((3,), "continuous", 1)
+    for name, cls, cfg in (("sac", SACLearner, SACConfig()), ("tqc", TQCLearner, TQCConfig())):
+        learner = cls(pendulum, cfg.resources(device=device), -2.0, 2.0)
+        buf = ReplayBuffer(cfg.replay_buffer_capacity)
+        buf.add_batch(replay_batch(rng, fill, (3,)))
+        last = {}
+        out[name] = time_updates(
+            lambda: last.update(learner.update(buf.sample(cfg.train_batch_size))), device)
+        out[name]["last"] = _host_metrics([last])
+        if not all(np.isfinite(v) for v in out[name]["last"].values()):
+            raise AssertionError(f"rl_offpolicy: {name} metrics not finite: {out[name]['last']}")
+        log_timing("rl_offpolicy", f"{cls.__name__} (batch 256)", out[name])
+    out["launches"] = no_launches("rl_offpolicy", device)
+    return out
+
+
+class MatchGame:
+    """tests/test_rllib_multi_agent.py's two-agent game in numpy (no
+    gymnasium spaces): both agents see a one-hot random target in {0, 1};
+    each gets +1 for picking it and +1 more when both do; 16-step
+    episodes."""
+
+    possible_agents = ["a0", "a1"]
+
+    def __init__(self, episode_len=16, seed=0):
+        self.episode_len = episode_len
+        self._rng = np.random.default_rng(seed)
+        self._t = self._target = 0
+
+    def _obs(self):
+        onehot = np.zeros(2, np.float32)
+        onehot[self._target] = 1.0
+        return {a: onehot.copy() for a in self.possible_agents}
+
+    def reset(self, *, seed=None):
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        self._t = 0
+        self._target = int(self._rng.integers(2))
+        return self._obs(), {a: {} for a in self.possible_agents}
+
+    def step(self, action_dict):
+        correct = {a: int(action_dict[a]) == self._target for a in self.possible_agents}
+        bonus = 1.0 if all(correct.values()) else 0.0
+        rewards = {a: float(correct[a]) + bonus for a in self.possible_agents}
+        self._t += 1
+        self._target = int(self._rng.integers(2))
+        done = self._t >= self.episode_len
+        terms = {**{a: done for a in self.possible_agents}, "__all__": done}
+        truncs = {**{a: False for a in self.possible_agents}, "__all__": False}
+        return self._obs(), rewards, terms, truncs, {a: {} for a in self.possible_agents}
+
+
+def run_rl_multi_agent(device="cuda", iters=3):
+    """(f) Path `rl_multi_agent`: a MultiAgentEnvRunner acting on the host
+    CPU (the numpy MatchGame, 64-step rollouts) feeding one PPOLearner a
+    policy on `device` (JAX's multi-agent settings: batch 256, minibatch
+    64, 4 epochs, lr 1e-2, entropy 0.01), `iters` iterations of
+    ppo.multi_agent_training_step in shared mode (one policy) and in
+    independent mode (one a agent); the ModuleSpecs are built directly
+    (module_specs_for reads gymnasium spaces). Finite losses; no kernel
+    may launch."""
+    from ray_tpu_torch.rllib import ModuleSpec, PPOConfig, RLModule
+    from ray_tpu_torch.rllib.algorithms.ppo import PPOLearner, multi_agent_training_step
+    from ray_tpu_torch.rllib.learner import make_learner_group
+    from ray_tpu_torch.rllib.multi_agent import MultiAgentEnvRunner
+
+    reset_launch_counts()
+    cfg = (PPOConfig().training(train_batch_size=256, minibatch_size=64, num_epochs=4, lr=1e-2,
+                                entropy_coeff=0.01).resources(device=device))
+    spec = ModuleSpec((2,), "discrete", 2)
+    out = {}
+    for mode, mapping in (("shared", lambda aid: "shared"), ("independent", lambda aid: aid)):
+        pids = sorted({mapping(a) for a in MatchGame.possible_agents})
+        groups = {pid: make_learner_group(PPOLearner, RLModule(spec), cfg, seed=i)
+                  for i, pid in enumerate(pids)}
+        runner = MultiAgentEnvRunner(MatchGame, policy_mapping_fn=mapping,
+                                     modules={p: g.learner.module for p, g in groups.items()},
+                                     rollout_len=64)
+        rows = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            r = multi_agent_training_step(runner, groups, cfg)
+            rows.append(dict(seconds=time.perf_counter() - t0,
+                             return_mean=r.get("episode_return_mean"),
+                             losses={p: m["total_loss"] for p, m in r["learner"].items()}))
+        out[mode] = rows
+        log(f"[rl] rl_multi_agent {mode}: " + "; ".join(
+            f"{row['seconds'] * 1e3:.0f} ms, return {row['return_mean']}, losses "
+            + ", ".join(f"{p} {v:.4f}" for p, v in row["losses"].items()) for row in rows))
+        if sorted(rows[-1]["losses"]) != pids or not all(
+                np.isfinite(v) for row in rows for v in row["losses"].values()):
+            raise AssertionError(f"rl_multi_agent: {mode}: {rows}")
+    out["launches"] = no_launches("rl_multi_agent", device)
+    return out
+
+
+RL_PATHS = ("rl_device", "rl_cnn", "rl_offline", "rl_offpolicy", "rl_multi_agent")
+
+
 def run_rl(device="cuda"):
-    """The `rl` phase: (a) cuda-against-cpu parity, (b) path `rl_device`, (c)
-    path `rl_cnn`. Path `rl_ppo` (PPOConfig().environment("CartPole-v1")...
-    .build().train()) needs gymnasium, which the chip machine does not
-    have: the EnvRunner path is held by the CPU tests."""
+    """The `rl` phase: (a) cuda-against-cpu parity of every learner's update,
+    (b) path `rl_device`, (c) path `rl_cnn`, (d) path `rl_offline`, (e) path
+    `rl_offpolicy`, (f) path `rl_multi_agent`. Path `rl_ppo`
+    (PPOConfig().environment("CartPole-v1")...build().train()), the online
+    off-policy Algorithms' `train()` and `PPOConfig().multi_agent(...)`
+    need gymnasium, which the chip machine does not have: they are held by
+    the CPU tests."""
     out, seconds = {}, {}
-    for name, fn in (("parity", check_rl_parity), ("rl_device", run_rl_device),
-                     ("rl_cnn", run_rl_cnn)):
+    for name, fn in (("parity", check_rl_parity), ("parity_offpolicy", check_offpolicy_parity),
+                     ("rl_device", run_rl_device), ("rl_cnn", run_rl_cnn),
+                     ("rl_offline", run_rl_offline), ("rl_offpolicy", run_rl_offpolicy),
+                     ("rl_multi_agent", run_rl_multi_agent)):
         t0 = time.perf_counter()
         out[name] = fn(device)
         seconds[name] = time.perf_counter() - t0
     out["seconds"] = sum(seconds.values())
-    out["launches"] = {"rl_device": out["rl_device"]["launches"],
-                       "rl_cnn": out["rl_cnn"]["launches"]}
+    out["phase_seconds"] = seconds
+    out["launches"] = {path: out[path]["launches"] for path in RL_PATHS}
     log(f"[rl] phase took {out['seconds']:.1f} s (" + ", ".join(
         f"{k} {v:.1f} s" for k, v in seconds.items()) + ")")
     return out
@@ -4049,7 +4491,7 @@ def main() -> int:
              "serve_tp": mesh["launches"], "ring": seqpipe["launches"]["ring"],
              "pipeline": seqpipe["launches"]["pipeline"], **rl["launches"]}
     serve_paths = ("serve", "serve_moe", "serve_pd", "serve_tiered", "serve_tp", "ring",
-                   "pipeline", "rl_device", "rl_cnn")
+                   "pipeline") + RL_PATHS
 
     def flash_row(name, source, replaces, err):
         t = train_t[name]

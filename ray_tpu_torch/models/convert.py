@@ -23,6 +23,11 @@ params (`ray_tpu.rllib.RLModule.init`'s tree) into the state_dict of
 (`MLPTorso_0` or `CNNTorso_0`) becomes `torso`, Dense kernels are
 transposed, Conv kernels go from HWIO to OIHW, and `log_std` passes
 through. (`flax_to_state_dict` would call `.t()` on a 4-D conv kernel.)
+The off-policy algorithms' weights go the same way, a net at a time:
+`flax_qnet_to_state_dict` (DQN's QNet, dueling heads and `epsilon`),
+`flax_sac_to_state_dict` (SAC's and CQL's weight dict, and IQL's with its
+value net) and `flax_tqc_to_state_dict` (the stacked critics keep their
+leading n_critics dim and flax's [n, in, out] kernels).
 
 `init_params` fills a model from a `torch.Generator` the way the flax
 initializers do (normal with std 0.02 for kernels and the embedding, ones
@@ -96,6 +101,55 @@ def flax_rl_module_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
         else:
             key = path.replace("/", ".")
         out[key] = t
+    return out
+
+
+def flax_qnet_to_state_dict(weights: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX's DQN weights `{"params": QNet variables, "epsilon"}` -> the
+    port's QNet state_dict (the torso, the `q` head or the dueling `adv` and
+    `val` heads, and the `epsilon` buffer), on the CPU."""
+    out = flax_rl_module_to_state_dict(weights["params"])
+    out["epsilon"] = _to_tensor(weights["epsilon"]).reshape(())
+    return out
+
+
+def _flax_stacked_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A vmapped flax MLP's params (leaves [n, ...]) -> the port's stacked
+    layers, which keep flax's [n, in, out] kernels."""
+    tree = params["params"] if "params" in params else params
+    out = {}
+    for path, value in _flatten(tree):
+        head, _, rest = path.partition("/")
+        key = ("torso/" + rest) if head in _RL_TORSOS else path
+        out[key.replace("/", ".")] = _to_tensor(value)
+    return out
+
+
+_SAC_NETS = ("actor", "q1", "q2", "q1_target", "q2_target", "value")
+
+
+def flax_sac_to_state_dict(weights: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX's SAC / CQL weights `{actor, q1, q2, q1_target, q2_target,
+    log_alpha}` (IQL's also hold the value net `value`) -> the port's
+    `SACNet` / `IQLNet` state_dict, on the CPU. log_alpha is 0-d."""
+    out = {}
+    for name in _SAC_NETS:
+        if name in weights:
+            out.update({f"{name}.{k}": v
+                        for k, v in flax_rl_module_to_state_dict(weights[name]).items()})
+    out["log_alpha"] = _to_tensor(weights["log_alpha"]).reshape(())
+    return out
+
+
+def flax_tqc_to_state_dict(weights: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX's TQC weights `{actor, critics, critics_target, log_alpha}`, the
+    critics stacked with leading dim n_critics -> the port's `TQCNet`
+    state_dict, on the CPU."""
+    out = {f"actor.{k}": v for k, v in flax_rl_module_to_state_dict(weights["actor"]).items()}
+    for name in ("critics", "critics_target"):
+        out.update({f"{name}.{k}": v
+                    for k, v in _flax_stacked_to_state_dict(weights[name]).items()})
+    out["log_alpha"] = _to_tensor(weights["log_alpha"]).reshape(())
     return out
 
 

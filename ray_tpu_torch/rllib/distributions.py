@@ -8,7 +8,7 @@ parameters' device, where JAX takes a key.
 """
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -87,8 +87,15 @@ class SquashedGaussian:
         scale = math.log((self.high - self.low) * 0.5 + 1e-8)
         return self.base.log_prob(u) - correction - scale * u.shape[-1]
 
-    def sample_and_log_prob(self, generator: torch.Generator) -> Tuple[torch.Tensor, torch.Tensor]:
-        u = self.base.sample(generator)
+    def sample_and_log_prob(self, generator: Optional[torch.Generator] = None,
+                            noise: Optional[torch.Tensor] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A squashed draw and its log-density. `noise`, when given, is the
+        standard normal behind the draw (u = mean + std * noise), so a
+        caller can replay another package's draws; else it is drawn from
+        `generator`."""
+        u = (self.base.sample(generator) if noise is None
+             else self.base.mean + torch.exp(self.base.log_std) * noise)
         return self._squash(u), self._log_prob_u(u)
 
     def log_prob(self, a: torch.Tensor) -> torch.Tensor:

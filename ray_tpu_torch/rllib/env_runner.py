@@ -19,6 +19,8 @@ makes it an actor.
 """
 
 import functools
+import os
+import socket
 from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
@@ -161,7 +163,22 @@ class EnvRunner:
             out[SB.NEXT_OBS] = next_obs_buf
         return out
 
+    def run_eval(self, params, num_episodes: int) -> Dict:
+        """Sample until `num_episodes` complete; returns their metrics. One
+        call an evaluation round, so an evaluation actor that `ray_tpu`'s
+        runtime makes of this runner runs beside training."""
+        self.set_weights(params)
+        self._episodes.completed = []
+        while self.num_completed_episodes() < num_episodes:
+            self.sample()
+        return self.pop_metrics()
+
     # -- metrics ------------------------------------------------------------
+    def node_info(self) -> Dict:
+        """Where this runner lives: pid, parent pid and host name, for
+        checks of actor placement."""
+        return {"pid": os.getpid(), "ppid": os.getppid(), "hostname": socket.gethostname()}
+
     def num_completed_episodes(self) -> int:
         return len(self._episodes.completed)
 

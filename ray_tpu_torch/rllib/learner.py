@@ -28,7 +28,7 @@ from .rl_module import RLModule
 from .sample_batch import SampleBatch
 
 _LATER = ("a data-parallel learner group (num_learners > 1) is a later slice of "
-          "the port (ROADMAP.md §A item 5)")
+          "the port (ROADMAP.md §A, the dp learner group)")
 
 
 class TorchLearner:
@@ -114,11 +114,25 @@ def _cpu_copy(tree):
     return tree
 
 
+def _scalar_metrics(step: Dict[str, Any]) -> Dict[str, Any]:
+    """A step's metrics with each vector metric (DQN's `td_abs` [B]) as two
+    scalars, `<name>_mean` and `<name>_max`."""
+    out = {}
+    for k, v in step.items():
+        if isinstance(v, torch.Tensor) and v.ndim:
+            out[f"{k}_mean"], out[f"{k}_max"] = v.float().mean(), v.float().max()
+        else:
+            out[k] = v
+    return out
+
+
 def _host_metrics(steps: List[Dict[str, Any]]) -> Dict[str, float]:
-    """Mean of each metric over the steps, the device tensors of every step
-    read in one copy to the host."""
+    """Mean of each metric over the steps (a vector metric as its mean and
+    its max), the device tensors of every step read in one copy to the
+    host."""
     if not steps:
         return {}
+    steps = [_scalar_metrics(s) for s in steps]
     keys = list(steps[0])
     dev = [k for k in keys if isinstance(steps[0][k], torch.Tensor)]
     host = {}

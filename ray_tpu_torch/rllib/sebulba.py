@@ -15,7 +15,7 @@ It emits EnvRunner's columns and bootstrap rule, and keeps the episode
 metrics on the host after the unroll.
 
 The actor-driven pieces (`RolloutActor`, `SebulbaPipeline`, `ReplayActor`)
-schedule `ray_tpu` actors and stay with the runtime (ROADMAP §A item 5).
+schedule `ray_tpu` actors and stay with the runtime (ROADMAP §C).
 """
 
 import math

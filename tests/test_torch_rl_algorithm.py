@@ -3,8 +3,9 @@
 (explore=False) `train()` iteration each, whose env-step counts, episode
 metrics and learner metrics must match JAX's, and whose weights after the
 update must too; inline evaluation; the checkpoint round trip of
-tests/test_rllib.py; and the `NotImplementedError`s of what the port
-leaves to the runtime or to later slices.
+tests/test_rllib.py; multi-agent PPO's build and first iteration; every
+ported config's defaults against JAX's; and the `NotImplementedError`s of
+what the port leaves to the runtime or to later slices.
 
 Tolerances (f32): learner metrics within 1e-4 of max(1, |value|); weights
 as in tests/test_torch_rl_learner.py (the Adam bound, 2 lr a step, on
@@ -116,19 +117,40 @@ def _cpu_ppo():
      "evaluation_num_env_runners"),
     (lambda c: c.sebulba(), "sebulba"),
     (lambda c: c.learners(num_learners=2), "num_learners"),
-    (lambda c: c.multi_agent(policies={"a", "b"}), "multi-agent"),
-], ids=["remote_runners", "eval_actors", "sebulba", "dp_learners", "multi_agent"])
+], ids=["remote_runners", "eval_actors", "sebulba", "dp_learners"])
 def test_later_and_runtime_paths_raise(change, match):
     with pytest.raises(NotImplementedError, match=match):
         change(_cpu_ppo()).build()
 
 
+def test_multi_agent_ppo_builds_and_trains():
+    from test_rllib_multi_agent import MatchGame
+    algo = (PPOConfig().environment(lambda: MatchGame()).resources(device="cpu")
+            .multi_agent(policies={"a0", "a1"}, policy_mapping_fn=lambda aid: aid)
+            .env_runners(rollout_fragment_length=16)
+            .training(train_batch_size=32, minibatch_size=16, num_epochs=1).build())
+    result = algo.train()
+    assert sorted(result["learner"]) == ["a0", "a1"]
+    assert result["num_env_steps_sampled_this_iter"] == 32
+    with pytest.raises(ValueError, match="unknown policies"):
+        (PPOConfig().environment(lambda: MatchGame()).resources(device="cpu")
+         .multi_agent(policies={"a0"}, policy_mapping_fn=lambda aid: aid).build())
+    algo.stop()
+
+
+_CONFIGS = ("PPOConfig", "IMPALAConfig", "APPOConfig", "DQNConfig", "SACConfig", "TQCConfig",
+            "BCConfig", "MARWILConfig", "CQLConfig", "IQLConfig")
+
+
 def test_config_defaults_and_device():
-    assert PPOConfig().device == "cuda"
-    assert PPOConfig().resources(device="cpu").device == "cpu"
-    for jcls, tcls in ((JPPOConfig, PPOConfig), (JIMPALAConfig, IMPALAConfig),
-                       (JAPPOConfig, APPOConfig)):
-        j, t = vars(jcls()), vars(tcls())
+    import ray_tpu.rllib as jrllib
+    import ray_tpu_torch.rllib as trllib
+    for name in _CONFIGS:
+        tcls = getattr(trllib, name)
+        assert tcls().device == "cuda"
+        assert tcls().resources(device="cpu").device == "cpu"
+        j, t = vars(getattr(jrllib, name)()), vars(tcls())
         for k, v in t.items():
             if k not in ("device", "framework_str", "algo_class"):
-                assert j[k] == v, (tcls.__name__, k)
+                assert j[k] == v, (name, k)
+        assert tcls().algo_class.__name__ == getattr(jrllib, name)().algo_class.__name__
