@@ -3663,13 +3663,13 @@ def time_updates(step, device, n=RL_TIMED, warm=RL_WARM, profiled=RL_PROFILED):
     return out
 
 
-def log_timing(tag, what, r):
+def log_timing(tag, what, r, profiled=RL_PROFILED):
     share = r["busy_share"]
     share = f"{share:.4f}" if isinstance(share, float) else share
     per = r["launches_per_update"]
     per = f"{per:.0f}" if isinstance(per, float) else per
     log(f"[rl] {tag} {what}: {r['ms']:.3f} ms an update (median of {len(r['ms_all'])}), "
-        f"busy share {share} over {RL_PROFILED} profiled updates, {per} launches an update")
+        f"busy share {share} over {profiled} profiled updates, {per} launches an update")
 
 
 def no_launches(tag, device):
@@ -3909,13 +3909,240 @@ def run_rl_multi_agent(device="cuda", iters=3):
     return out
 
 
-RL_PATHS = ("rl_device", "rl_cnn", "rl_offline", "rl_offpolicy", "rl_multi_agent")
+class _Space:
+    """The two attributes of a gymnasium space that DreamerV3 reads."""
+
+    def __init__(self, shape=(), n=None):
+        self.shape = shape
+        if n is not None:
+            self.n = n
+
+
+class NumpyCartPole:
+    """gymnasium's CartPole-v1 in numpy (the chip machine has no gymnasium):
+    its Euler dynamics in float64 (gravity 9.8, cart 1.0, pole 0.1 of half
+    length 0.5, force 10, tau 0.02), termination past 12 degrees or 2.4,
+    reward 1, TimeLimit's truncation at 500 steps, float32 observations,
+    and a reset drawing the state uniform in [-0.05, 0.05] from
+    default_rng(seed), as gymnasium seeds its np_random.
+    tests/test_torch_rl_dreamerv3.py steps it against gymnasium's."""
+
+    observation_space = _Space((4,))
+    action_space = _Space(n=2)
+    max_steps = 500
+
+    def __init__(self):
+        self._rng = None
+        self.state = None
+        self._t = 0
+
+    def reset(self, seed=None):
+        if seed is not None or self._rng is None:
+            self._rng = np.random.default_rng(seed)
+        self.state = self._rng.uniform(-0.05, 0.05, size=(4,))
+        self._t = 0
+        return np.array(self.state, dtype=np.float32), {}
+
+    def step(self, action):
+        x, x_dot, theta, theta_dot = self.state
+        force = 10.0 if action == 1 else -10.0
+        costheta, sintheta = np.cos(theta), np.sin(theta)
+        temp = (force + 0.05 * np.square(theta_dot) * sintheta) / 1.1
+        thetaacc = (9.8 * sintheta - costheta * temp) / (
+            0.5 * (4.0 / 3.0 - 0.1 * np.square(costheta) / 1.1))
+        xacc = temp - 0.05 * thetaacc * costheta / 1.1
+        x, x_dot = x + 0.02 * x_dot, x_dot + 0.02 * xacc
+        theta, theta_dot = theta + 0.02 * theta_dot, theta_dot + 0.02 * thetaacc
+        self.state = np.array((x, x_dot, theta, theta_dot), dtype=np.float64)
+        terminated = bool(x < -2.4 or x > 2.4 or theta < -12 * 2 * np.pi / 360
+                          or theta > 12 * 2 * np.pi / 360)
+        self._t += 1
+        return (np.array(self.state, dtype=np.float32), 1.0, terminated,
+                self._t >= self.max_steps, {})
+
+    def close(self):
+        pass
+
+
+DREAMER_ITERS = 4          # rl_dreamer's train() iterations with an update, after the collection
+DREAMER_PROFILED = 3       # profiled updates (~5,500 launches each; the trace's processing is slow)
+
+
+def dreamer_batch(rng, b, t, obs_dim=4, n_actions=2):
+    """A numpy-seeded [B, T] DreamerV3 batch (one-hot actions)."""
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    return {"obs": f(b, t, obs_dim),
+            "action": np.eye(n_actions, dtype=np.float32)[rng.integers(0, n_actions, (b, t))],
+            "reward": f(b, t), "is_first": (rng.random((b, t)) < 0.05).astype(np.float32),
+            "is_terminated": (rng.random((b, t)) < 0.02).astype(np.float32)}
+
+
+def check_dreamer_parity(device="cuda"):
+    """(a) One DreamerV3 update on `device` against one on the CPU at full
+    width (DreamerV3Config()'s defaults), from the same weights, on a
+    seeded [8, 24] batch with the same injected draws: the sampled
+    indices equal first (a mismatch reports the CPU's top-two gap there),
+    then the metrics within RL_METRIC_TOL and each net's params as
+    compare_updates holds them, the EMA critic within 1e-6 plus (1 -
+    decay) of the critic's gap."""
+    import torch
+    from ray_tpu_torch.rllib import DreamerV3Config
+
+    algos = {d: DreamerV3Config().environment(NumpyCartPole).resources(device=d).build()
+             for d in ("cpu", device)}
+    cpu, dev = algos["cpu"], algos[device]
+    dev.set_weights(cpu.get_weights())
+    cfg = cpu.config
+    batch = dreamer_batch(np.random.default_rng(12), cfg.batch_size_B, cfg.batch_length_T)
+    noise = cpu._update_noise(torch.Generator().manual_seed(12))
+    before = cpu.get_weights()
+    draws = {d: {} for d in algos}
+    got = {d: {k: float(v) for k, v in a._update(batch, noise, draws[d]).items()}
+           for d, a in algos.items()}
+    flips = {}
+    for k, want in draws["cpu"].items():
+        g, w = draws[device][k].argmax(-1).cpu(), want.argmax(-1)
+        top = want.topk(2, -1).values
+        gaps = (top[..., 0] - top[..., 1])[g != w]
+        flips[k] = dict(draws=int(w.numel()), differ=int((g != w).sum()),
+                        gaps=gaps.tolist()[:8])
+    n_draws = sum(f["draws"] for f in flips.values())
+    log(f"[rl] rl_dreamer (a) DreamerV3 update {device} vs cpu: {n_draws} categorical draws, "
+        f"differing: " + ", ".join(f"{k} {f['differ']} (top-two gaps {f['gaps']})"
+                                   for k, f in flips.items()))
+    if any(f["differ"] for f in flips.values()):
+        raise AssertionError(f"rl_dreamer: sampled indices differ on {device}: {flips}")
+    errs = {k: abs(got[device][k] - w) / max(1.0, abs(w)) for k, w in got["cpu"].items()}
+    worst = max(errs, key=errs.get)
+    wc, wd = cpu.get_weights(), dev.get_weights()
+    params = {}
+    for net, lr in (("wm", cfg.wm_lr), ("actor", cfg.ac_lr), ("critic", cfg.ac_lr)):
+        worst_abs, far = param_gap(wd[net], wc[net], lr)
+        params[net] = dict(max_abs=worst_abs, far_share=far, adam_bound=2 * lr,
+                           moved_share=param_gap(wc[net], before[net], lr)[1])
+    ema_over = max(float(((wd["critic_ema"][k] - wc["critic_ema"][k]).abs()
+                          - 1e-6 - (1 - cfg.critic_ema_decay)
+                          * (wd["critic"][k] - wc["critic"][k]).abs()).max())
+                   for k in wc["critic_ema"])
+    log(f"[rl] rl_dreamer (a) metrics {errs[worst]:.3e} ({worst}; limit {RL_METRIC_TOL:g}); "
+        + "; ".join(f"{n} max |err| {r['max_abs']:.3e} (bound {r['adam_bound']:.1e}), share "
+                    f"> lr/100 apart {r['far_share']:.2e} (moved {r['moved_share']:.3f})"
+                    for n, r in params.items())
+        + f"; EMA excess over its limit {ema_over:.3e} (<= 0)")
+    bad = [n for n, r in params.items() if r["max_abs"] > r["adam_bound"]
+           or r["far_share"] > RL_FAR_SHARE or r["moved_share"] < 0.5]
+    if errs[worst] > RL_METRIC_TOL or bad or ema_over > 0 or not all(
+            np.isfinite(v) for v in got["cpu"].values()):
+        raise AssertionError(f"rl_dreamer: the update on {device} disagrees with the CPU: "
+                             f"metrics {errs}, params {params}, EMA {ema_over}")
+    for a in algos.values():
+        a.stop()
+    n_params = {n: sum(v.numel() for v in w.values()) for n, w in wc.items()}
+    return dict(draws=flips, metric_err=errs[worst], metric_errs=errs, params=params,
+                ema_excess=ema_over, n_params=n_params, metrics=got[device])
+
+
+def run_rl_dreamer(device="cuda", iters=DREAMER_ITERS):
+    """Path `rl_dreamer`: (a) check_dreamer_parity; (b) DreamerV3 at full
+    width through `train()`, its env the numpy CartPole (a callable:
+    gymnasium's CartPole-v1 dynamics), 512 env steps of 64 an iteration
+    (learning starts at 512: 7 collect-only iterations, the 8th the first
+    of `iters` with an update); ms an act
+    step (the collect-only iterations' time over their env steps), ms an
+    update (time_updates: median, busy share, launches), peak memory,
+    env steps a second with updates; (c) JAX's world-model case
+    (tests/test_rllib_dreamerv3.py: deter 64, hiddens (64, 64), B 8, T 16,
+    H 5, 128 steps an iteration, 8 updates each, seed 1) on the card:
+    wm_recon below 0.7 of its first value. B1-B4 launch 0 times."""
+    import torch
+    from ray_tpu_torch.rllib import DreamerV3Config
+
+    out = dict(parity=check_dreamer_parity(device))
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    algo = DreamerV3Config().environment(NumpyCartPole).resources(device=device).build()
+    cfg = algo.config
+    collect_s, train_s, rows = [], [], []
+    # learning starts in the iteration whose collection reaches 512 steps
+    n_collect = cfg.num_steps_sampled_before_learning_starts // cfg.rollout_fragment_length
+    for i in range(n_collect + iters - 1):
+        t0 = time.perf_counter()
+        r = algo.train()
+        (train_s if "learner" in r else collect_s).append(time.perf_counter() - t0)
+        if "learner" in r:
+            rows.append(r["learner"])
+    if len(rows) != iters:
+        raise AssertionError(f"rl_dreamer: {len(rows)} iterations updated, want {iters}")
+    if not all(np.isfinite(v) for row in rows for v in row.values()):
+        raise AssertionError(f"rl_dreamer: non-finite learner metrics {rows}")
+    frag = cfg.rollout_fragment_length
+    act_ms = 1e3 * float(np.median(collect_s[1:])) / frag
+    timing = time_updates(lambda: algo._update(algo.replay.sample(cfg.batch_size_B,
+                                                                   cfg.batch_length_T)), device,
+                          profiled=DREAMER_PROFILED)
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    steps_per_s = frag * iters / sum(train_s)
+    out["train"] = dict(collect_iters=len(collect_s), act_step_ms=act_ms,
+                        iteration_s=dict(collect=collect_s, with_update=train_s),
+                        env_steps_per_s=steps_per_s, update=timing, peak_bytes=peak,
+                        last_learner=rows[-1], episode_return_mean=r.get("episode_return_mean"))
+    algo.stop()
+    log(f"[rl] rl_dreamer (b) DreamerV3Config() defaults on {device}: {len(collect_s)} "
+        f"collect-only iterations, {act_ms:.3f} ms an act step (median iteration / {frag}); "
+        f"{steps_per_s:.1f} env steps/s over {iters} iterations with an update; peak "
+        f"{(peak or 0) / 2**30:.3f} GiB; last wm_loss {rows[-1]['wm_loss']:.4f}")
+    log_timing("rl_dreamer (b)", "DreamerV3._update [8, 24], H 15", timing, DREAMER_PROFILED)
+
+    algo = (DreamerV3Config().environment(NumpyCartPole).resources(device=device)
+            .training(deter=64, stoch=4, classes=4, model={"hiddens": (64, 64)},
+                      batch_size_B=8, batch_length_T=16, horizon=5, rollout_fragment_length=128,
+                      num_steps_sampled_before_learning_starts=128, train_intensity=8)
+            .debugging(seed=1).build())
+    recon = [lm["wm_recon"] for lm in (algo.train().get("learner") for _ in range(6)) if lm]
+    algo.stop()
+    out["world_model"] = dict(wm_recon=recon, ratio=recon[-1] / recon[0])
+    log(f"[rl] rl_dreamer (c) JAX's world-model case on {device}: wm_recon {recon[0]:.4f} -> "
+        f"{recon[-1]:.4f} (ratio {recon[-1] / recon[0]:.3f}, bar 0.7)")
+    if not recon[-1] < 0.7 * recon[0]:
+        raise AssertionError(f"rl_dreamer: the world model did not learn: {recon}")
+    out["launches"] = no_launches("rl_dreamer", device)
+    return out
+
+
+def check_dp_raises(device="cuda"):
+    """The dp learner group on one card: num_learners=2 on a world of one
+    rank raises JAX's ValueError."""
+    from ray_tpu_torch.rllib import ModuleSpec, PPOConfig, RLModule, make_learner_group
+    from ray_tpu_torch.rllib.algorithms.ppo import PPOLearner
+    import torch.distributed as dist
+    cfg = PPOConfig().learners(num_learners=2).resources(device=device)
+    started = not dist.is_initialized()
+    try:
+        make_learner_group(PPOLearner, RLModule(ModuleSpec((4,), "discrete", 2)), cfg)
+    except ValueError as e:
+        msg = str(e)
+    else:
+        raise AssertionError("rl: num_learners=2 on a world of one rank did not raise")
+    if started:        # the one-rank world the group started to count its ranks
+        dist.destroy_process_group()
+    if not msg.startswith("num_learners=2 but only 1 "):
+        raise AssertionError(f"rl: num_learners=2 raised {msg!r}")
+    log(f"[rl] num_learners=2 on one card: ValueError({msg[:60]!r}...)")
+    return msg
+
+
+RL_PATHS = ("rl_device", "rl_cnn", "rl_offline", "rl_offpolicy", "rl_multi_agent",
+            "rl_dreamer")
 
 
 def run_rl(device="cuda"):
     """The `rl` phase: (a) cuda-against-cpu parity of every learner's update,
     (b) path `rl_device`, (c) path `rl_cnn`, (d) path `rl_offline`, (e) path
-    `rl_offpolicy`, (f) path `rl_multi_agent`. Path `rl_ppo`
+    `rl_offpolicy`, (f) path `rl_multi_agent`, (g) path `rl_dreamer`, and
+    the dp learner group's ValueError on one card. Path `rl_ppo`
     (PPOConfig().environment("CartPole-v1")...build().train()), the online
     off-policy Algorithms' `train()` and `PPOConfig().multi_agent(...)`
     need gymnasium, which the chip machine does not have: they are held by
@@ -3924,7 +4151,8 @@ def run_rl(device="cuda"):
     for name, fn in (("parity", check_rl_parity), ("parity_offpolicy", check_offpolicy_parity),
                      ("rl_device", run_rl_device), ("rl_cnn", run_rl_cnn),
                      ("rl_offline", run_rl_offline), ("rl_offpolicy", run_rl_offpolicy),
-                     ("rl_multi_agent", run_rl_multi_agent)):
+                     ("rl_multi_agent", run_rl_multi_agent), ("rl_dreamer", run_rl_dreamer),
+                     ("dp_raises", check_dp_raises)):
         t0 = time.perf_counter()
         out[name] = fn(device)
         seconds[name] = time.perf_counter() - t0
@@ -3938,18 +4166,18 @@ def run_rl(device="cuda"):
 
 # ------------------------------------------------------------------ cards
 CARDS_OUT = "chip_smoke_cards4.json"
-CARDS_PHASES = ("seqpipe", "tp")
+CARDS_PHASES = ("rl_dp", "seqpipe", "tp")
 RING_SEQ_CARDS = 16384          # ring at sp=4: 4096 tokens a card
 
 
-def _cards_rank(rank, world, store, results, device, presets, max_tokens, phases):
+def _cards_rank(rank, world, store, results, device, presets, max_tokens, phases, prior):
     import os
     import traceback
     ok = False
     try:
         _tp_rank_world(rank, world, store, "nccl" if device == "cuda" else "gloo",
                        rank if device == "cuda" else None)
-        out = cards_phases(rank, world, device, presets, max_tokens, phases)
+        out = cards_phases(rank, world, device, presets, max_tokens, phases, prior)
         results.put((rank, out, None))
         ok = True
     except BaseException:  # noqa: BLE001 - reported to the parent
@@ -4078,11 +4306,166 @@ def seqpipe_cards(world, dev, presets):
     return dict(ring_sp=ring, pipeline_apply_pp=pipe)
 
 
-def cards_phases(rank, world, device, presets, max_tokens, phases=CARDS_PHASES):
-    """The four-card phases, on every rank; rank 0 returns the results and
-    writes them to chip_smoke_out/chip_smoke_cards4.json after each phase.
-    `phases` selects "tp" (the collectives, tp serving, the MoE model and
-    the failing follower) and "seqpipe" (seqpipe_cards)."""
+DP_TIMED = 10            # timed dp updates an N (their median is reported)
+
+
+def _dp_cases(rng):
+    """rl_dp's learners: PPO at its defaults on one 128-row minibatch, and
+    IMPALA at its defaults on a [50, 32] batch; (learner, config, batch)."""
+    from ray_tpu_torch.rllib import IMPALAConfig, PPOConfig
+    from ray_tpu_torch.rllib.algorithms.impala import IMPALALearner
+    from ray_tpu_torch.rllib.algorithms.ppo import PPOLearner
+    flat = rl_batch(rng, 128, 1)
+    ppo = {k: flat[k].reshape((128,) + flat[k].shape[2:]) for k in PPOLearner._TRAIN_KEYS}
+    tb = rl_batch(rng, 50, 32)
+    impala = {k: tb[k] for k in IMPALALearner._TRAIN_KEYS}
+    return dict(ppo=(PPOLearner, PPOConfig(), ppo), impala=(IMPALALearner, IMPALAConfig(), impala))
+
+
+def _dp_rank(rank, world, store, results, device, port):
+    """A rank of the `rl_dp` phase started as torchrun starts one: the
+    launcher's variables in its environment, no process group up and no
+    card bound. `make_learner_group` starts the world and binds the card."""
+    import os
+    import traceback
+    import torch
+    import torch.distributed as dist
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), WORLD_SIZE=str(world),
+                      RANK=str(rank), LOCAL_RANK=str(rank))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ok = False
+    try:
+        results.put((rank, rl_dp_cards(rank, world, device), None))
+        ok = True
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        results.put((rank, None, traceback.format_exc()))
+    if ok:
+        dist.destroy_process_group()
+    results.close()
+    results.join_thread()
+    os._exit(0 if ok else 1)
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def rl_dp_cards(rank, world, device):
+    """The `rl_dp` phase, on ranks that `_dp_rank` started: the dp learner
+    group of N = `world` and 2 ranks, built through
+    `make_learner_group(cls, module, cfg.learners(num_learners=N))` as an
+    Algorithm builds it, against one learner (num_learners=1) on card 0,
+    each from the same seeded weights on the same batch (_dp_cases):
+    each rank's learner on its own card (cuda:rank), metrics within
+    RL_METRIC_TOL, params as compare_updates holds them, and bitwise equal
+    on every rank of the group; then ms an update (median of DP_TIMED) at
+    N = 1, 2 and `world`, and the bytes all-reduced an update. N = `world`
+    comes first, so that every rank has bound its card before the world's
+    first collective. Ranks outside a group build its mesh as the group's
+    ranks do (a collective call) and wait. No kernel may launch."""
+    import torch
+    import torch.distributed as dist
+    from ray_tpu_torch.parallel.mesh import make_mesh
+    from ray_tpu_torch.rllib import ModuleSpec, RLModule, make_learner_group
+    from ray_tpu_torch.rllib.learner import _host_metrics
+
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    reset_launch_counts()
+    res = {}
+    for name, (cls, cfg, batch) in _dp_cases(np.random.default_rng(13)).items():
+        cfg = cfg.copy().resources(device=device)
+        spec = ModuleSpec((4,), "discrete", 2)
+        rows = {}
+        for n in (world, 2, 1):
+            row = None
+            if rank < n:
+                group = make_learner_group(cls, RLModule(spec), cfg.copy().learners(num_learners=n),
+                                           seed=0)
+                learner = group.learner
+                want = torch.device("cuda", rank) if cuda else torch.device("cpu")
+                on = {learner.device} | {p.device for p in learner.net.parameters()}
+                if on != {want} or (n > 1) != (group.mesh is not None):
+                    raise AssertionError(f"rl_dp {name} N={n}: rank {rank}'s learner on {on}, "
+                                         f"want {want}; mesh {group.mesh}")
+                before = learner.get_weights()
+                metrics = _host_metrics([learner.update_once(batch)])
+                after = learner.get_weights()
+                times = []
+                for _ in range(DP_TIMED):
+                    sync()
+                    t0 = time.perf_counter()
+                    learner.update_once(batch)
+                    sync()
+                    times.append(time.perf_counter() - t0)
+                row = dict(metrics=metrics, before=before, after=after,
+                           ms=1e3 * float(np.median(times)), ms_all=[1e3 * t for t in times],
+                           dp_bytes=learner.dp_bytes, card=str(want))
+                del group, learner
+            elif n > 1:
+                make_mesh({"dp": n}, devices=range(n), device=device)
+            if n == 1:
+                if rank == 0:
+                    rows[1] = row
+                _world_barrier(device)
+                continue
+            seen = [None] * world
+            dist.all_gather_object(seen, None if row is None else
+                                   {k: row[k] for k in ("metrics", "after", "card")})
+            if rank == 0:
+                same = all(all(torch.equal(o["after"][k], row["after"][k]) for k in row["after"])
+                           for o in seen[:n])
+                rows[n] = dict(row, ranks_bitwise_equal=same,
+                               cards=[o["card"] for o in seen[:n]])
+            _world_barrier(device)
+        if rank == 0:
+            one = rows[1]
+            lr = cfg.lr
+            out = {}
+            for n in (2, world):
+                r = rows[n]
+                errs = {k: abs(r["metrics"][k] - w) / max(1.0, abs(w))
+                        for k, w in one["metrics"].items()}
+                worst_abs, far = param_gap(r["after"], one["after"], lr)
+                moved = param_gap(one["after"], one["before"], lr)[1]
+                out[n] = dict(metric_err=max(errs.values()), metric_errs=errs,
+                              param_max_abs=worst_abs, far_share=far, moved_share=moved,
+                              ranks_bitwise_equal=r["ranks_bitwise_equal"], cards=r["cards"],
+                              ms=r["ms"], ms_all=r["ms_all"], dp_bytes=r["dp_bytes"])
+                log(f"[cards] rl_dp {name} dp={n} (learners on {', '.join(r['cards'])}) vs one "
+                    f"learner on {one['card']}: metrics "
+                    f"{max(errs.values()):.3e} (limit {RL_METRIC_TOL:g}), params max |err| "
+                    f"{worst_abs:.3e} (Adam bound {2 * lr:.1e}), share > lr/100 apart {far:.2e} "
+                    f"(moved {moved:.3f}), ranks bitwise equal {r['ranks_bitwise_equal']}; "
+                    f"{r['ms']:.3f} ms an update, {r['dp_bytes']} bytes all-reduced")
+                if (max(errs.values()) > RL_METRIC_TOL or worst_abs > 2 * lr
+                        or far > RL_FAR_SHARE or moved < 0.5 or not r["ranks_bitwise_equal"]):
+                    raise AssertionError(f"rl_dp {name} dp={n}: {out[n]}")
+            out[1] = dict(ms=one["ms"], ms_all=one["ms_all"], card=one["card"])
+            log(f"[cards] rl_dp {name}: ms an update at N=1 {one['ms']:.3f}, "
+                + ", ".join(f"N={n} {out[n]['ms']:.3f}" for n in (2, world)))
+            res[name] = out
+    sync()
+    seen = _per_card(device)
+    launched = {k: sum(c[k] for _, c in seen) for k in seen[0][1]}
+    if any(launched.values()):
+        raise AssertionError(f"rl_dp: kernels launched on the dp ranks: {launched}")
+    res["launches"] = launched
+    return res if rank == 0 else {}
+
+
+def cards_phases(rank, world, device, presets, max_tokens, phases=CARDS_PHASES, prior=None):
+    """The four-card phases of a world whose ranks bound their cards, on
+    every rank; rank 0 returns the results (from `prior`, the results of
+    the phases run before, on) and writes them to
+    chip_smoke_out/chip_smoke_cards4.json after each phase. `phases`
+    selects "tp" (the collectives, tp serving, the MoE model and the
+    failing follower; last, as it leaves the world unusable) and "seqpipe"
+    (seqpipe_cards); "rl_dp" runs in a world of its own (main_cards)."""
     import gc
     import torch
     import torch.distributed as dist
@@ -4094,7 +4477,7 @@ def cards_phases(rank, world, device, presets, max_tokens, phases=CARDS_PHASES):
     lkw = dict(model_overrides=presets["llama_overrides"]) if "llama_overrides" in presets else {}
     mover = presets.get("moe_overrides", {})
     dev = torch.device("cuda", rank) if device == "cuda" else torch.device("cpu")
-    res = dict(world=world, backend=dist.get_backend())
+    res = dict(prior or {}, world=world, backend=dist.get_backend())
     lead = rank == 0
 
     def save():
@@ -4343,8 +4726,10 @@ def _failing_follower_world(rank, world, device):
 
 
 def main_cards(n, device="cuda", presets=None, max_tokens=32, phases=CARDS_PHASES):
-    """`--cards n`: one rank per card over NCCL, the phases of cards_phases;
-    then, with "seqpipe", MPMD 1F1B in this process with stage i on card i
+    """`--cards n`: with "rl_dp", rl_dp_cards in a world of its own whose
+    ranks start as torchrun's do (_dp_rank); then one rank per card over
+    NCCL, the phases of cards_phases; then, with "seqpipe", MPMD 1F1B in
+    this process with stage i on card i
     (check_1f1b in f32, time_1f1b in bf16). `presets` names the dense and
     MoE presets (llama_1b and Mixtral-8x7B at all 32 layers by default),
     with optional overrides and sequence lengths, for rehearsals at a small
@@ -4355,11 +4740,18 @@ def main_cards(n, device="cuda", presets=None, max_tokens=32, phases=CARDS_PHASE
         raise RuntimeError(f"--cards {n} needs {n} visible cards, have "
                            f"{torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    if device == "cuda":
-        from ray_tpu_torch.ops import _build
-        _build.build()             # once, before the ranks load it
-    ranks = spawn_ranks(_cards_rank, n, (device, presets, max_tokens, tuple(phases)))
-    res = ranks[0]
+    prior = {}
+    if "rl_dp" in phases:
+        prior["rl_dp"] = spawn_ranks(_dp_rank, n, (device, _free_port()))[0]
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / CARDS_OUT).write_text(json.dumps(prior, indent=1, default=str))
+    res = dict(prior, world=n)
+    if {"seqpipe", "tp"} & set(phases):
+        if device == "cuda":
+            from ray_tpu_torch.ops import _build
+            _build.build()         # once, before the ranks load it (rl_dp launches none)
+        ranks = spawn_ranks(_cards_rank, n, (device, presets, max_tokens, tuple(phases), prior))
+        res = ranks[0]
     if "tp" in phases:
         # the failed follower raised its own error; the others ended when
         # rank 0's process went

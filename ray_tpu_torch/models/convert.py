@@ -28,6 +28,12 @@ The off-policy algorithms' weights go the same way, a net at a time:
 `flax_sac_to_state_dict` (SAC's and CQL's weight dict, and IQL's with its
 value net) and `flax_tqc_to_state_dict` (the stacked critics keep their
 leading n_critics dim and flax's [n, in, out] kernels).
+`flax_dreamer_to_state_dict` takes DreamerV3's four nets `{"wm", "actor",
+"critic", "critic_ema"}`: Dense kernels transposed, LayerNorm's `scale` as
+`weight`, the actor's and critic's `_MLP_0` as `mlp`, and flax's GRU cell
+(`ir`, `iz`, `in` with biases; `hr`, `hz` without; `hn` with) as the
+port's one input product `w_i` [3 deter, in] with `b_i`, one hidden
+product `w_h` [3 deter, deter] and the n gate's `b_hn`.
 
 `init_params` fills a model from a `torch.Generator` the way the flax
 initializers do (normal with std 0.02 for kernels and the embedding, ones
@@ -151,6 +157,35 @@ def flax_tqc_to_state_dict(weights: Mapping) -> Dict[str, torch.Tensor]:
                     for k, v in _flax_stacked_to_state_dict(weights[name]).items()})
     out["log_alpha"] = _to_tensor(weights["log_alpha"]).reshape(())
     return out
+
+
+def _flax_dreamer_net(params: Mapping) -> Dict[str, torch.Tensor]:
+    tree = params["params"] if "params" in params else params
+    out = {}
+    for path, value in _flatten(tree):
+        parts = path.split("/")
+        if parts[0] == "_MLP_0":
+            parts[0] = "mlp"
+        if parts[0] == "gru":
+            continue
+        leaf = {"kernel": "weight", "scale": "weight"}.get(parts[-1], parts[-1])
+        t = _to_tensor(value)
+        out[".".join(parts[:-1] + [leaf])] = t.t().contiguous() if parts[-1] == "kernel" else t
+    if "gru" in tree:
+        g = {k: {n: _to_tensor(v) for n, v in d.items()} for k, d in tree["gru"].items()}
+        cat_t = lambda names: torch.cat([g[n]["kernel"].t() for n in names]).contiguous()
+        out["gru.w_i"] = cat_t(("ir", "iz", "in"))
+        out["gru.b_i"] = torch.cat([g[n]["bias"] for n in ("ir", "iz", "in")])
+        out["gru.w_h"] = cat_t(("hr", "hz", "hn"))
+        out["gru.b_hn"] = g["hn"]["bias"]
+    return out
+
+
+def flax_dreamer_to_state_dict(weights: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
+    """JAX's DreamerV3 weights `{"wm", "actor", "critic", "critic_ema"}`
+    (flax variables, as numpy) -> the port's four state_dicts, on the CPU."""
+    return {name: _flax_dreamer_net(weights[name]) for name in ("wm", "actor", "critic",
+                                                                 "critic_ema")}
 
 
 def flax_lora_to_port(lora: Mapping) -> Dict:

@@ -16,7 +16,7 @@ import torch
 from ray_tpu_torch.ops.losses import vtrace
 from .. import sample_batch as SB
 from ..algorithm import Algorithm, AlgorithmConfig, _merge_runner_metrics
-from ..learner import TorchLearner, _host_metrics, make_learner_group
+from ..learner import TorchLearner, _host_metrics, _rows, make_learner_group
 from ..rl_module import RLModule
 from ..sample_batch import SampleBatch
 
@@ -58,6 +58,13 @@ class IMPALALearner(TorchLearner):
         entropy = dist.entropy().mean()
         loss = pg_loss + cfg.vf_loss_coeff * vf_loss - cfg.entropy_coeff * entropy
         return loss, {"policy_loss": pg_loss, "vf_loss": vf_loss, "entropy": entropy}
+
+    def dp_shard(self, batch, rank: int, n: int):
+        """This rank's envs of a time-major [T, B] batch: V-trace scans over
+        T and must see whole sequences, so the shard is on B (and
+        BOOTSTRAP_VALUE [B] alike)."""
+        return {k: _rows(v, rank, n, 0 if k == SB.BOOTSTRAP_VALUE else 1)
+                for k, v in batch.items()}
 
     def update(self, batch: SampleBatch) -> Dict[str, float]:
         return _host_metrics([self.update_once({k: batch[k] for k in self._TRAIN_KEYS})])

@@ -12,34 +12,56 @@ of an `update` in one copy to the host: one sync an update, not one a step.
 `metrics["grad_norm"]` is the global norm before clipping, as JAX's
 (`optax.global_norm(grads)`); `cur_lr` is schedule(n) for the n-th update.
 
-JAX's dp learner group is one process over a {"dp": N} mesh; the port's
-would be N ranks with a gradient all-reduce, a later slice (ROADMAP §A):
-`num_learners > 1` raises `NotImplementedError`.
+The data-parallel group. JAX's group is one process over a {"dp": N}
+mesh, where XLA inserts the gradient psum. The port's is N ranks, one a
+card (NCCL; gloo on the CPU), every rank running the same program: the
+same Algorithm, seeds and batches, and a learner given the {"dp": N}
+mesh. Its `update_once` takes the whole minibatch, as JAX's does, drops
+JAX's ragged remainder, keeps this rank's shard (`dp_shard`: rows of a
+flat batch; learners with time-major batches shard the env axis), runs
+forward and backward, all-reduces the mean of the gradients over the dp
+group in one flat bucket, so that `grad_norm` and the optimizer's clip
+see the global gradient, all-reduces the mean of the metrics in one more
+call, and steps. Each rank's loss is a mean over equal shards of JAX's
+global one, so the mean of the shards' gradients is its gradient. The
+all-reduce hands every rank the same sum, so the params stay bitwise
+equal across ranks. (The learners call `compute_loss(self.net, ...)`,
+which may reach sub-methods of the net and so bypass DDP's hooks: the
+all-reduce is explicit, after `backward()`.)
 """
 
-from typing import Any, Callable, Dict, List, Tuple
+import os
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.ops.optim import global_norm, make_optimizer
 from .rl_module import RLModule
 from .sample_batch import SampleBatch
 
-_LATER = ("a data-parallel learner group (num_learners > 1) is a later slice of "
-          "the port (ROADMAP.md §A, the dp learner group)")
-
 
 class TorchLearner:
-    """Base learner: subclass and implement `compute_loss`."""
+    """Base learner: subclass and implement `compute_loss`. With a `mesh`
+    (a DeviceMesh with a "dp" axis, which this rank belongs to), each
+    update is the dp group's (see the module note)."""
 
-    def __init__(self, module: RLModule, config, seed: int = 0):
+    def __init__(self, module: RLModule, config, mesh=None, seed: int = 0):
         self.module = module
         self.config = config
+        self.mesh = mesh
         self.device = resolve_device(getattr(config, "device", "cuda"))
         self.net = module.make_net(seed, self.device)
         self._num_updates = 0
+        self._dp = None
+        self.dp_bytes = 0          # bytes all-reduced by the last dp update
+        if mesh is not None:
+            if mesh.get_coordinate() is None:
+                raise ValueError(f"rank {dist.get_rank()} is not in the learners' dp mesh "
+                                 f"{mesh.mesh.tolist()}")
+            self._dp = (mesh.get_group("dp"), mesh.size(), mesh.get_local_rank("dp"))
         self._reset_optimizer()
 
     def _reset_optimizer(self):
@@ -61,21 +83,61 @@ class TorchLearner:
         pass through)."""
         return SampleBatch(batch).to_device(self.device)
 
+    def dp_shard(self, batch, rank: int, n: int):
+        """This rank's shard of a flat batch: rows rank * m / n to
+        (rank + 1) * m / n of every column."""
+        return {k: _rows(v, rank, n, 0) for k, v in batch.items()}
+
     def update_once(self, batch) -> Dict[str, Any]:
         """One SGD step on an (already minibatched) batch of numpy arrays or
-        tensors. The metrics are device tensors, but for `cur_lr`."""
+        tensors. The metrics are device tensors, but for `cur_lr`. In a dp
+        group the batch is the whole minibatch, and the step is the group's;
+        a minibatch with fewer rows than learners returns {}, as JAX's."""
+        if self._dp is not None:
+            _, n, rank = self._dp
+            rows = min(v.shape[0] for v in batch.values())
+            if rows % n:
+                # dp sharding needs a divisible leading dim; drop the
+                # remainder rows, as JAX does (and the reference's ragged
+                # minibatches)
+                keep = rows - rows % n
+                if keep == 0:
+                    return {}
+                batch = {k: v[:keep] for k, v in batch.items()}
+            batch = self.dp_shard(batch, rank, n)
         batch = self.to_device(batch)
         self.optimizer.zero_grad(set_to_none=True)
         loss, metrics = self.compute_loss(self.net, batch)
         loss.backward()
-        grad_norm = global_norm(p.grad for p in self.net.parameters() if p.grad is not None)
-        self.optimizer.step()
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["total_loss"] = loss.detach()
+        if self._dp is not None:
+            metrics = self._dp_mean(metrics)
+        grad_norm = global_norm(p.grad for p in self.net.parameters() if p.grad is not None)
+        self.optimizer.step()
         metrics["grad_norm"] = grad_norm
         metrics["cur_lr"] = float(self._lr_schedule(self._num_updates))
         self._num_updates += 1
         return metrics
+
+    @torch.no_grad()
+    def _dp_mean(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The mean over the dp group of the gradients (one flat bucket,
+        whose views become the params' .grad) and of the metrics (one more
+        all-reduce); returns the metrics."""
+        group, n, _ = self._dp
+        params = [p for p in self.net.parameters() if p.grad is not None]
+        flat = torch.cat([p.grad.reshape(-1) for p in params])
+        dist.all_reduce(flat, group=group)
+        flat /= n
+        for p, g in zip(params, flat.split([p.numel() for p in params])):
+            p.grad = g.view_as(p)
+        keys = list(metrics)
+        table = torch.stack([metrics[k].float() for k in keys])
+        dist.all_reduce(table, group=group)
+        table /= n
+        self.dp_bytes = flat.numel() * flat.element_size() + table.numel() * table.element_size()
+        return dict(zip(keys, table.unbind()))
 
     def update(self, batch: SampleBatch) -> Dict[str, float]:
         """Full update (subclasses may do epochs and minibatches); returns
@@ -102,6 +164,17 @@ class TorchLearner:
         self.net.load_state_dict(state["params"])
         self._reset_optimizer()
         self.optimizer.load_state_dict(state["opt_state"])
+
+
+def _rows(v, rank: int, n: int, axis: int):
+    """Block `rank` of `n` equal blocks of `v` (numpy or tensor) on `axis`."""
+    m = v.shape[axis]
+    if m % n:
+        raise ValueError(f"a dp shard needs axis {axis} of size {m} divisible by the "
+                         f"{n} learners")
+    size = m // n
+    index = [slice(None)] * axis + [slice(rank * size, (rank + 1) * size)]
+    return v[tuple(index)]
 
 
 def _cpu_copy(tree):
@@ -143,13 +216,17 @@ def _host_metrics(steps: List[Dict[str, Any]]) -> Dict[str, float]:
 
 
 class LearnerGroup:
-    """The reference's learner group (rllib/core/learner/learner_group.py)
-    over one local learner."""
+    """The reference's learner group (rllib/core/learner/learner_group.py):
+    this rank's learner. With num_learners > 1 the learner holds the dp
+    mesh and every rank of it runs the same calls (see the module note)."""
 
-    num_learners = 1
-
-    def __init__(self, learner: TorchLearner):
+    def __init__(self, learner: TorchLearner, num_learners: int = 1):
         self.learner = learner
+        self.num_learners = max(num_learners, 1)
+
+    @property
+    def mesh(self):
+        return self.learner.mesh
 
     def update(self, batch: SampleBatch) -> Dict[str, float]:
         return self.learner.update(batch)
@@ -159,6 +236,7 @@ class LearnerGroup:
         return self.update(batch)
 
     def foreach_learner(self, fn: Callable) -> list:
+        """fn on this rank's learner (each rank calls it on its own)."""
         return [fn(self.learner)]
 
     def get_weights(self):
@@ -176,8 +254,37 @@ class LearnerGroup:
 
 def make_learner_group(learner_cls, module: RLModule, config, seed: int = 0) -> LearnerGroup:
     """A LearnerGroup from AlgorithmConfig.num_learners: 0 or 1 -> one local
-    learner; more raises (see the module note)."""
+    learner; N > 1 -> this rank's learner on a {"dp": N} mesh over ranks
+    0..N-1 of the world (the default process group, started as
+    `parallel.mesh.ensure_world` starts it). Every rank of the world calls
+    this; the learners start from the same seed, so from equal params. On
+    `device="cuda"` each rank's learner sits on its own card (`bind_card`)."""
     n = max(getattr(config, "num_learners", 0), 1)
+    mesh: Optional[Any] = None
     if n > 1:
-        raise NotImplementedError(_LATER)
-    return LearnerGroup(learner_cls(module, config, seed=seed))
+        from ray_tpu_torch.parallel.mesh import ensure_world, make_mesh
+        device = getattr(config, "device", "cuda")
+        world = ensure_world(device)
+        if n > world:
+            raise ValueError(
+                f"num_learners={n} but only {world} ranks in the world; a learner is "
+                f"a rank of the dp mesh, one a card (start a world of {n} ranks, for "
+                f"example with torchrun, or gloo ranks on device='cpu' for testing)")
+        bind_card(device)
+        mesh = make_mesh({"dp": n}, devices=range(n), device=device)
+    return LearnerGroup(learner_cls(module, config, mesh=mesh, seed=seed), num_learners=n)
+
+
+def bind_card(device) -> Optional[int]:
+    """Make this rank's card the current one, so that "cuda" resolves to it:
+    `LOCAL_RANK` when the launcher set it (torchrun does), else the world
+    rank modulo the cards visible, as torch's DeviceMesh picks. Returns the
+    card, or None for the CPU or a device that names its card ("cuda:k"),
+    which is used as given."""
+    dev = torch.device(device)
+    if dev.type != "cuda" or dev.index is not None:
+        return None
+    local = os.environ.get("LOCAL_RANK")
+    card = int(local) if local is not None else dist.get_rank() % torch.cuda.device_count()
+    torch.cuda.set_device(card)
+    return card

@@ -4,8 +4,9 @@
 metrics and learner metrics must match JAX's, and whose weights after the
 update must too; inline evaluation; the checkpoint round trip of
 tests/test_rllib.py; multi-agent PPO's build and first iteration; every
-ported config's defaults against JAX's; and the `NotImplementedError`s of
-what the port leaves to the runtime or to later slices.
+ported config's defaults against JAX's; the `NotImplementedError`s of
+what the port leaves to the runtime; and a two-learner group on a world of
+one rank raising JAX's ValueError.
 
 Tolerances (f32): learner metrics within 1e-4 of max(1, |value|); weights
 as in tests/test_torch_rl_learner.py (the Adam bound, 2 lr a step, on
@@ -19,6 +20,7 @@ from ray_tpu.rllib import APPOConfig as JAPPOConfig, IMPALAConfig as JIMPALAConf
 from ray_tpu_torch.models.convert import flax_rl_module_to_state_dict
 from ray_tpu_torch.rllib import APPOConfig, IMPALAConfig, PPOConfig
 from test_torch_rl_learner import check_params
+from test_torch_rl_learner_group import fresh_world  # noqa: F401 - a fixture
 
 TOL = 1e-4
 
@@ -111,15 +113,17 @@ def _cpu_ppo():
             .env_runners(rollout_fragment_length=8).training(train_batch_size=8))
 
 
-@pytest.mark.parametrize("change,match", [
-    (lambda c: c.env_runners(num_env_runners=2), "num_env_runners"),
+@pytest.mark.parametrize("change,error,match", [
+    (lambda c: c.env_runners(num_env_runners=2), NotImplementedError, "num_env_runners"),
     (lambda c: c.evaluation(evaluation_interval=1, evaluation_num_env_runners=1),
-     "evaluation_num_env_runners"),
-    (lambda c: c.sebulba(), "sebulba"),
-    (lambda c: c.learners(num_learners=2), "num_learners"),
+     NotImplementedError, "evaluation_num_env_runners"),
+    (lambda c: c.sebulba(), NotImplementedError, "sebulba"),
+    # a group of two learners needs a world of two ranks (JAX's error, with
+    # the port's world named)
+    (lambda c: c.learners(num_learners=2), ValueError, "num_learners=2 but only 1 ranks"),
 ], ids=["remote_runners", "eval_actors", "sebulba", "dp_learners"])
-def test_later_and_runtime_paths_raise(change, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_later_and_runtime_paths_raise(fresh_world, change, error, match):
+    with pytest.raises(error, match=match):
         change(_cpu_ppo()).build()
 
 
@@ -139,7 +143,7 @@ def test_multi_agent_ppo_builds_and_trains():
 
 
 _CONFIGS = ("PPOConfig", "IMPALAConfig", "APPOConfig", "DQNConfig", "SACConfig", "TQCConfig",
-            "BCConfig", "MARWILConfig", "CQLConfig", "IQLConfig")
+            "BCConfig", "MARWILConfig", "CQLConfig", "IQLConfig", "DreamerV3Config")
 
 
 def test_config_defaults_and_device():

@@ -30,6 +30,7 @@ from ray_tpu_torch.rllib.algorithms.impala import IMPALAConfig, IMPALALearner
 from ray_tpu_torch.rllib.algorithms.ppo import PPOConfig, PPOLearner
 from ray_tpu_torch.rllib.learner import make_learner_group
 from ray_tpu_torch.rllib.rl_module import ModuleSpec, RLModule
+from test_torch_rl_learner_group import fresh_world  # noqa: F401 - a fixture
 
 HIDDENS = (32, 32)
 T, B = 16, 4
@@ -219,11 +220,14 @@ def test_appo_vtrace_targets_match_jax():
     talgo.stop()
 
 
-def test_learner_defaults_to_cuda_and_dp_raises():
+def test_learner_defaults_to_cuda_and_dp_raises(fresh_world):
+    """A learner builds on cuda by default; a two-learner group on a world
+    of one rank raises JAX's ValueError (the group is one rank a learner;
+    the one-rank world it starts to count the ranks is taken down)."""
     spec = RLModule(ModuleSpec((4,), "discrete", 2, HIDDENS))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             PPOLearner(spec, PPOConfig())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="num_learners=2 but only 1 ranks"):
         make_learner_group(PPOLearner, spec,
                            PPOConfig().learners(num_learners=2).resources(device="cpu"))
