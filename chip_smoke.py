@@ -129,6 +129,15 @@ Phases, in order; a failing phase raises and the script exits non-zero:
              would need two ranks on one device: NCCL refuses that, and
              gloo's all-gather of CUDA tensors crashes the process, so
              tp > 1 runs with --cards 4 only.
+    train_mesh - path `train_mesh`: build_llama_trainer at llama_1b width and
+             depth (bf16, B=4, T=2048) on a world-1 {"dp": 1, "fsdp": 1,
+             "tp": 1} mesh over NCCL, its batch through
+             iter_device_batches(sharding=data_sharding(mesh)), 3 steps:
+             losses and every param torch.equal to the plain step's on the
+             same weights and batches, B1, B2 and B3 launched as often (16
+             a step each); then B1, B2 and B3 held to their plain versions
+             and timed at the 8B's shapes a card (B=1, T=2048, D=128, bf16:
+             H=32, Kh=8 at fsdp and H=16, Kh=4 at tp=2).
 13. seqpipe - sequence and pipeline parallelism at llama_1b width on world
              1 (NCCL): (a) path `ring`: the shard-local llama_1b (bf16,
              seed 0) with attn_impl="ring" on an {"sp": 1} mesh, B=1,
@@ -194,10 +203,31 @@ Phases, in order; a failing phase raises and the script exits non-zero:
     python3 chip_smoke.py --cards 4
 
 runs the multi-card phases instead, one spawned rank per card over NCCL
-(it needs four visible cards): `seqpipe`, then `tp`, in the same ranks,
-then MPMD in this process. `--phases seqpipe` or `--phases tp` runs one
-group alone: a rehearsal aid for a change that touches one of them; the
-check of a change is the default run. `seqpipe`: ring attention at sp=4
+(it needs four visible cards): `rl_dp` in a world of its own, then
+`seqpipe`, `fsdp` and `tp`, in the same ranks, then MPMD in this process.
+`--phases seqpipe`, `--phases tp`, `--phases rl_dp` or `--phases fsdp`
+runs one group alone: a rehearsal aid for a change that touches one of
+them; the check of a change is the default run. `fsdp`: (a) path
+`train_fsdp`, llama_8b at full width (d 4096, 32 layers, 32/8 heads,
+head_dim 128, ffn 14336, vocab 32000; seeded weights), f32 master
+weights, bf16 activations, flash attention, remat, AdamW (lr 1e-4, weight
+decay 1e-4), 4 x 2048 tokens a step (a row a card), on {"fsdp": 4} and
+{"fsdp": 2, "tp": 2} from the same weights, 2 untimed and 5 timed steps
+each: every loss finite, step 1's losses within FSDP_LOSS_TOL of each
+other, a limit two planted faults must miss at step 2 (rank 1's fsdp
+gather out of order; the gradient mean skipped), the replicated params
+equal on every rank, B1, B2 and B3 launched 64, 32 and 32 times a rank a
+step; ms a step, tokens/s, model TFLOP/s a card and its share of 989,
+peak memory a card, and the NCCL kernels' share of one profiled step;
+(b) f32 llama_1b (B=4, T=512) on {"fsdp": 4}, {"dp": 2, "fsdp": 2} and
+{"fsdp": 2, "tp": 2}, and a 2-layer Mixtral-width MoE on {"ep": 4} and
+{"ep": 2, "tp": 2}, two steps each against the whole model's on card 0
+from the same weights: losses within 1e-5 relative, the gathered params
+with at most 1e-3 of their coordinates lr / 100 apart; (c) llama_1b (bf16
+params) on {"fsdp": 4}, checkpointed sharded after step 3 of 6 (each rank
+its own blocks and AdamW moments), restored into a fresh model and AdamW:
+losses and every rank's blocks torch.equal to the uninterrupted run, with
+the bytes a rank and the seconds to save and to restore. `seqpipe`: ring attention at sp=4
 (llama_1b, bf16, B=1, T=16384, 4096 tokens a card, the batch placed by
 data_sharding(mesh, True)) against the f32 witness on one card at the
 whole T (loss, gathered logits, the sp-psum'd gradients), the bf16 flash
@@ -606,28 +636,34 @@ def check_flash_bwd(rng, record, device="cuda"):
 
 
 def time_flash_train(rng, record):
-    """B1, B2, B3 at the training shape: B=4, T=2048, H=32, Kh=8, D=64,
-    bf16, causal. First each is held against its plain version on these
-    inputs (B1 as in `check_fwd`, B2 and B3 as in `check_bwd`), and dQ, dK
-    and dV computed twice must be bit-equal. Bounds count each
+    """B1, B2, B3 at the training shape (`time_flash_shape`): B=4, T=2048,
+    H=32, Kh=8, D=64, bf16, causal, with the f32 routes."""
+    return time_flash_shape(rng, record, 4, 2048, 32, 8, 64, f32_route=True)
+
+
+def time_flash_shape(rng, record, b, t, h, kh, d, f32_route=False):
+    """B1, B2, B3 at one bf16 causal shape. First each is held against its
+    plain version on these inputs (B1 as in `check_fwd`, B2 and B3 as in
+    `check_bwd`), and dQ, dK and dV computed twice must be bit-equal.
+    Bounds count each
     input read once and each output written once, and the matrix products'
     flops inside the causal area (exp and elementwise work not counted).
     The plain backward computes dQ, dK and dV together; so does the
     library yardstick, the aten flash-attention backward on kv heads
-    expanded to 32 (its dK/dV are per query head: the sum over the group of
-    4 is not in its time). The f32 routes (scalar FMAs, off both main
-    paths) are timed on the same inputs widened to f32."""
+    expanded to H (its dK/dV are per query head: the sum over the group
+    is not in its time). With `f32_route`, the f32 routes (scalar FMAs, off
+    both main paths) are timed on the same inputs widened to f32."""
     import torch
     import torch.nn.functional as F
     from ray_tpu_torch.ops import flash_attention as fa
-    b, t, h, kh, d = 4, 2048, 32, 8, 64
     scale = 1.0 / d ** 0.5
+    shape = f"B={b} T={t} H={h} Kh={kh} D={d} bf16 causal"
     q, k, v = flash_inputs(rng, b, t, h, kh, d, torch.bfloat16)
     do = flash_inputs(rng, b, t, h, 1, d, torch.bfloat16)[0]
     out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
-    fwd_r = check_fwd("train shape", q, k, v, True, out, lse)
-    record.append(dict(kernel="flash_fwd", dtype="bfloat16", causal=True, group=4, B=b,
-                       T=t, head_dim=d, ok=True, **fwd_r))
+    fwd_r = check_fwd(shape, q, k, v, True, out, lse)
+    record.append(dict(kernel="flash_fwd", dtype="bfloat16", causal=True, group=h // kh, B=b,
+                       T=t, heads=h, head_dim=d, ok=True, **fwd_r))
     got = fa.flash_attention_bwd(q, k, v, out, lse, do, True)
     again = fa.flash_attention_bwd(q, k, v, out, lse, do, True)
     bit_equal = [torch.equal(a, b_) for a, b_ in zip(got, again)]
@@ -637,12 +673,12 @@ def time_flash_train(rng, record):
     bit_equal = all(bit_equal)
     del again
     want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, True)
-    bwd = check_bwd("train shape", "bfloat16", got, want,
+    bwd = check_bwd(shape, "bfloat16", got, want,
                     bwd_control(q, k, v, out, lse, do, True))
-    record.append(dict(kernel="flash_bwd", dtype="bfloat16", causal=True, group=4, B=b,
-                       T=t, head_dim=d, ok=True, bit_equal_rerun=bit_equal, **bwd))
+    record.append(dict(kernel="flash_bwd", dtype="bfloat16", causal=True, group=h // kh, B=b,
+                       T=t, heads=h, head_dim=d, ok=True, bit_equal_rerun=bit_equal, **bwd))
     fmt = lambda xs: [f"{x:.3e}" for x in xs]
-    log(f"[kernels] train shape vs plain: flash_fwd max-abs {fwd_r['max_abs_err']:.3e}, "
+    log(f"[kernels] {shape} vs plain: flash_fwd max-abs {fwd_r['max_abs_err']:.3e}, "
         f"mean {fwd_r['mean_rel_err']:.3e} (control mean {fwd_r['control_mean_rel_err']:.3e}, "
         f"lse {fwd_r['lse_max_abs_err']:.3e}); dq/dk/dv max {fmt(bwd['rel_err'])}, mean "
         f"{fmt(bwd['mean_rel_err'])} (control max {fmt(bwd['control_rel_err'])}, mean "
@@ -679,20 +715,22 @@ def time_flash_train(rng, record):
             ("flash_bwd_dkv", dkv, 2 * (2 * n_q + 4 * n_kv) + 2 * stats, 8 * d * pairs,
              plain_bwd, sdpa_bwd, max(bwd["max_abs_err"][1:]))):
         bound_ms, bound_by = bound(nbytes, flops, "bfloat16")
-        rows[name] = dict(shape="B=4 T=2048 H=32 Kh=8 D=64 bf16 causal",
+        rows[name] = dict(shape=shape,
                           ms=time_ms(fn, iters=20), eager_ms=time_eager_ms(fn, iters=20),
                           plain_ms=plain, library_ms=lib, bound_ms=bound_ms,
                           bound_by=bound_by, max_abs_err=max_abs)
         r = rows[name]
-        log(f"[kernels] {name} train shape: {r['ms']:.4f} ms (eager call "
+        log(f"[kernels] {name} {shape}: {r['ms']:.4f} ms (eager call "
             f"{r['eager_ms']:.4f}), plain {plain:.4f} ms, library {lib:.4f} ms, bound "
             f"{bound_ms:.5f} ms ({bound_by})")
+    if not f32_route:
+        return rows
     # the f32 routes, off both main paths
     q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
     out32, lse32 = fa.flash_attention_fwd(q32, k32, v32, causal=True)
     delta32 = fa.bwd_delta(out32, do32)
     rows["f32_route"] = dict(
-        shape="B=4 T=2048 H=32 Kh=8 D=64 f32 causal",
+        shape=shape.replace("bf16", "f32"),
         flash_fwd_ms=time_ms(lambda: fa.flash_attention_fwd(q32, k32, v32, causal=True),
                              iters=5),
         flash_bwd_dq_ms=time_ms(lambda: fa.launch_bwd_dq(q32, k32, v32, do32, lse32,
@@ -1801,6 +1839,8 @@ def profile_call(fn, device="cuda", ranges=()):
             spans[e.key]["calls"] += e.count
             spans[e.key]["device_ms"] += e.device_time_total / 1e3
     return dict(wall_s=wall, device_kernel_s=device_us / 1e6,
+                nccl_device_s=sum(e.self_device_time_total for e in kernels
+                                  if "nccl" in e.key.lower()) / 1e6,
                 busy_share=(device_us / 1e6 / wall) if device_us else "not measured",
                 launches=sum(e.count for e in kernels), top=[row(e) for e in top],
                 flash=[row(e) for e in kernels if "flash_" in e.key], ranges=spans)
@@ -2659,6 +2699,77 @@ def run_mesh(device="cuda", preset="llama_1b"):
     """The `mesh` phase: world 1 on the one card."""
     out = check_mesh_world1(device, preset)
     out["launches"] = out["serve_tp_world1"]["launches"]
+    return out
+
+
+FLASH_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# the 8B's attention shapes a card: fsdp (one row a card) and tp=2's heads
+LLAMA_8B_SHAPES = ((1, 2048, 32, 8, 128), (1, 2048, 16, 4, 128))
+
+
+def run_train_mesh(device="cuda", preset="llama_1b", batch=4, seq=2048, steps=3):
+    """Path `train_mesh`: the mesh training step at world 1. build_llama_trainer
+    on a {"dp": 1, "fsdp": 1, "tp": 1} mesh over NCCL (gloo on the CPU), its
+    batch through iter_device_batches(sharding=data_sharding(mesh)), `steps`
+    steps from the seeded weights, against the plain step's (no mesh) on
+    the same weights and batches: losses and every param torch.equal, and
+    B1, B2 and B3 launched as often. Then B1, B2 and B3 at the 8B's shapes
+    (LLAMA_8B_SHAPES) against their plain versions, timed. Takes the world
+    down."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from ray_tpu_torch.parallel.mesh import make_mesh
+    from ray_tpu_torch.parallel.sharding import data_sharding
+    from ray_tpu_torch.train import iter_device_batches
+    from ray_tpu_torch.train.llm_step import build_llama_trainer
+
+    def run(mesh=None):
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        model, _, step, batches, dev = build_llama_trainer(preset, batch, seq, device=device,
+                                                           mesh=mesh)
+        feed = (iter_device_batches(batches[:steps], sharding=data_sharding(mesh)) if mesh
+                else (torch.from_numpy(b).to(dev) for b in batches[:steps]))
+        reset_flash_counts()
+        losses = [step(t) for t in feed]
+        launches = dict(zip(FLASH_NAMES, flash_counts()))
+        return losses, snapshot(model), launches
+
+    if dist.is_initialized():
+        raise AssertionError("a process group is already up before the train_mesh phase")
+    plain_losses, plain_params, plain_launches = run()
+    mesh = make_mesh({"dp": 1, "fsdp": 1, "tp": 1}, device=device)
+    backend = dist.get_backend()
+    losses, params, launches = run(mesh)
+    dist.destroy_process_group()
+    equal = lambda xs, ys: len(xs) == len(ys) and all(torch.equal(x, y) for x, y in zip(xs, ys))
+    layers = 16 if preset == "llama_1b" else None
+    checks = {
+        f"losses torch.equal the plain step's over {steps} steps": equal(losses, plain_losses),
+        "every param torch.equal the plain step's": equal_trees(params, plain_params),
+        f"B1, B2, B3 launched as in the plain step ({plain_launches})":
+            launches == plain_launches,
+        f"backend {backend}": backend == ("nccl" if device == "cuda" else "gloo"),
+    }
+    if device == "cuda" and layers:
+        checks[f"B1, B2, B3 each launched {layers} x {steps}"] = all(
+            c == layers * steps for c in launches.values())
+    for what, ok in checks.items():
+        log(f"[train_mesh] {'ok  ' if ok else 'FAIL'} {what}")
+    log(f"[train_mesh] {preset} B={batch} T={seq} on {{'dp': 1, 'fsdp': 1, 'tp': 1}} over "
+        f"{backend}: losses {[round(x.item(), 5) for x in losses]}, launches {launches}")
+    if not all(checks.values()):
+        raise AssertionError(f"train_mesh checks failed: {checks}")
+    del params, plain_params
+    out = dict(backend=backend, losses=[x.item() for x in losses], launches=launches,
+               plain_launches=plain_launches, checks=checks)
+    if device == "cuda":
+        rng = np.random.default_rng(128)
+        out["kernels_8b_shapes"] = {
+            f"B={b} T={t} H={h} Kh={kh} D={d}": time_flash_shape(rng, out.setdefault(
+                "cases", []), b, t, h, kh, d) for b, t, h, kh, d in LLAMA_8B_SHAPES}
     return out
 
 
@@ -4166,7 +4277,7 @@ def run_rl(device="cuda"):
 
 # ------------------------------------------------------------------ cards
 CARDS_OUT = "chip_smoke_cards4.json"
-CARDS_PHASES = ("rl_dp", "seqpipe", "tp")
+CARDS_PHASES = ("rl_dp", "seqpipe", "tp", "fsdp")
 RING_SEQ_CARDS = 16384          # ring at sp=4: 4096 tokens a card
 
 
@@ -4304,6 +4415,373 @@ def seqpipe_cards(world, dev, presets):
                 bf16=check_pipeline_apply(pp_mesh, dev, "bfloat16", 8, t_pipe, grad=False,
                                           timed=True, preset=llama, overrides=ov, tag="cards"))
     return dict(ring_sp=ring, pipeline_apply_pp=pipe)
+
+
+# ------------------------------------------------------------------ fsdp
+# Training over meshes of four cards (`--cards 4`, group `fsdp`): the 8B at
+# full width over fsdp=4 and fsdp=2 x tp=2, f32 llama_1b and Mixtral-width
+# layouts against one card, and a sharded checkpoint.
+FSDP_PRESET = "llama_8b"
+FSDP_MESHES = ({"fsdp": 4}, {"fsdp": 2, "tp": 2})
+FSDP_WARM, FSDP_TIMED = 2, 5
+# Step 1's loss of the 8B on the two meshes, relative. The meshes' sound
+# gap is rounding (fsdp=2 x tp=2's psums of bf16 partial sums); on an
+# NVIDIA H100 80GB HBM3 (700 W) it read 5.58e-5, and the planted faults
+# (FSDP_CONTROLS) read 7.22e-4 (a rank's gather out of order) and 9.27e-5
+# (the gradient mean skipped) at step 2. The limit sits between the sound
+# gap and the weaker fault; every reading is deterministic (the kernels,
+# cuBLAS and NCCL give the same bits on the same inputs), and the skipped
+# mean is also read by the replicated params, which it makes differ across
+# ranks (1e-3) where every sound run keeps them equal.
+FSDP_LOSS_TOL = 7.5e-5
+FSDP_CONTROLS = ("gather_order", "no_grad_mean")
+LAYOUT_LOSS_TOL = 1e-5   # f32 layouts against one card, relative
+LAYOUT_MESHES = ({"fsdp": 4}, {"dp": 2, "fsdp": 2}, {"fsdp": 2, "tp": 2})
+MOE_LAYOUT_MESHES = ({"ep": 4}, {"ep": 2, "tp": 2})
+
+
+@contextlib.contextmanager
+def fsdp_control(name, rank):
+    """A planted fault for the 8B's loss limit: "gather_order", rank 1
+    gathers its fsdp blocks with the first two swapped (every weight, each
+    step); "no_grad_mean", no rank means its gradients over the batch axes
+    (no all-reduce of the replicated params, no division)."""
+    import torch
+    from ray_tpu_torch.models.llama import ShardPlace
+    from ray_tpu_torch.train.llm_step import GradMean
+    cls, attr = (ShardPlace, "gather_fsdp") if name == "gather_order" else (GradMean, "__call__")
+    real = getattr(cls, attr)
+
+    def wrong_order(self, w, dim):
+        w = real(self, w, dim)
+        if self.fsdp == 1:
+            return w
+        blocks = list(w.chunk(self.fsdp, dim))
+        blocks[0], blocks[1] = blocks[1], blocks[0]
+        return torch.cat(blocks, dim)
+
+    if name == "gather_order" and rank == 1:
+        setattr(cls, attr, wrong_order)
+    elif name == "no_grad_mean":
+        setattr(cls, attr, lambda self: None)
+    try:
+        yield
+    finally:
+        setattr(cls, attr, real)
+
+
+def _fsdp_run(rank, world, device, axes, preset, seq, warm, timed, control=None,
+              profile=False):
+    """Path `train_fsdp` on one mesh: build_llama_trainer(preset, world rows
+    of `seq`, remat on, mesh=...) from seed 0, fed by
+    iter_device_batches(sharding=data_sharding(mesh)); `warm` untimed and
+    `timed` timed steps, the launch counts reset just before and read
+    just after, then (`profile`) one more step under torch.profiler on
+    rank 0. Returns this rank's readings."""
+    import torch
+    from ray_tpu_torch.models.llama import llama_compute_flops, llama_param_count
+    from ray_tpu_torch.parallel.mesh import make_mesh
+    from ray_tpu_torch.parallel.sharding import data_sharding
+    from ray_tpu_torch.train import iter_device_batches
+    from ray_tpu_torch.train.llm_step import build_llama_trainer
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    mesh = make_mesh(axes, device=device)
+    _reset_peak(device)
+    with fsdp_control(control, rank) if control else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        model, opt, step, batches, _ = build_llama_trainer(preset, world, seq, remat=True,
+                                                         device=device, mesh=mesh)
+        sync()
+        build_s = time.perf_counter() - t0
+        n = warm + timed + (1 if profile else 0)
+        feed = iter_device_batches([batches[i % len(batches)] for i in range(n)], prefetch=2,
+                                   sharding=data_sharding(mesh))
+        reset_flash_counts()
+        losses = [step(next(feed)) for _ in range(warm)]
+        sync()
+        t0 = time.perf_counter()
+        losses += [step(next(feed)) for _ in range(timed)]
+        sync()
+        dt = time.perf_counter() - t0
+        launches = dict(zip(FLASH_NAMES, flash_counts()))
+        prof = None
+        if profile:
+            if rank == 0 and cuda:
+                prof = profile_call(lambda: step(next(feed)))
+            else:
+                step(next(feed))
+                sync()
+    # the replicated params (norm scales) after the steps, on every rank
+    replicated = {k: v.detach().float().cpu() for k, v in model.state_dict().items()
+                  if k.endswith("scale")}
+    replicas = [None] * world
+    torch.distributed.all_gather_object(replicas, replicated)
+    cfg = model.cfg
+    out = dict(axes=axes, losses=[x.item() for x in losses], launches=launches,
+               build_s=build_s, ms_per_step=dt / timed * 1e3 if timed else None,
+               tokens_per_s=world * seq * timed / dt if timed else None,
+               tflops_per_card=(llama_compute_flops(cfg, world, seq) / (dt / timed) / world
+                                / 1e12 if timed else None),
+               params=llama_param_count(cfg), layers=cfg.n_layers, profile=prof,
+               replicated=replicated,
+               replicas_equal=all(equal_trees(r, replicated) for r in replicas))
+    del model, opt, step, feed
+    seen = _per_card(device)
+    out["peak_bytes_per_card"] = [p for p, _ in seen]
+    _reset_peak(device)
+    _world_barrier(device)
+    return out
+
+
+def _rel(a, b):
+    return abs(a - b) / abs(b)
+
+
+def train_fsdp_cards(rank, world, device, presets):
+    """(a) The 8B over FSDP_MESHES and the planted faults (module note on
+    FSDP_LOSS_TOL); rank 0 returns the readings, and raises where a check
+    fails."""
+    preset = presets.get("fsdp", FSDP_PRESET)
+    seq = presets.get("fsdp_seq", 2048)
+    runs = {}
+    for axes in FSDP_MESHES:
+        runs[str(axes)] = _fsdp_run(rank, world, device, axes, preset, seq, FSDP_WARM,
+                                    FSDP_TIMED, profile=True)
+    for control in FSDP_CONTROLS:
+        runs[control] = _fsdp_run(rank, world, device, FSDP_MESHES[0], preset, seq, 2, 0,
+                                  control=control)
+    if rank != 0:
+        return None
+    a, b = (runs[str(axes)] for axes in FSDP_MESHES)
+    layers = a["layers"]
+    n_steps = FSDP_WARM + FSDP_TIMED
+    want = {"flash_fwd": 2 * layers * n_steps, "flash_bwd_dq": layers * n_steps,
+            "flash_bwd_dkv": layers * n_steps}
+    readings = {"meshes_step1": _rel(b["losses"][0], a["losses"][0])}
+    for c in FSDP_CONTROLS:
+        got = runs[c]
+        readings[c] = dict(step1=_rel(got["losses"][0], a["losses"][0]),
+                           step2=_rel(got["losses"][1], a["losses"][1]),
+                           replicated_max_abs_diff=max(
+                               float((got["replicated"][k] - a["replicated"][k]).abs().max())
+                               for k in a["replicated"]))
+    peak = 989e12 if device == "cuda" else None
+    checks = {
+        "every loss finite": all(np.isfinite(r["losses"]).all() for r in runs.values()),
+        f"step 1's loss on {FSDP_MESHES[1]} within {FSDP_LOSS_TOL:g} of {FSDP_MESHES[0]}'s "
+        f"({readings['meshes_step1']:.3e})": readings["meshes_step1"] <= FSDP_LOSS_TOL,
+    }
+    for r in (a, b):
+        checks[f"{r['axes']}: the replicated params equal on every rank"] = r["replicas_equal"]
+    # each control must miss the loss limit at step 2; its replicas'
+    # agreement is logged beside it (AdamW's step is blind to a uniform
+    # gradient scale, so a skipped mean shows first in the replicated
+    # params). A CPU rehearsal at the tiny size reads the skipped mean by
+    # its replicas: there it moves the loss less than the meshes' rounding.
+    for c in FSDP_CONTROLS:
+        readings[c]["replicas_equal"] = runs[c]["replicas_equal"]
+        rejected = readings[c]["step2"] > FSDP_LOSS_TOL
+        if device == "cpu":
+            rejected = rejected or not runs[c]["replicas_equal"]
+        checks[f"control {c} rejected at step 2: loss gap {readings[c]['step2']:.3e} > "
+               f"{FSDP_LOSS_TOL:g} (replicas equal across ranks "
+               f"{runs[c]['replicas_equal']})"] = rejected
+    if device == "cuda":
+        for r in (a, b):
+            checks[f"{r['axes']}: B1, B2, B3 launched {want} on rank 0"] = r["launches"] == want
+    for what, ok in checks.items():
+        log(f"[fsdp] {'ok  ' if ok else 'FAIL'} {what}")
+    for r in (a, b):
+        prof = r["profile"]
+        nccl = (prof["nccl_device_s"] / prof["device_kernel_s"]
+                if prof and prof["device_kernel_s"] else None)
+        r["nccl_share"] = nccl
+        mfu = r["tflops_per_card"] * 1e12 / peak if peak else None
+        r["mfu"] = mfu
+        log(f"[fsdp] {preset} ({r['params']:,} params, {layers} layers) on {r['axes']}, "
+            f"{world} x {seq} tokens a step, f32 master weights, bf16 activations, remat: "
+            f"{r['ms_per_step']} ms a step, {r['tokens_per_s']} tokens/s, "
+            f"{r['tflops_per_card']} model TFLOP/s a card (share of 989: {mfu}), peak "
+            f"{[round(p / 2**30, 2) if p else None for p in r['peak_bytes_per_card']]} GiB a "
+            f"card, NCCL share of a profiled step {nccl}, built in {r['build_s']:.1f} s, "
+            f"losses {[round(x, 5) for x in r['losses']]}")
+        if prof:
+            log_profile("fsdp", f"one step on {r['axes']}", prof)
+    log(f"[fsdp] readings (relative loss gaps): {readings}")
+    res = dict(runs={k: {kk: vv for kk, vv in v.items() if kk != "replicated"}
+                     for k, v in runs.items()},
+               readings=readings, tol=FSDP_LOSS_TOL, checks=checks, want_launches=want)
+    if not all(checks.values()):
+        raise AssertionError(f"train_fsdp checks failed: {checks}")
+    return res
+
+
+def _layout_runs(rank, world, device, preset, batch, seq, meshes, overrides, tag, steps=2):
+    """f32 `steps` steps of `preset` on each mesh against the whole model's on
+    card 0, from the same seeded weights and batches: losses within
+    LAYOUT_LOSS_TOL relative, the gathered params (gather_state_dict) with
+    at most RL_FAR_SHARE of their coordinates lr / 100 apart and none more
+    than 2 lr a step. Rank 0 returns the readings."""
+    import gc
+    import torch
+    from ray_tpu_torch.models.convert import gather_state_dict
+    from ray_tpu_torch.parallel.mesh import make_mesh
+    from ray_tpu_torch.parallel.sharding import data_sharding
+    from ray_tpu_torch.train import iter_device_batches
+    from ray_tpu_torch.train.llm_step import build_llama_trainer
+    lr = 1e-4
+    build = lambda mesh=None: build_llama_trainer(preset, batch, seq, device=device,
+                                                  dtype=torch.float32, mesh=mesh,
+                                                  overrides=overrides)
+    host = lambda model: {k: v.detach().to("cpu", copy=True)
+                          for k, v in model.state_dict().items()}
+    ref = None
+    if rank == 0:       # the whole model on card 0; its params kept on the host
+        model, opt, step, batches, dev = build()
+        before = host(model)
+        losses = [step(torch.from_numpy(b).to(dev)) for b in batches[:steps]]
+        ref = dict(losses=[x.item() for x in losses], params=host(model), before=before)
+        del model, opt, step, before
+    _reset_peak(device)
+    _world_barrier(device)
+    out = {}
+    for axes in meshes:
+        mesh = make_mesh(axes, device=device)
+        model, opt, step, batches, _ = build(mesh)
+        losses = [step(t).item() for t in iter_device_batches(
+            batches[:steps], sharding=data_sharding(mesh))]
+        whole = gather_state_dict(model.state_dict(), mesh)
+        whole = {k: v.cpu() for k, v in whole.items()} if rank == 0 else None
+        del model, opt, step
+        diffs = moved = None
+        if rank == 0:
+            diffs = torch.cat([(whole[k].float() - ref["params"][k].float()).abs().flatten()
+                               for k in ref["params"]])
+            moved = torch.cat([(ref["params"][k].float() - ref["before"][k].float()).abs()
+                               .flatten() for k in ref["params"]])
+            out[str(axes)] = dict(
+                losses=losses, ref_losses=ref["losses"],
+                loss_rel=max(_rel(x, y) for x, y in zip(losses, ref["losses"])),
+                param_max_abs=float(diffs.max()),
+                far_share=float((diffs > lr / 100).float().mean()),
+                moved_share=float((moved > lr / 100).float().mean()))
+            r = out[str(axes)]
+            log(f"[fsdp] {tag} f32 on {axes} against one card: losses {losses} vs "
+                f"{ref['losses']} (rel {r['loss_rel']:.3e}, limit {LAYOUT_LOSS_TOL:g}), params "
+                f"max |diff| {r['param_max_abs']:.3e} (bound {2 * lr * steps:.1e}), share "
+                f"lr/100 apart {r['far_share']:.2e} (limit {RL_FAR_SHARE:g}; the steps moved "
+                f"{r['moved_share']:.3f})")
+        del whole, diffs, moved
+        gc.collect()
+        _reset_peak(device)
+        _world_barrier(device)
+    del ref
+    if rank != 0:
+        return None
+    bad = {k: v for k, v in out.items() if not (
+        v["loss_rel"] <= LAYOUT_LOSS_TOL and v["param_max_abs"] <= 2 * lr * steps
+        and v["far_share"] <= RL_FAR_SHARE and v["moved_share"] > 0.5)}
+    if bad:
+        raise AssertionError(f"{tag} layouts disagree with one card: {bad}")
+    return out
+
+
+def checkpoint_fsdp_cards(rank, world, device, preset, seq, steps=6, save_at=3):
+    """(c) The sharded checkpoint: `preset` (bf16 params) on {"fsdp": world},
+    `world` rows of `seq`, saved after step `save_at` of `steps` (each rank
+    writing its own blocks of the params and AdamW's moments, in a
+    temporary directory removed at the end), restored into a fresh model
+    and AdamW on the same mesh, steps save_at+1..steps: losses and every
+    rank's blocks torch.equal to the uninterrupted run. Rank 0 returns the
+    bytes a rank and the seconds to save and to restore."""
+    import os
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from ray_tpu_torch.parallel.mesh import make_mesh
+    from ray_tpu_torch.parallel.sharding import data_sharding
+    from ray_tpu_torch.train import Checkpoint, iter_device_batches
+    from ray_tpu_torch.train.llm_step import build_llama_trainer, train_state
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    mesh = make_mesh({"fsdp": world}, device=device)
+    where = [tempfile.mkdtemp(prefix="chip_smoke_shards_") if rank == 0 else None]
+    dist.broadcast_object_list(where, src=0)
+    path = os.path.join(where[0], "ck")
+    build = lambda seed: build_llama_trainer(preset, world, seq, device=device, seed=seed,
+                                             mesh=mesh)
+    feed = lambda bs: iter_device_batches(bs, sharding=data_sharding(mesh))
+    try:
+        model, opt, step, batches, _ = build(0)
+        losses = [step(t) for t in feed(batches[:save_at])]
+        state, specs = train_state(model, opt, step=save_at)
+        sync()
+        t0 = time.perf_counter()
+        Checkpoint.from_state(state, path=path, mesh=mesh, specs=specs)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(os.path.join(path, "shards", f"rank-{rank:05d}.pt"))
+        losses += [step(t) for t in feed(batches[save_at:steps])]
+        final = snapshot(model)
+        del model, opt, step, state
+        _reset_peak(device)
+        model, opt, step, _, _ = build(1)
+        sync()
+        t0 = time.perf_counter()
+        got = Checkpoint.from_directory(path).to_state(target=train_state(model, opt)[0],
+                                                       mesh=mesh)
+        model.load_state_dict(got["model"])
+        opt.load_state_dict(got["optim"])
+        sync()
+        restore_s = time.perf_counter() - t0
+        del got
+        resumed = [step(t) for t in feed(batches[save_at:steps])]
+        equal = dict(losses=all(torch.equal(x, y) for x, y in zip(resumed, losses[save_at:])),
+                     blocks=equal_trees(snapshot(model), final))
+        del model, opt, step, final
+    finally:
+        _world_barrier(device)
+        if rank == 0:
+            shutil.rmtree(where[0], ignore_errors=True)
+    seen = [None] * world
+    dist.all_gather_object(seen, dict(equal=equal, bytes=nbytes, save_s=save_s,
+                                      restore_s=restore_s))
+    _reset_peak(device)
+    if rank != 0:
+        return None
+    out = dict(ranks=seen, losses=[x.item() for x in losses], removed=not os.path.exists(where[0]))
+    ok = all(r["equal"]["losses"] and r["equal"]["blocks"] for r in seen) and out["removed"]
+    log(f"[fsdp] sharded checkpoint, {preset} bf16 on {{'fsdp': {world}}}, saved after step "
+        f"{save_at} of {steps}, restored into a fresh model and AdamW: losses and every "
+        f"rank's blocks torch.equal the uninterrupted run "
+        f"{[r['equal'] for r in seen]}; bytes a rank {[r['bytes'] for r in seen]}, save s "
+        f"{[round(r['save_s'], 3) for r in seen]}, restore s "
+        f"{[round(r['restore_s'], 3) for r in seen]}; directory removed {out['removed']}")
+    if not ok:
+        raise AssertionError(f"sharded checkpoint: {out}")
+    return out
+
+
+def fsdp_cards(rank, world, device, presets):
+    """The `fsdp` group: (a) train_fsdp_cards, (b) the f32 layouts of
+    llama_1b and a 2-layer Mixtral-width MoE against one card, (c)
+    checkpoint_fsdp_cards."""
+    t0 = time.perf_counter()
+    res = dict(train_fsdp=train_fsdp_cards(rank, world, device, presets))
+    t1 = time.perf_counter()
+    layout_seq = presets.get("layout_seq", 512)
+    res["layouts"] = _layout_runs(rank, world, device, presets["llama"], 4, layout_seq,
+                                  LAYOUT_MESHES, presets.get("llama_overrides"), "llama")
+    moe_ov = dict(presets.get("moe_overrides", {}), n_layers=2)
+    res["moe_layouts"] = _layout_runs(rank, world, device, presets["moe"], 4, layout_seq,
+                                      MOE_LAYOUT_MESHES, moe_ov, "moe")
+    t2 = time.perf_counter()
+    res["checkpoint"] = checkpoint_fsdp_cards(rank, world, device, presets["llama"],
+                                              presets.get("fsdp_seq", 2048))
+    res["seconds"] = dict(train_fsdp=t1 - t0, layouts=t2 - t1,
+                          checkpoint=time.perf_counter() - t2)
+    if rank == 0:
+        log(f"[fsdp] group took {res['seconds']}")
+    return res if rank == 0 else {}
 
 
 DP_TIMED = 10            # timed dp updates an N (their median is reported)
@@ -4487,6 +4965,9 @@ def cards_phases(rank, world, device, presets, max_tokens, phases=CARDS_PHASES, 
 
     if "seqpipe" in phases:
         res.update(seqpipe_cards(world, dev, presets))
+        save()
+    if "fsdp" in phases:
+        res["fsdp"] = fsdp_cards(rank, world, device, presets)
         save()
     if "tp" not in phases:
         return res if lead else {}
@@ -4746,7 +5227,7 @@ def main_cards(n, device="cuda", presets=None, max_tokens=32, phases=CARDS_PHASE
         OUT_DIR.mkdir(exist_ok=True)
         (OUT_DIR / CARDS_OUT).write_text(json.dumps(prior, indent=1, default=str))
     res = dict(prior, world=n)
-    if {"seqpipe", "tp"} & set(phases):
+    if {"seqpipe", "tp", "fsdp"} & set(phases):
         if device == "cuda":
             from ray_tpu_torch.ops import _build
             _build.build()         # once, before the ranks load it (rl_dp launches none)
@@ -4870,6 +5351,7 @@ def main() -> int:
     topology, nccl = check_topology(), check_nccl_world()
     trainer = dict(run_trainer(), topology=topology, nccl=nccl)
     mesh = run_mesh()
+    train_mesh = run_train_mesh()
     seqpipe = run_seqpipe()
     rl = run_rl()
 
@@ -4880,7 +5362,8 @@ def main() -> int:
     paths = {"serve": summary["launches"], "serve_moe": moe["launches"],
              "serve_pd": pd["launches"], "serve_tiered": tiered["launches"],
              "train": train["launches"], "train_resume": trainer["launches"],
-             "serve_tp": mesh["launches"], "ring": seqpipe["launches"]["ring"],
+             "serve_tp": mesh["launches"], "train_mesh": train_mesh["launches"],
+             "ring": seqpipe["launches"]["ring"],
              "pipeline": seqpipe["launches"]["pipeline"], **rl["launches"]}
     serve_paths = ("serve", "serve_moe", "serve_pd", "serve_tiered", "serve_tp", "ring",
                    "pipeline") + RL_PATHS
@@ -4888,9 +5371,11 @@ def main() -> int:
     def flash_row(name, source, replaces, err):
         t = train_t[name]
         by_path = {k: v[name] for k, v in paths.items()}
+        at_8b = [rows[name]["max_abs_err"] for rows in train_mesh["kernels_8b_shapes"].values()]
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=sum(by_path.values()), launches_by_path=by_path,
-                    max_abs_err=max(err, t["max_abs_err"]), ms=t["ms"], plain_ms=t["plain_ms"],
+                    max_abs_err=max(err, t["max_abs_err"], *at_8b), ms=t["ms"],
+                    plain_ms=t["plain_ms"],
                     bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                     library_ms=t["library_ms"])
 
@@ -4917,7 +5402,8 @@ def main() -> int:
         flash_timing=list(flash_t.values()), train_kernel_timing=train_t,
         paged_timing=paged_t, paged_timing_long=paged_long, paged_plans=paged_plans,
         slice=summary, moe=moe, replica=replica, pd=pd, tiered=tiered, train=train,
-        trainer=trainer, mesh=mesh, seqpipe=seqpipe, rl=rl, kernels=kernels),
+        trainer=trainer, mesh=mesh, train_mesh=train_mesh, seqpipe=seqpipe, rl=rl,
+        kernels=kernels),
         indent=1, default=str))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)

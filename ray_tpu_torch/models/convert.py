@@ -44,7 +44,10 @@ state_dict (the shard-local model's state_dict), and
 `init_params_sharded` draws `init_params`'s values one whole parameter at
 a time and keeps this rank's block, so a shard-local model is bitwise
 the blocks of the unsharded seeded model, and no rank ever holds more
-than one whole parameter.
+than one whole parameter. The way back, for checks: `gather_state_dict`
+gathers every rank's blocks into the whole state_dict (a collective call
+over the mesh), and `state_dict_to_flax` turns a Llama state_dict into
+the flax param tree `flax_to_state_dict` reads.
 """
 
 from typing import Dict, Iterable, Mapping, Tuple
@@ -54,6 +57,7 @@ import torch
 from torch import nn
 
 from ray_tpu_torch.parallel import sharding as _sharding
+from ray_tpu_torch.parallel import xla_ops
 
 
 def _flatten(tree: Mapping, prefix: str = ""):
@@ -251,3 +255,41 @@ def init_params_sharded(model: nn.Module, full_shapes: Iterable[Tuple[str, torch
         p.copy_(_sharding.local_slice(whole, spec, mesh))
         del whole
     return model
+
+
+@torch.no_grad()
+def gather_state_dict(sd: Mapping[str, torch.Tensor], mesh,
+                      rules=None) -> Dict[str, torch.Tensor]:
+    """The whole state_dict from this rank's blocks `sd` (a shard-local
+    model's state_dict) under `rules` (`llama_rules()` by default) on
+    `mesh`: the inverse of `shard_state_dict`. Every rank of the mesh calls
+    it, with the same keys in the same order, and gets every whole tensor."""
+    rules = rules or _sharding.llama_rules()
+    out = {}
+    for key, t in sd.items():
+        spec = _sharding._filter_axes(rules.spec_for(key.replace(".", "/"), t), mesh)
+        for dim, entry in enumerate(tuple(spec)[: t.ndim]):
+            # local_slice numbers a dimension's blocks row-major over its
+            # axes, so the last axis is gathered first
+            for axis in reversed(_sharding._entry_axes(entry)):
+                t = xla_ops.all_gather(t, axis, mesh, gather_axis=dim)
+        out[key] = t
+    return out
+
+
+def state_dict_to_flax(sd: Mapping[str, torch.Tensor]) -> Dict:
+    """A Llama state_dict -> {"params": flax tree} of numpy arrays, the
+    inverse of `flax_to_state_dict`: `.weight` keys become transposed
+    `kernel`s, others keep their layout. bf16 becomes float32 (exact)."""
+    tree: Dict = {}
+    for key, t in sd.items():
+        t = t.detach().cpu()
+        t = t.float() if t.dtype == torch.bfloat16 else t
+        parts = key.split(".")
+        if parts[-1] == "weight":
+            parts[-1], t = "kernel", t.t()
+        node = tree
+        for name in parts[:-1]:
+            node = node.setdefault(name, {})
+        node[parts[-1]] = t.contiguous().numpy()
+    return {"params": tree}

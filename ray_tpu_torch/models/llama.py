@@ -33,22 +33,36 @@ and the caches attend locally, as in JAX. Positions default to
 passes the global positions of its block (`rank * t + arange(t)`), or
 RoPE turns at the wrong offsets. Parameter gradients are this rank's
 part; their sum over the axis (`xla_ops.psum`) is the whole sequence's.
-`sp` > 1 with tp or ep > 1 raises: JAX's ring model runs with replicated
-parameters and has no tensor-parallel form.
+`sp` > 1 with fsdp, tp or ep > 1 raises: JAX's ring model runs with
+replicated parameters and has no tensor-parallel form.
 
-Shard-local modules: given a mesh (`Llama(cfg, mesh=...)`, axes tp and
-ep), each rank holds its blocks of the parameters under
-`parallel.sharding.llama_rules` as plain tensors and calls
-`parallel.xla_ops` where GSPMD would put the collectives: wq, wk, wv,
-w_gate and w_up are split on their output dimension (no collective); wo
-and w_down on their input dimension, then a psum over tp; the embedding
-over d, then an all_gather of the last dimension (a tied head is a psum
-of partial products); lm_head over the vocabulary, then an all_gather of
-the logits, so every rank holds the same full row. Each rank holds H/tp
-query heads and Kh/tp KV heads in contiguous blocks, so the GQA group of
-a local head is local; head counts come from the local weights. The MoE
-bank's combine is followed by a psum over ep and tp (`models/moe.py`).
-No hand kernel sees a DTensor.
+Shard-local modules: given a mesh (`Llama(cfg, mesh=...)`, axes dp,
+fsdp, tp, ep and `cfg.sp_axis`), each rank holds its blocks of the
+parameters under `parallel.sharding.llama_rules` as plain tensors, on the
+tp, ep and fsdp axes alike, and calls `parallel.xla_ops` where GSPMD
+would put the collectives:
+- fsdp: every Dense, the embedding, the head and the MoE banks cast their
+  local block to the activation dtype and gather it over fsdp at use (the
+  values of gathering first, at half the bytes); the gather's backward
+  reduce-scatters the weight's gradient over fsdp. Under `remat` the
+  gathers run again in the recompute, as JAX's remat does.
+- tp: wq, wk, wv, w_gate and w_up are split on their output dimension,
+  behind `pvary` (identity forward, psum backward: the replicated input's
+  gradient is the sum of the ranks' parts); wo and w_down on their input
+  dimension, then a psum over tp (identity backward). The embedding is
+  split over d, then gathered over tp (`all_gather_invariant`: its
+  backward takes this rank's block); a tied head is a psum of partial
+  products; lm_head is split over the vocabulary, then the logits are
+  gathered the same way, so every rank holds the same full row. Each rank
+  holds H/tp query heads and Kh/tp KV heads in contiguous blocks, so the
+  GQA group of a local head is local; head counts come from the local
+  weights, and tp must divide n_kv_heads (JAX's meshes that split a KV
+  head have no counterpart here).
+- ep: the MoE bank's combine is followed by a psum over ep and tp
+  (`models/moe.py`).
+- dp and the batch half of fsdp split the batch only; the train step
+  (`train/llm_step.py`) means the gradients over them.
+Norm scales and the router stay replicated. No hand kernel sees a DTensor.
 """
 
 import dataclasses
@@ -172,83 +186,147 @@ class KVCache:
 
 
 class ShardPlace:
-    """A shard-local model's place on its mesh: the tp and ep sizes, this
-    rank's index on each, and the collectives the modules call. The axis
-    `sp_axis` holds replicated parameters and splits the sequence (ring
-    attention); it may exceed 1 only where tp and ep are 1. Other axes must
-    have size 1: the forward computes tensor, expert and sequence
-    parallelism only."""
+    """A shard-local model's place on its mesh: the size of each of the dp,
+    fsdp, tp and ep axes (1 where the mesh lacks it), this rank's index on
+    tp and ep, and the collectives the modules call. The axis `sp_axis` holds
+    replicated parameters and splits the sequence (ring attention); it may
+    exceed 1 only where fsdp, tp and ep are 1. Other axes must have size 1.
+    Every split must be even."""
+
+    AXES = ("dp", "fsdp", "tp", "ep")
 
     def __init__(self, mesh, sp_axis: str = "sp"):
         sizes = axis_sizes(mesh)
-        other = {a: n for a, n in sizes.items() if a not in ("tp", "ep", sp_axis) and n > 1}
+        other = {a: n for a, n in sizes.items()
+                 if a not in self.AXES + (sp_axis,) and n > 1}
         if other:
-            raise ValueError(f"the shard-local Llama computes over tp, ep and {sp_axis}; mesh "
-                             f"axes {other} are not supported")
+            raise ValueError(f"the shard-local Llama computes over dp, fsdp, tp, ep and "
+                             f"{sp_axis}; mesh axes {other} are not supported")
         self.mesh = mesh
-        self.tp, self.ep = sizes.get("tp", 1), sizes.get("ep", 1)
+        self.sizes = {a: sizes.get(a, 1) for a in self.AXES}
+        self.fsdp, self.tp, self.ep = (self.sizes[a] for a in ("fsdp", "tp", "ep"))
         self.sp = sizes.get(sp_axis, 1)
         if self.sp > 1 and (self.tp > 1 or self.ep > 1):
             raise ValueError(f"{sp_axis}={self.sp} with tp={self.tp}, ep={self.ep}: sequence "
                              f"parallelism runs with replicated parameters (tp and ep 1)")
+        if self.sp > 1 and self.fsdp > 1:
+            raise ValueError(f"{sp_axis}={self.sp} with fsdp={self.fsdp}: sequence "
+                             f"parallelism runs with replicated parameters (fsdp 1)")
         self.tp_index = xla_ops.axis_index("tp", mesh) if "tp" in sizes else 0
         self.ep_index = xla_ops.axis_index("ep", mesh) if "ep" in sizes else 0
 
-    def split(self, n: int, axis: str, what: str) -> int:
-        parts = self.tp if axis == "tp" else self.ep
+    def size(self, axis: Optional[str]) -> int:
+        return self.sizes.get(axis, 1) if axis else 1
+
+    def split(self, n: int, axis: Optional[str], what: str) -> int:
+        parts = self.size(axis)
         if n % parts:
             raise ValueError(f"{axis}={parts} must divide {what}={n}")
         return n // parts
 
     def psum(self, x, *axes):
         for a in axes:
-            if (self.tp if a == "tp" else self.ep) > 1:
+            if self.size(a) > 1:
                 x = xla_ops.psum(x, a, self.mesh)
         return x
 
+    def pvary(self, x, *axes):
+        """x; its gradient summed over `axes` (the entry of a block whose
+        ranks each compute a part)."""
+        for a in axes:
+            if self.size(a) > 1:
+                x = xla_ops.pvary(x, a, self.mesh)
+        return x
+
     def gather_tp(self, x):
-        """The tp blocks of the last dimension, concatenated."""
-        return xla_ops.all_gather(x, "tp", self.mesh, gather_axis=-1) if self.tp > 1 else x
+        """The tp blocks of the last dimension, concatenated; the value is
+        used alike on every tp rank."""
+        if self.tp == 1:
+            return x
+        return xla_ops.all_gather_invariant(x, "tp", self.mesh, gather_axis=-1)
+
+    def gather_fsdp(self, w, dim: int):
+        """A weight's fsdp blocks along `dim`, concatenated: the whole
+        weight on every fsdp rank, each using it on its own rows."""
+        if self.fsdp == 1:
+            return w
+        return xla_ops.all_gather(w, "fsdp", self.mesh, gather_axis=dim)
+
+    def gather_whole(self, w, axes):
+        """The whole tensor from this rank's block, `axes` naming the mesh
+        axis of each dimension: fsdp gathered as `gather_fsdp`, tp as a
+        value used alike on every tp rank."""
+        for dim, a in enumerate(axes):
+            if a == "fsdp":
+                w = self.gather_fsdp(w, dim)
+            elif a == "tp" and self.tp > 1:
+                w = xla_ops.all_gather_invariant(w, "tp", self.mesh, gather_axis=dim)
+        return w
 
 
 class Dense(nn.Module):
     """Bias-free projection; weight [out, in]. Input and weight are cast to
-    the activation dtype before the product, as flax's Dense(dtype=...)."""
+    the activation dtype before the product, as flax's Dense(dtype=...).
+    Shard-local (`place`): `axes` are the mesh axes of the weight's [out,
+    in] dimensions under `llama_rules` and `names` their sizes' names for
+    the errors; the weight holds its block and is gathered over fsdp at
+    use."""
 
     def __init__(self, in_features: int, out_features: int, dtype, param_dtype,
-                 device=None):
+                 device=None, place=None, axes=(None, None), names=("out", "in")):
         super().__init__()
         self.dtype = dtype
+        self.place = place
+        self.fsdp_dim = None
+        if place is not None:
+            out_features = place.split(out_features, axes[0], names[0])
+            in_features = place.split(in_features, axes[1], names[1])
+            if place.fsdp > 1 and "fsdp" in axes:
+                self.fsdp_dim = axes.index("fsdp")
         self.weight = nn.Parameter(torch.empty(out_features, in_features,
                                                dtype=param_dtype, device=device))
 
     def forward(self, x):
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        w = self.weight.to(self.dtype)
+        if self.fsdp_dim is not None:
+            w = self.place.gather_fsdp(w, self.fsdp_dim)
+        return F.linear(x.to(self.dtype), w)
 
 
 class Embed(nn.Module):
     """Token embedding [V, D]; `attend` is the tied head x @ E^T. Shard-local:
-    [V, D/tp], the lookup gathered over tp, the head a psum of partials."""
+    [V/fsdp, D/tp], the table gathered over fsdp at use, the lookup
+    gathered over tp, the head a psum of partials."""
+
+    AXES = ("fsdp", "tp")
 
     def __init__(self, vocab: int, dim: int, dtype, param_dtype, device=None, place=None):
         super().__init__()
         self.dtype = dtype
         self.place = place
         if place is not None:
+            vocab = place.split(vocab, "fsdp", "vocab_size")
             dim = place.split(dim, "tp", "d_model")
         self.embedding = nn.Parameter(torch.empty(vocab, dim, dtype=param_dtype,
                                                   device=device))
 
+    def table(self):
+        """The table in the activation dtype: [V, D/tp] on a mesh."""
+        t = self.embedding.to(self.dtype)
+        return t if self.place is None else self.place.gather_fsdp(t, 0)
+
     def forward(self, tokens):
-        x = F.embedding(tokens, self.embedding.to(self.dtype))
+        x = F.embedding(tokens, self.table())
         return x if self.place is None else self.place.gather_tp(x)
 
     def attend(self, x):
         if self.place is None:
-            return x.to(self.dtype) @ self.embedding.to(self.dtype).t()
-        d = self.embedding.shape[1]
+            return x.to(self.dtype) @ self.table().t()
+        table = self.table()
+        d = table.shape[1]
+        x = self.place.pvary(x, "tp")
         part = x[..., self.place.tp_index * d:(self.place.tp_index + 1) * d]
-        return self.place.psum(part.to(self.dtype) @ self.embedding.to(self.dtype).t(), "tp")
+        return self.place.psum(part.to(self.dtype) @ table.t(), "tp")
 
 
 class RMSNorm(nn.Module):
@@ -280,15 +358,17 @@ class Attention(nn.Module):
         self.cfg = cfg
         self.layer_idx = layer_idx
         self.place = place
-        heads, kv_heads = cfg.n_heads, cfg.n_kv_heads
-        if place is not None:
-            heads = place.split(heads, "tp", "n_heads")
-            kv_heads = place.split(kv_heads, "tp", "n_kv_heads")
-        dense = lambda i, o: Dense(i, o, cfg.dtype, cfg.param_dtype, device)
-        self.wq = dense(cfg.d_model, heads * cfg.head_dim)
-        self.wk = dense(cfg.d_model, kv_heads * cfg.head_dim)
-        self.wv = dense(cfg.d_model, kv_heads * cfg.head_dim)
-        self.wo = dense(heads * cfg.head_dim, cfg.d_model)
+        heads, kv_heads, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        if place is not None:   # whole heads on each tp rank
+            place.split(heads, "tp", "n_heads")
+            place.split(kv_heads, "tp", "n_kv_heads")
+        dense = lambda i, o, axes, names: Dense(i, o, cfg.dtype, cfg.param_dtype, device,
+                                                place, axes, names)
+        col, row = ("tp", "fsdp"), ("fsdp", "tp")
+        self.wq = dense(cfg.d_model, heads * hd, col, ("n_heads * head_dim", "d_model"))
+        self.wk = dense(cfg.d_model, kv_heads * hd, col, ("n_kv_heads * head_dim", "d_model"))
+        self.wv = dense(cfg.d_model, kv_heads * hd, col, ("n_kv_heads * head_dim", "d_model"))
+        self.wo = dense(heads * hd, cfg.d_model, row, ("d_model", "n_heads * head_dim"))
 
     def forward(self, x, positions, cache=None, paged_chunk_local: bool = False):
         cfg = self.cfg
@@ -297,6 +377,8 @@ class Attention(nn.Module):
         # head counts from the (local) weights: H/tp and Kh/tp on a mesh
         n_heads = self.wq.weight.shape[0] // cfg.head_dim
         n_kv_heads = self.wk.weight.shape[0] // cfg.head_dim
+        if self.place is not None:
+            x = self.place.pvary(x, "tp")
         q = self.wq(x).reshape(b, t, n_heads, cfg.head_dim)
         k = self.wk(x).reshape(b, t, n_kv_heads, cfg.head_dim)
         v = self.wv(x).reshape(b, t, n_kv_heads, cfg.head_dim)
@@ -364,13 +446,15 @@ class MLP(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None, place=None):
         super().__init__()
         self.place = place
-        ffn = cfg.ffn_dim if place is None else place.split(cfg.ffn_dim, "tp", "ffn_dim")
-        dense = lambda i, o: Dense(i, o, cfg.dtype, cfg.param_dtype, device)
-        self.w_gate = dense(cfg.d_model, ffn)
-        self.w_up = dense(cfg.d_model, ffn)
-        self.w_down = dense(ffn, cfg.d_model)
+        dense = lambda i, o, axes, names: Dense(i, o, cfg.dtype, cfg.param_dtype, device,
+                                                place, axes, names)
+        self.w_gate = dense(cfg.d_model, cfg.ffn_dim, ("tp", "fsdp"), ("ffn_dim", "d_model"))
+        self.w_up = dense(cfg.d_model, cfg.ffn_dim, ("tp", "fsdp"), ("ffn_dim", "d_model"))
+        self.w_down = dense(cfg.ffn_dim, cfg.d_model, ("fsdp", "tp"), ("d_model", "ffn_dim"))
 
     def forward(self, x):
+        if self.place is not None:
+            x = self.place.pvary(x, "tp")
         out = self.w_down(F.silu(self.w_gate(x)) * self.w_up(x))
         return out if self.place is None else self.place.psum(out, "tp")
 
@@ -395,10 +479,12 @@ class Block(nn.Module):
 
 
 class Llama(nn.Module):
-    """The decoder. With `mesh` (a DeviceMesh with axes tp, ep and/or
-    `cfg.sp_axis`), the shard-local model: this rank's blocks of the
+    """The decoder. With `mesh` (a DeviceMesh with axes among dp, fsdp, tp,
+    ep and `cfg.sp_axis`), the shard-local model: this rank's blocks of the
     parameters under `llama_rules`, and the collectives of the module
     docstring. `attn_impl="ring"` needs a mesh with `cfg.sp_axis`."""
+
+    HEAD_AXES = ("tp", "fsdp")      # lm_head's [vocab, d] under llama_rules
 
     def __init__(self, cfg: LlamaConfig, device=None, mesh=None):
         super().__init__()
@@ -419,12 +505,21 @@ class Llama(nn.Module):
             self.add_module(f"layers_{i}", Block(cfg, i, device, place))
         self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, cfg.dtype, device)
         if not cfg.tie_embeddings:
-            vocab = (cfg.vocab_size if place is None
-                     else place.split(cfg.vocab_size, "tp", "vocab_size"))
-            self.lm_head = Dense(cfg.d_model, vocab, cfg.dtype, cfg.param_dtype, device)
+            self.lm_head = Dense(cfg.d_model, cfg.vocab_size, cfg.dtype, cfg.param_dtype,
+                                 device, place, self.HEAD_AXES, ("vocab_size", "d_model"))
 
     def blocks(self):
         return [getattr(self, f"layers_{i}") for i in range(self.cfg.n_layers)]
+
+    def head_weight(self) -> torch.Tensor:
+        """The whole [V, D] head the training loss multiplies with: lm_head,
+        or the tied embedding; on a mesh, gathered from this rank's block
+        (over fsdp, then tp) in its own dtype."""
+        if self.cfg.tie_embeddings:
+            w, axes = self.embed.embedding, Embed.AXES
+        else:
+            w, axes = self.lm_head.weight, self.HEAD_AXES
+        return w if self.place is None else self.place.gather_whole(w, axes)
 
     def forward(self, tokens, positions=None, cache=None,
                 return_hidden: bool = False, paged_chunk_local: bool = False):
@@ -483,9 +578,10 @@ class Llama(nn.Module):
         if cfg.tie_embeddings:
             logits = self.embed.attend(x)
         else:
-            logits = self.lm_head(x)
-            if self.place is not None:
-                logits = self.place.gather_tp(logits)
+            if self.place is None:
+                logits = self.lm_head(x)
+            else:
+                logits = self.place.gather_tp(self.lm_head(self.place.pvary(x, "tp")))
         return logits.to(torch.float32), new_cache
 
 

@@ -21,11 +21,19 @@ rounding changes which experts a token gets. Top-k breaks ties to the
 lower expert index, as `jax.lax.top_k` does.
 
 Expert parallelism: on a mesh (`place`, a `models.llama.ShardPlace`), the
-banks hold this rank's E/ep experts and F/tp of the hidden width, as
-`llama_rules` places `[E, D, F]` / `[E, F, D]`; the router stays
-replicated, so every rank routes every token the same way, dispatches to
-its own experts only, and the combine is followed by a psum over ep and
-tp.
+banks hold this rank's E/ep experts, F/tp of the hidden width and D/fsdp
+of the model width, as `llama_rules` places `[E, D, F]` P(ep, fsdp, tp)
+and `[E, F, D]` P(ep, tp, fsdp); each bank is cast to the activation
+dtype and gathered over fsdp at use. The router stays replicated, so
+every rank routes every token the same way, dispatches to its own
+experts only, and the combine is followed by a psum over ep and tp. In
+the backward each rank's expert outputs give only its part of the
+combine weights' and the tokens' gradients: `pvary` over ep and tp on the
+combine weights and on the experts' input sums those parts, so the
+router's gradient and the input's are whole and alike on every rank.
+Capacity and queue positions count the tokens of the call, so on a mesh
+with dp or fsdp > 1 each rank routes its own rows, where GSPMD would
+count the global batch (the same whenever no token is dropped).
 
 Load balancing: the Switch aux loss E * sum_e f_e * P_e (f_e = share of
 tokens whose first choice is e, P_e = mean router prob) is kept on the
@@ -81,6 +89,7 @@ class MoEMLP(nn.Module):
         if place is not None:
             E = place.split(E, "ep", "n_experts")
             F_ = place.split(F_, "tp", "ffn_dim")
+            D = place.split(D, "fsdp", "d_model")
         bank = lambda *s: nn.Parameter(torch.empty(*s, dtype=cfg.param_dtype,
                                                    device=device))
         self.w_gate = bank(E, D, F_)
@@ -125,17 +134,22 @@ class MoEMLP(nn.Module):
         s_idx = torch.arange(S, device=x.device).expand(K, S)
         combine[s_idx, gate_idx.t(), torch.where(keep, posk, C)] = gates
         combine = combine[..., :C]
+        w_gate, w_up, w_down = (w.to(dt) for w in (self.w_gate, self.w_up, self.w_down))
         if self.place is not None:                             # this rank's experts
+            place = self.place
             e_local = self.w_gate.shape[0]
-            e0 = self.place.ep_index * e_local
-            combine = combine[:, e0:e0 + e_local]
+            e0 = place.ep_index * e_local
+            combine = place.pvary(combine, "ep", "tp")[:, e0:e0 + e_local]
+            xf = place.pvary(xf, "ep", "tp")
+            w_gate, w_up = (place.gather_fsdp(w, 1) for w in (w_gate, w_up))
+            w_down = place.gather_fsdp(w_down, 2)
         dispatch = (combine > 0).to(dt)                        # [S, E, C]
 
         with torch.profiler.record_function("moe_einsums"):
             expert_in = torch.einsum("sec,sd->ecd", dispatch, xf.to(dt))
-            h = torch.bmm(expert_in, self.w_gate.to(dt))       # [E, C, F]
-            u = torch.bmm(expert_in, self.w_up.to(dt))
-            out = torch.bmm(F.silu(h) * u, self.w_down.to(dt))  # [E, C, D]
+            h = torch.bmm(expert_in, w_gate)                   # [E, C, F]
+            u = torch.bmm(expert_in, w_up)
+            out = torch.bmm(F.silu(h) * u, w_down)             # [E, C, D]
             y = torch.einsum("sec,ecd->sd", combine.to(dt), out)
         if self.place is not None:
             y = self.place.psum(y, "ep", "tp")

@@ -30,14 +30,13 @@ which may reach sub-methods of the net and so bypass DDP's hooks: the
 all-reduce is explicit, after `backward()`.)
 """
 
-import os
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from ray_tpu_torch.device import resolve_device
+from ray_tpu_torch.device import bind_card, resolve_device
 from ray_tpu_torch.ops.optim import global_norm, make_optimizer
 from .rl_module import RLModule
 from .sample_batch import SampleBatch
@@ -273,18 +272,3 @@ def make_learner_group(learner_cls, module: RLModule, config, seed: int = 0) -> 
         bind_card(device)
         mesh = make_mesh({"dp": n}, devices=range(n), device=device)
     return LearnerGroup(learner_cls(module, config, mesh=mesh, seed=seed), num_learners=n)
-
-
-def bind_card(device) -> Optional[int]:
-    """Make this rank's card the current one, so that "cuda" resolves to it:
-    `LOCAL_RANK` when the launcher set it (torchrun does), else the world
-    rank modulo the cards visible, as torch's DeviceMesh picks. Returns the
-    card, or None for the CPU or a device that names its card ("cuda:k"),
-    which is used as given."""
-    dev = torch.device(device)
-    if dev.type != "cuda" or dev.index is not None:
-        return None
-    local = os.environ.get("LOCAL_RANK")
-    card = int(local) if local is not None else dist.get_rank() % torch.cuda.device_count()
-    torch.cuda.set_device(card)
-    return card

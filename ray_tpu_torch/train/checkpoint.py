@@ -13,6 +13,16 @@ checkpoint reads in both packages; so does the metadata sidecar. A
 directory holding only JAX's orbax `pytree/` is refused with an error that
 names the format. Anything else the user puts in the directory rides along
 untouched.
+
+Sharded, the counterpart of orbax's write of sharded arrays: with `mesh`,
+every rank of the mesh calls `from_state` with its own blocks (a
+shard-local model's and its AdamW's state dicts), and each writes them to
+`shards/rank-<rank>.pt`; the mesh's first rank writes
+`shards/layout.json`, the mesh's axes, sizes and ranks and each leaf's
+spec (the `specs` tree, where the caller gives one). Nothing is gathered.
+`to_state` with the same `mesh` reads this rank's file back onto
+`target`'s blocks; a mesh of another layout, or over other ranks, raises
+`ValueError` naming both layouts (resharding is not done).
 """
 
 import json
@@ -31,6 +41,8 @@ _METADATA_FILE = ".ray_tpu_ckpt_meta.json"
 _TORCH_FILE = "state.pt"
 _PICKLE_FILE = "state.pkl"
 _ORBAX_DIR = "pytree"      # the JAX package's format
+_SHARD_DIR = "shards"      # a sharded checkpoint: one file a rank, and the layout
+_LAYOUT_FILE = "layout.json"
 _SCALARS = (bool, int, float, str, type(None))
 
 
@@ -96,6 +108,30 @@ def _restore_like(obj, target, path=()):
     return obj
 
 
+def _mesh_layout(mesh) -> Dict[str, int]:
+    return dict(zip(mesh.mesh_dim_names, (int(n) for n in mesh.mesh.shape)))
+
+
+def _mesh_barrier(mesh) -> None:
+    """Every rank of the mesh has reached this point (an all-reduce over
+    each axis, on the mesh's device)."""
+    import torch.distributed as dist
+    dev = "cpu" if mesh.device_type == "cpu" else torch.cuda.current_device()
+    flag = torch.ones((), device=dev)
+    for axis in mesh.mesh_dim_names:
+        dist.all_reduce(flag, group=mesh.get_group(axis))
+
+
+def _spec_json(tree):
+    """A specs tree (dicts whose leaves are P or None) as JSON: a P is a
+    list of its entries, each None, an axis name or a list of names."""
+    if isinstance(tree, dict):
+        return {str(k): _spec_json(v) for k, v in tree.items()}
+    if tree is None:
+        return None
+    return [list(e) if isinstance(e, tuple) else e for e in tree]
+
+
 class Checkpoint:
     """Handle to a checkpoint directory. Create with `from_directory` (user
     already wrote files) or `from_state` (we serialize a tree)."""
@@ -110,11 +146,20 @@ class Checkpoint:
 
     @classmethod
     def from_state(cls, state: Any, path: Optional[str] = None,
-                   metadata: Optional[Dict] = None) -> "Checkpoint":
+                   metadata: Optional[Dict] = None, mesh=None,
+                   specs: Any = None) -> "Checkpoint":
         """Serialize `state` into a new checkpoint dir: `state.pt` by
         torch.save, or `state.pkl` by pickle when the tree holds anything
         else. The file is written beside its final name and renamed, so a
-        reader never sees half a checkpoint."""
+        reader never sees half a checkpoint.
+
+        With `mesh`: this rank's blocks, written sharded (module
+        docstring); every rank of the mesh calls it with the same `path`,
+        which it must give, and it returns when every rank has written.
+        `specs` is a tree of each leaf's spec (`parallel.sharding.P`) kept
+        in the layout, for example from `train.llm_step.train_state`."""
+        if mesh is not None:
+            return cls._from_shards(state, path, metadata, mesh, specs)
         path = path or tempfile.mkdtemp(prefix="ray_tpu_ckpt_")
         os.makedirs(path, exist_ok=True)
         ckpt = cls(path)
@@ -136,19 +181,76 @@ class Checkpoint:
             ckpt.set_metadata(metadata)
         return ckpt
 
+    @classmethod
+    def _from_shards(cls, state, path, metadata, mesh, specs) -> "Checkpoint":
+        import torch.distributed as dist
+        if path is None:
+            raise ValueError("a sharded checkpoint needs the path every rank writes to")
+        numpy_leaves: List = []
+        try:
+            payload = {"tree": _encode(state, (), numpy_leaves),
+                       "numpy_leaves": numpy_leaves}
+        except _NotTorchState as e:
+            raise TypeError(f"a sharded checkpoint holds tensors, numpy arrays and "
+                            f"scalars only: {e}") from e
+        shards = os.path.join(path, _SHARD_DIR)
+        os.makedirs(shards, exist_ok=True)
+        rank = dist.get_rank()
+        name = os.path.join(shards, f"rank-{rank:05d}.pt")
+        with open(name + ".tmp", "wb") as f:
+            torch.save(payload, f)
+        os.replace(name + ".tmp", name)
+        ckpt = cls(path)
+        if not any(mesh.get_coordinate()):
+            layout = {"mesh": _mesh_layout(mesh), "ranks": mesh.mesh.flatten().tolist(),
+                      "specs": _spec_json(specs)}
+            with open(os.path.join(shards, _LAYOUT_FILE + ".tmp"), "w") as f:
+                json.dump(layout, f)
+            os.replace(os.path.join(shards, _LAYOUT_FILE + ".tmp"),
+                       os.path.join(shards, _LAYOUT_FILE))
+            if metadata:
+                ckpt.set_metadata(metadata)
+        _mesh_barrier(mesh)
+        return ckpt
+
+    def _shard_state(self, target, mesh):
+        import torch.distributed as dist
+        with open(os.path.join(self.path, _SHARD_DIR, _LAYOUT_FILE)) as f:
+            layout = json.load(f)
+        if mesh is None:
+            raise ValueError(f"{self.path} holds a sharded checkpoint of mesh "
+                             f"{layout['mesh']}: pass the mesh to restore onto")
+        here = dict(mesh=_mesh_layout(mesh), ranks=mesh.mesh.flatten().tolist())
+        if here != {k: layout[k] for k in here}:
+            raise ValueError(f"checkpoint written on mesh {layout['mesh']} over ranks "
+                             f"{layout['ranks']}; restoring onto mesh {here['mesh']} over "
+                             f"ranks {here['ranks']}: resharding across layouts is not "
+                             f"supported")
+        pt = os.path.join(self.path, _SHARD_DIR, f"rank-{dist.get_rank():05d}.pt")
+        payload = torch.load(pt, map_location="cpu", weights_only=True, mmap=True)
+        return self._decode(payload, target)
+
+    @staticmethod
+    def _decode(payload, target):
+        tree = payload["tree"]
+        for path, scalar in payload["numpy_leaves"]:
+            tree = _set_path(tree, tuple(path), lambda t, s=scalar:
+                             t.numpy()[()] if s else t.numpy())
+        return _restore_like(tree, target)
+
     # -- contents ----------------------------------------------------------
-    def to_state(self, target: Any = None) -> Any:
+    def to_state(self, target: Any = None, mesh=None) -> Any:
         """Inverse of from_state. Tensors load on the CPU; `target`, a tree
         of like-shaped tensors (a fresh model's and optimizer's state
-        dicts, say), puts each tensor on its target's device and dtype."""
+        dicts, say), puts each tensor on its target's device and dtype.
+        A sharded checkpoint needs the `mesh` it was written on; each rank
+        reads its own blocks."""
+        if os.path.exists(os.path.join(self.path, _SHARD_DIR, _LAYOUT_FILE)):
+            return self._shard_state(target, mesh)
         pt = os.path.join(self.path, _TORCH_FILE)
         if os.path.exists(pt):
-            payload = torch.load(pt, map_location="cpu", weights_only=True, mmap=True)
-            tree = payload["tree"]
-            for path, scalar in payload["numpy_leaves"]:
-                tree = _set_path(tree, tuple(path), lambda t, s=scalar:
-                                 t.numpy()[()] if s else t.numpy())
-            return _restore_like(tree, target)
+            return self._decode(torch.load(pt, map_location="cpu", weights_only=True,
+                                           mmap=True), target)
         pk = os.path.join(self.path, _PICKLE_FILE)
         if os.path.exists(pk):
             with open(pk, "rb") as f:

@@ -8,9 +8,17 @@
   the same registrations;
 - a directory holding only JAX's orbax pytree/ is refused by name;
 - a restore onto a target takes the target's devices and dtypes, and a
-  model's and an optimizer's state dicts come back bit-equal."""
+  model's and an optimizer's state dicts come back bit-equal;
+- sharded, on 4 gloo ranks (the counterpart of orbax's sharded write): the
+  tiny Llama trained on an {"fsdp": 2, "tp": 2} mesh, saved after step 2
+  with each rank writing its own blocks, restored into a fresh model and
+  AdamW on the same mesh: every block and AdamW moment torch.equal, steps
+  3-4 equal to the uninterrupted run's; a restore onto {"dp": 2, "fsdp":
+  2} raises naming both layouts, and one without a mesh raises."""
 
+import json
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -21,6 +29,7 @@ from ray_tpu.train import CheckpointConfig
 from ray_tpu.train.checkpoint import _CheckpointBook as JBook
 from ray_tpu_torch.train import Checkpoint
 from ray_tpu_torch.train.checkpoint import _CheckpointBook as TBook
+from test_torch_distributed import run_ranks
 
 
 class Opaque:
@@ -131,3 +140,80 @@ def test_restore_onto_target_devices_and_dtypes(tmp_path):
         ckpt.to_state(target={"model": {"0.weight": torch.zeros(2, 2)}})
     with pytest.raises(ValueError, match="lacks"):
         ckpt.to_state(target={"nope": torch.zeros(1)})
+
+
+def _sharded_rank(rank, world, store, root):
+    import torch.distributed as dist
+    from ray_tpu_torch.parallel import distributed as tdist
+    from ray_tpu_torch.parallel.mesh import make_mesh
+    from ray_tpu_torch.parallel.sharding import data_sharding
+    from ray_tpu_torch.train.ingest import iter_device_batches
+    from ray_tpu_torch.train.llm_step import build_llama_trainer, train_state
+    torch.set_num_threads(1)
+    tdist.initialize_multihost(store, num_processes=world, process_id=rank, device="cpu")
+    mesh = make_mesh({"fsdp": 2, "tp": 2}, device="cpu")
+    build = lambda seed: build_llama_trainer("tiny", 4, 16, device="cpu", seed=seed,
+                                             dtype=torch.float32, mesh=mesh,
+                                             overrides=dict(attn_impl="xla"))
+    feed = lambda bs: iter_device_batches(bs, sharding=data_sharding(mesh))
+    clone = lambda tree: {k: (clone(v) if isinstance(v, dict) else
+                              v.clone() if torch.is_tensor(v) else v) for k, v in tree.items()}
+    model, opt, step, batches, _ = build(0)
+    losses = [step(t) for t in feed(batches[:2])]
+    state, specs = train_state(model, opt, step=2)
+    path = os.path.join(root, "ck")
+    Checkpoint.from_state(state, path=path, mesh=mesh, specs=specs, metadata={"step": 2})
+    saved = clone(state)
+    losses += [step(t) for t in feed(batches[2:4])]
+    final = clone(train_state(model, opt)[0])
+
+    model, opt, step, _, _ = build(1)          # other weights: the restore must set them
+    ckpt = Checkpoint.from_directory(path)
+    got = ckpt.to_state(target=train_state(model, opt)[0], mesh=mesh)
+    model.load_state_dict(got["model"])
+    opt.load_state_dict(got["optim"])
+    same = lambda a, b: a.keys() == b.keys() and all(
+        same(a[k], b[k]) if isinstance(a[k], dict) else
+        torch.equal(a[k], b[k]) if torch.is_tensor(a[k]) else a[k] == b[k] for k in a)
+    now = train_state(model, opt)[0]
+    out = dict(restored_model=same(now["model"], saved["model"]),
+               restored_moments=same(now["optim"]["state"], saved["optim"]["state"]),
+               step=got["step"])
+    resumed = [step(t) for t in feed(batches[2:4])]
+    out["losses_equal"] = all(torch.equal(a, b) for a, b in zip(resumed, losses[2:]))
+    out["final_equal"] = same(train_state(model, opt)[0]["model"], final["model"]) and same(
+        train_state(model, opt)[0]["optim"]["state"], final["optim"]["state"])
+    other = make_mesh({"dp": 2, "fsdp": 2}, device="cpu")
+    for name, m in (("other_layout", other), ("no_mesh", None)):
+        try:
+            ckpt.to_state(target=train_state(model, opt)[0], mesh=m)
+        except ValueError as e:
+            out[name] = str(e)
+    out["files"] = sorted(os.listdir(os.path.join(path, "shards")))
+    with open(os.path.join(path, "shards", "layout.json")) as f:
+        out["layout"] = json.load(f)
+    out["metadata"] = ckpt.get_metadata()
+    out["jax_loaded"] = "jax" in sys.modules
+    dist.destroy_process_group()
+    return out
+
+
+def test_sharded_checkpoint_round_trip_on_four_ranks(tmp_path):
+    got = run_ranks(_sharded_rank, 4, tmp_path, str(tmp_path), timeout=120)
+    for rank, r in enumerate(got):
+        assert not r["jax_loaded"]
+        assert (r["restored_model"], r["restored_moments"], r["losses_equal"],
+                r["final_equal"], r["step"]) == (True, True, True, True, 2), (rank, r)
+        assert r["other_layout"] == (
+            "checkpoint written on mesh {'fsdp': 2, 'tp': 2} over ranks [0, 1, 2, 3]; "
+            "restoring onto mesh {'dp': 2, 'fsdp': 2} over ranks [0, 1, 2, 3]: resharding "
+            "across layouts is not supported")
+        assert r["no_mesh"].endswith("holds a sharded checkpoint of mesh {'fsdp': 2, "
+                                     "'tp': 2}: pass the mesh to restore onto")
+    assert got[0]["files"] == ["layout.json"] + [f"rank-{r:05d}.pt" for r in range(4)]
+    layout = got[0]["layout"]
+    assert layout["mesh"] == {"fsdp": 2, "tp": 2}
+    assert layout["specs"]["model"]["layers_0.attn.wq.weight"] == ["tp", "fsdp"]
+    assert layout["specs"]["model"]["layers_0.attn_norm.scale"] == []
+    assert layout["specs"]["optim"]["state"]["2"]["exp_avg"] == ["tp", "fsdp"]    # wq
+    assert got[0]["metadata"] == {"step": 2}

@@ -5,10 +5,13 @@ ranks (spawned with run_ranks; the rank functions import no jax).
 - Each xla_ops op, run by every rank on its block, equals JAX's op under
   `shard_map` on 4 CPU devices (block r on device r): over the one axis
   of a {"dp": 4} mesh, and over each axis of a {"dp": 2, "tp": 2} mesh.
-- The gradients of `ppermute_shift` and `psum` equal `jax.grad` through
-  `shard_map` on the same inputs: a shift's loss is each block's own, a
-  psum's is taken alike on every rank of the axis (JAX's output
-  replicated over it).
+- The gradients of `ppermute_shift`, `psum`, `all_gather` (the fsdp
+  weight gather), `all_gather_invariant` (the tp activation gather),
+  `reduce_scatter` and `pvary` (the tp entry) equal `jax.grad` through
+  `shard_map` on the same inputs: a loss on an output sharded over every
+  mesh axis is each rank's own; one on an output replicated over the axis
+  (psum, all_gather_invariant) is taken alike on every rank of it; pvary's
+  input is replicated over the axis, as JAX's identity with that in_spec.
 - `init_collective_group(backend="xla", mesh=..., axis=...)` gives each
   rank the block of JAX's `XlaGroup` result that its device holds; send
   and recv raise JAX's error.
@@ -71,25 +74,40 @@ class _Bound:
         return call
 
 
-GRAD_OPS = ("ppermute_1", "ppermute_-1", "psum")
+GRAD_OPS = ("ppermute_1", "ppermute_-1", "psum", "all_gather_0", "all_gather_1",
+            "all_gather_invariant", "reduce_scatter_0", "reduce_scatter_1", "pvary")
+REPLICATED_OUT = ("psum", "all_gather_invariant")   # output alike over the axis
+REPLICATED_IN = ("pvary",)                          # input alike over the axis
 
 
-def _grad_w(names, axis, name):
-    """The loss weights of a gradient case, over the op's whole output:
-    [16, 8] for a shift (block r on rank r), and for a psum over `axis`
-    one [4, 8] block for each index of the other axis (replicated over
-    `axis`)."""
-    rows = 16 if name != "psum" else 4 * (2 if len(names) > 1 else 1)
-    return np.random.default_rng(7).normal(size=(rows, 8)).astype(np.float32)
+def _grad_fn(axis, name, jax_side=False):
+    """The gradient case's op. JAX's counterparts: pvary is the identity
+    with a replicated in_spec, all_gather_invariant is all_gather with a
+    replicated out_spec."""
+    if name == "pvary":
+        return (lambda x, o: x) if jax_side else (lambda x, o: o.pvary(x, axis))
+    if name == "all_gather_invariant" and not jax_side:
+        return lambda x, o: o.all_gather_invariant(x, axis)
+    if name == "all_gather_invariant":
+        return lambda x, o: o.all_gather(x, axis)
+    return _ops(axis)[name]
 
 
-def _grad_block(names, axis, name, mesh):
-    """This rank's block of _grad_w."""
-    w = _grad_w(names, axis, name)
-    if name != "psum":
-        return np.split(w, 4)[torch.distributed.get_rank()]
+def _blocks_of(names, axis, replicated):
+    """How a tensor splits on dim 0: (number of blocks, fn(mesh, rank) ->
+    the rank's block): over every axis (device order, the rank), or,
+    replicated over `axis`, over the other one."""
     other = [a for a in names if a != axis]
-    return np.split(w, len(w) // 4)[mesh.get_local_rank(other[0]) if other else 0]
+    if not replicated:
+        return 4, lambda mesh, rank: rank
+    if not other:
+        return 1, lambda mesh, rank: 0
+    return 2, lambda mesh, rank: mesh.get_local_rank(other[0])
+
+
+def _grad_w(shape):
+    """The loss weights of a gradient case over the op's whole output."""
+    return np.random.default_rng(7).normal(size=shape).astype(np.float32)
 
 
 def _batches():
@@ -135,9 +153,12 @@ def _rank(rank, world, store):
     for names, mesh in meshes.items():
         for axis in names:
             for name in GRAD_OPS:
-                xg = x.clone().requires_grad_()
-                y = _ops(axis)[name](xg, _Bound(mesh))
-                (y * torch.from_numpy(_grad_block(names, axis, name, mesh))).sum().backward()
+                n_in, at_in = _blocks_of(names, axis, name in REPLICATED_IN)
+                xg = torch.from_numpy(np.split(_x(), n_in)[at_in(mesh, rank)]).requires_grad_()
+                y = _grad_fn(axis, name)(xg, _Bound(mesh))
+                n_out, at_out = _blocks_of(names, axis, name in REPLICATED_OUT)
+                w = np.split(_grad_w((n_out * y.shape[0],) + tuple(y.shape[1:])), n_out)
+                (y * torch.from_numpy(w[at_out(mesh, rank)])).sum().backward()
                 out["grads"][(names, axis, name)] = xg.grad.numpy()
     batches = []
     for names, mesh in meshes.items():
@@ -202,18 +223,34 @@ def test_grads_match_jax_grad(ranks, names, axis):
     from jax.sharding import PartitionSpec as P
     from ray_tpu.parallel import xla_ops as jops
     mesh = _jax_mesh(names)
-    spec = P(names if len(names) > 1 else names[0])
-    other = [a for a in names if a != axis]
+    full = P(names if len(names) > 1 else names[0])
+    rep = P(*[a for a in names if a != axis])
     for name in GRAD_OPS:
-        out_spec = spec if name != "psum" else P(*other)
-        fn = shard_map(lambda x: _ops(axis)[name](x, jops), mesh=mesh, in_specs=spec,
-                       out_specs=out_spec, check_vma=False)
-        w = _grad_w(names, axis, name)
-        want = np.split(np.asarray(jax.grad(lambda x: (fn(x) * w).sum())(_x())), 4)
+        in_spec = rep if name in REPLICATED_IN else full
+        fn = shard_map(lambda x: _grad_fn(axis, name, True)(x, jops), mesh=mesh,
+                       in_specs=in_spec,
+                       out_specs=rep if name in REPLICATED_OUT else full, check_vma=False)
+        x = _x()
+        w = _grad_w(jax.eval_shape(fn, x).shape)
+        grad = np.asarray(jax.jit(jax.grad(lambda x: (fn(x) * w).sum()))(x))
+        n_in, at_in = _blocks_of(names, axis, name in REPLICATED_IN)
         for rank, res in enumerate(ranks):
-            np.testing.assert_allclose(res["grads"][(names, axis, name)], want[rank],
+            want = np.split(grad, n_in)[at_in(_Coords(names, rank), rank)]
+            np.testing.assert_allclose(res["grads"][(names, axis, name)], want,
                                        rtol=1e-6, atol=1e-6,
                                        err_msg=f"{names} over {axis}: d{name} rank {rank}")
+
+
+class _Coords:
+    """A rank's coordinates on the test's meshes (row-major over ranks), as
+    `_blocks_of` reads them from a DeviceMesh."""
+
+    def __init__(self, names, rank):
+        self.coord = dict(zip(names, np.unravel_index(rank, (4,) if len(names) == 1
+                                                      else (2, 2))))
+
+    def get_local_rank(self, axis):
+        return int(self.coord[axis])
 
 
 @pytest.mark.parametrize("names,axis", [(("dp",), "dp"), (("dp", "tp"), "tp")],
