@@ -47,7 +47,11 @@ Phases, in order; a failing phase raises and the script exits non-zero:
              (no backward launch; a combine pass after every split pass
              whose plan has several splits); stats()["slo"] must hold TTFT
              and TPOT summaries, slo_snapshot() must count the waves'
-             requests, and a prefix digest must exist after the radix hit.
+             requests, a prefix digest must exist after the radix hit, and
+             the trace ring (cleared before) must hold one
+             `serve.decode_chunk` span a host sync. Then two more pairs of
+             waves on fresh prompts of the same shapes, tracing on and
+             RAY_TPU_TRACE=0, must take equal host syncs for equal tokens.
              One more wave runs under torch.profiler.
 6. moe     - the MoE serving path at Mixtral-8x7B width (d_model 4096,
              32/8 heads, head_dim 128, ffn 14336, 8 experts top-2, vocab
@@ -76,7 +80,14 @@ Phases, in order; a failing phase raises and the script exits non-zero:
              pool's growth, a pull over the KV data server and the whole-KV
              hand-off; then a concurrent wave with the launch-count checks
              (B1 per fresh first chunk on the prefill side, B4 per decode
-             step of the PD server) and the seal / install times a page.
+             step of the PD server), its TTFT breakdown from the trace
+             windows (one trace a request: one `serve.pd.queue` and one
+             `serve.pd.first_decode` window, the `prefill` waits, the
+             `kv_ship` segments and the prefill side's `prefill_chunk` and
+             `kv_seal` spans, each family's p50 a request and its share of
+             TTFT p50; the kv_seal pages equal to the pages shipped; beside
+             them a stopwatch on the awaited prefill_begin, which no window
+             covers) and the seal / install times a page.
 9. tiered  - radix KV demotion at llama_1b width (path `serve_tiered`): 8
              families of 1024-token prefixes round-robin on a 32-page pool
              with a 64 MiB stash, restored pages torch.equal to their
@@ -160,7 +171,12 @@ Phases, in order; a failing phase raises and the script exits non-zero:
              loss and every parameter after the step within 1e-5 of the
              whole model's step; B1 launched twice a layer a microbatch
              (forward and recompute), B2 and B3 once; (d) the 1F1B step in
-             bf16 timed beside the whole model's step.
+             bf16 timed beside the whole model's step, each stage's
+             device-busy share of the step (CUDA events) beside the GPipe
+             bound 3/11 and the bubble of its `pipeline.fwd` /
+             `pipeline.bwd` trace windows (2M a stage, busy within 5% of
+             the CUDA events'); one step with RAY_TPU_TRACE=0 records no
+             window and creates no CUDA event.
 14. rl      - RLlib's core (ray_tpu_torch.rllib), f32: (a) each learner's
              update on the card against the same update on the CPU from
              the same weights and batch (PPOLearner.update, 2 epochs;
@@ -195,7 +211,13 @@ Phases, in order; a failing phase raises and the script exits non-zero:
              feeding per-policy PPOLearners on the card, 3 iterations
              shared and 3 independent. Each of (d)-(f) logs ms an update,
              its busy share and launches an update over 10 profiled
-             updates. No kernel may launch on any RL path. The entry
+             updates; (g) path `rl_dreamer`; (h) path `rl_sebulba`: the
+             sebulba pipeline's lockstep schedule in process, the port's
+             RolloutActor on jax_env="cartpole" feeding IMPALA's
+             _sebulba_update for 3 iterations, params torch.equal to the
+             learner fed DeviceRollout directly, jit_cache_size() == 1,
+             `pipeline.act` windows at versions 0, 1, 2. No kernel may
+             launch on any RL path. The entry
              points that make a gymnasium env (path `rl_ppo`, DQN's,
              SAC's and TQC's `train()`, `PPOConfig().multi_agent(...)`)
              are not driven: the chip machine has no gymnasium.
@@ -263,6 +285,7 @@ import asyncio
 import contextlib
 import dataclasses
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -286,6 +309,7 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # max-abs vs the plain version
 FWD_MEAN_TOL = 2e-3
 FWD_CONTROL_MIN_T = 1024
 PIPE_SEQ = 1024          # the `pipeline` path's microbatch length (B=1)
+PIPE_BUSY_TOL = 0.05     # a stage's busy time, its trace windows against CUDA events
 # backward kernels vs their plain version, per gradient: max |err| over max
 # |grad|, and mean |err| over mean |grad|. The mean limit is the one that
 # a backward without the dS and P roundings (the control) must exceed.
@@ -1002,9 +1026,43 @@ def run_slice(preset="llama_1b", device="cuda"):
     model_check = check_model(server, device)
     summary = serve_and_count(server, "slice", device)
     summary["model_check"] = model_check
+    summary["trace_off"] = check_trace_off(server)
     if device == "cuda":
         summary["profile"] = profile_wave(server, mc.vocab_size)
     return summary
+
+
+def check_trace_off(server, max_tokens=32):
+    """Tracing adds no host sync: two more pairs of the slice's waves on
+    fresh prompts of the same lengths and shared-prefix structure (so the
+    same prefill chunks, decode chunks and radix hit), one with tracing on
+    and one with RAY_TPU_TRACE=0: equal host syncs and tokens, spans only in
+    the first. Returns both readings; raises on a miss."""
+    from ray_tpu_torch.util import tracing
+    vocab = server.model_cfg.vocab_size
+    out = {}
+    for flag, seed in (("1", 777), ("0", 778)):
+        with environ(RAY_TPU_TRACE=flag):
+            tracing.refresh()
+            tracing.clear()
+            before = server.stats()
+            for wave in slice_prompts(vocab, seed=seed):
+                asyncio.run(serve_wave(server, wave, max_tokens))
+            tokens, syncs, _, steps = decode_delta(server.stats(), before)
+            spans = sum(e["name"] == "serve.decode_chunk" for e in tracing.events())
+        out["on" if flag == "1" else "off"] = dict(tokens=tokens, host_syncs=syncs,
+                                                   steps=steps, spans=spans)
+    tracing.refresh()
+    on, off = out["on"], out["off"]
+    ok = (on["host_syncs"] == off["host_syncs"] and on["tokens"] == off["tokens"]
+          and on["spans"] == on["host_syncs"] and off["spans"] == 0)
+    log(f"[slice] {'ok  ' if ok else 'FAIL'} host syncs a token with tracing on "
+        f"{on['host_syncs']}/{on['tokens']} == with RAY_TPU_TRACE=0 "
+        f"{off['host_syncs']}/{off['tokens']}; spans {on['spans']} on, {off['spans']} off "
+        f"({smi_line()})")
+    if not ok:
+        raise AssertionError(f"tracing changed the engine's host syncs: {out}")
+    return out
 
 
 def launch_counts():
@@ -1062,13 +1120,16 @@ def launch_checks(tag, launches, layers, fresh, steps, n_split):
 def serve_and_count(server, tag, device="cuda"):
     """The two waves of `slice_prompts` (10 requests x 32 tokens, through
     generate and generate_stream) after a warm-up request, with the kernel
-    launch counters reset just before and read just after; then the checks
-    of what the path launched (B1 per fresh first chunk, B4 per decode
-    step, its combine pass per its split plan, no backward), of the radix
-    hit and of the SLO metrics (TTFT and TPOT summaries in stats()["slo"],
-    slo_snapshot()'s window counting the waves' requests, a prefix digest
-    after the hit). Returns the summary; raises on a failed check."""
+    launch counters reset and the trace ring cleared just before and read
+    just after; then the checks of what the path launched (B1 per fresh
+    first chunk, B4 per decode step, its combine pass per its split plan, no
+    backward), of the radix hit, of the SLO metrics (TTFT and TPOT summaries
+    in stats()["slo"], slo_snapshot()'s window counting the waves'
+    requests, a prefix digest after the hit) and of the `serve.decode_chunk`
+    spans (one a host sync). Returns the summary; raises on a failed
+    check."""
     import torch
+    from ray_tpu_torch.util import tracing
 
     mc = server.model_cfg
     # warm-up request (cuBLAS handles, allocator); its stats are subtracted
@@ -1078,6 +1139,7 @@ def serve_and_count(server, tag, device="cuda"):
     wave1, wave2 = slice_prompts(mc.vocab_size)
     max_tokens = 32
 
+    tracing.clear()
     reset_launch_counts()
     t0 = time.perf_counter()
     res = asyncio.run(serve_wave(server, wave1, max_tokens))
@@ -1086,6 +1148,7 @@ def serve_and_count(server, tag, device="cuda"):
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts()
+    chunk_spans = [e for e in tracing.events() if e["name"] == "serve.decode_chunk"]
     after = server.stats()
     snap = server.slo_snapshot()
     digest = server.prefix_digest()
@@ -1107,6 +1170,9 @@ def serve_and_count(server, tag, device="cuda"):
             bool(after["slo"]["ttft_s"]) and bool(after["slo"]["tpot_ms"]),
         f"slo_snapshot() counts the waves' {n_req} requests": snap["ttft_count"] == n_req,
         "a prefix digest after the radix hit": bool(digest and digest["entries"]),
+        f"serve.decode_chunk spans == host syncs ({len(chunk_spans)} == {syncs}), their "
+        f"tokens == emitted tokens": len(chunk_spans) == syncs
+        and sum(e["args"]["tokens"] for e in chunk_spans) == tokens,
     }
     for what, ok in checks.items():
         log(f"[{tag}] {'ok  ' if ok else 'FAIL'} {what}")
@@ -1125,7 +1191,8 @@ def serve_and_count(server, tag, device="cuda"):
                    wall_s=wall, launches=launches, paged_n_split=n_split,
                    fresh_first_chunks=fresh, prefix_hit_tokens=hit,
                    slo_snapshot=snap, prefix_digest_entries=len(digest["entries"]),
-                   stats=after)
+                   decode_chunk_spans=len(chunk_spans),
+                   decode_chunk_span_s=sum(e["dur"] for e in chunk_spans), stats=after)
     log(f"[{tag}] {n_req} requests x {max_tokens} tokens in {wall:.2f} s: "
         f"TTFT p50 {summary['ttft_p50_s'] * 1e3:.1f} ms, decode "
         f"{summary['decode_tokens_per_s']:.1f} tokens/s over {syncs} host syncs "
@@ -1479,6 +1546,102 @@ def time_seal_parts(server, n_pages=4, reps=5):
     return out
 
 
+async def wave_then_settle(server, prompts, max_tokens, device, settle_s=0.05):
+    """serve_wave, then `settle_s` more on the loop, so that every request's
+    `serve.pd.first_decode` poll records before asyncio.run ends; returns
+    (results, the wave's seconds without the settle)."""
+    import torch
+    t0 = time.perf_counter()
+    res = await serve_wave(server, prompts, max_tokens)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    await asyncio.sleep(settle_s)
+    return res, seconds
+
+
+def time_begins(source):
+    """Wrap `source.begin` (the decode side's awaited prefill_begin, which
+    no trace window covers) with a host stopwatch; returns the list its
+    calls' seconds go to. `del source.begin` removes the wrapper."""
+    real, seconds = source.begin, []
+
+    async def begin(*args):
+        t0 = time.perf_counter()
+        out = await real(*args)
+        seconds.append(time.perf_counter() - t0)
+        return out
+    source.begin = begin
+    return seconds
+
+
+PD_WINDOWS = ("queue", "prefill", "kv_ship", "first_decode")   # the decode side's
+PD_SPANS = ("prefill_chunk", "kv_seal")                        # the prefill side's
+
+
+def pd_breakdown(events, n_req, shipped_pages, ttft_p50_s, begin_s):
+    """The PD wave's TTFT breakdown from the trace ring: per request (one
+    trace id), the seconds of each `serve.pd.*` family summed; their p50
+    over the requests and its share of TTFT p50. Checks: one trace a
+    request, each holding exactly one queue and one first_decode window and
+    at least one prefill, kv_ship, prefill_chunk and kv_seal (JAX records
+    one prefill window a wait and one kv_ship window a segment), and the
+    kv_seal spans' pages summing to the pages the wave shipped. Beside
+    them, `begin_s`: each request's awaited prefill_begin (a stopwatch, not
+    a window). Logs it; raises on a miss."""
+    traces = {}
+    for e in events:
+        if e["name"].startswith("serve.pd."):
+            fam = e["name"][len("serve.pd."):]
+            t = traces.setdefault(e.get("trace_id"), {})
+            t.setdefault(fam, []).append(e)
+    counts = {f: sorted({len(t.get(f, [])) for t in traces.values()})
+              for f in PD_WINDOWS + PD_SPANS}
+    seal_pages = sum(e["args"]["pages"] for t in traces.values() for e in t.get("kv_seal", []))
+    checks = {
+        f"one trace id a request ({len(traces)} traces, {n_req} requests)":
+            len(traces) == n_req and None not in traces,
+        f"one queue and one first_decode window a request (counts {counts['queue']}, "
+        f"{counts['first_decode']})": counts["queue"] == counts["first_decode"] == [1],
+        f"prefill, kv_ship, prefill_chunk and kv_seal in every request (counts "
+        f"{[counts[f] for f in ('prefill', 'kv_ship', 'prefill_chunk', 'kv_seal')]})":
+            all(counts[f] and counts[f][0] >= 1
+                for f in ("prefill", "kv_ship", "prefill_chunk", "kv_seal")),
+        f"kv_seal pages == pages shipped ({seal_pages} == {shipped_pages:.0f})":
+            seal_pages == shipped_pages,
+        f"one prefill_begin a request ({len(begin_s)})": len(begin_s) == n_req,
+    }
+    for what, ok in checks.items():
+        log(f"[pd] {'ok  ' if ok else 'FAIL'} {what}")
+    if not all(checks.values()):
+        raise AssertionError(f"pd trace checks failed: {counts}, seal pages {seal_pages}")
+    out = dict(ttft_p50_s=ttft_p50_s, windows_a_request=counts, kv_seal_pages=seal_pages,
+               families={})
+    for fam in PD_WINDOWS + PD_SPANS:
+        per = sorted(sum(e["dur"] for e in t.get(fam, [])) for t in traces.values())
+        p50 = float(np.median(per))
+        out["families"][fam] = dict(p50_s=p50, max_s=per[-1], share_of_ttft_p50=p50 / ttft_p50_s)
+    # what the windows before the first token cover: the rest of TTFT is
+    # spent where no window is open (inside the awaited prefill_begin, the
+    # event loop running other requests' work)
+    before = [sum(e["dur"] for f in PD_WINDOWS + PD_SPANS if f != "first_decode"
+                  for e in t.get(f, [])) for t in traces.values()]
+    out["covered_before_first_token_p50_s"] = float(np.median(before))
+    out["begin"] = dict(p50_s=float(np.median(begin_s)), max_s=max(begin_s),
+                        share_of_ttft_p50=float(np.median(begin_s)) / ttft_p50_s,
+                        calls=len(begin_s))
+    log(f"[pd] TTFT breakdown over {n_req} requests (trace windows, p50 a request, share of "
+        f"TTFT p50 {ttft_p50_s * 1e3:.1f} ms): " + ", ".join(
+            f"{f} {r['p50_s'] * 1e3:.2f} ms ({r['share_of_ttft_p50']:.3f})"
+            for f, r in out["families"].items())
+        + f"; windows before the first token cover {float(np.median(before)) * 1e3:.2f} ms a "
+        f"request (p50); the awaited prefill_begin (stopwatch, no window; in one process the "
+        f"wave's prefill chunks and decode ticks run inside it) "
+        f"{out['begin']['p50_s'] * 1e3:.2f} ms ({out['begin']['share_of_ttft_p50']:.3f}); "
+        f"kv_seal pages {seal_pages}; first_decode falls after the first token ({smi_line()})")
+    return out
+
+
 def run_pd(device="cuda", preset="llama_1b", max_tokens=16):
     """Prefill/decode disaggregation at llama_1b width and depth: a
     colocated LLMServer, a PrefillServer and a PDServer on one card and one
@@ -1494,7 +1657,8 @@ def run_pd(device="cuda", preset="llama_1b", max_tokens=16):
     prompts through generate and generate_stream, the launch counters
     reset just before and read just after: B1 once a layer per fresh first
     chunk on the prefill side, B4 once a layer per decode step of the PD
-    server, no backward kernel; the PD server itself prefills nothing.
+    server, no backward kernel; the PD server itself prefills nothing; and
+    its TTFT breakdown from the trace windows (`pd_breakdown`).
     Seal (device to shm) and install (shm to device) times per page are
     measured around every call of (a) and (b), the device synchronized on
     both sides; the wave runs without those syncs."""
@@ -1503,6 +1667,7 @@ def run_pd(device="cuda", preset="llama_1b", max_tokens=16):
     from ray_tpu_torch.serve.llm import LLMServer
     from ray_tpu_torch.serve.pd import PDServer, PrefillServer
     from ray_tpu_torch.util import metrics as tm
+    from ray_tpu_torch.util import tracing
 
     cuda = device == "cuda"
     colo = LLMServer(serving_config(preset, device))
@@ -1578,21 +1743,26 @@ def run_pd(device="cuda", preset="llama_1b", max_tokens=16):
     gc.collect()
 
     # (c) the concurrent wave, on fresh prompts, without the stopwatches'
-    # device syncs: its TTFT and tokens/s are those of the plain path
+    # device syncs: its TTFT and tokens/s are those of the plain path. The
+    # trace ring is cleared just before it and read after it.
     seal.restore()
     install.restore()
     wave1, wave2 = slice_prompts(mc.vocab_size, seed=4321)
     wmax = 32
     b_pd, b_pre = pd.stats(), prefill.stats()
     pd.slo_snapshot()
+    k_wave = tm.kv_ship_counters()
+    begin_s = time_begins(pd._ship_source())
+    tracing.clear()
     reset_launch_counts()
-    t0 = time.perf_counter()
-    res = asyncio.run(serve_wave(pd, wave1, wmax))
-    res += asyncio.run(serve_wave(pd, wave2, wmax))
-    if cuda:
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    res, wall = [], 0.0
+    for wave in (wave1, wave2):
+        got, seconds = asyncio.run(wave_then_settle(pd, wave, wmax, device))
+        res += got
+        wall += seconds
     launches = launch_counts()
+    del pd._ship_source().begin              # the class's method again
+    wave_pages = tm.kv_ship_counters()["pages"] - k_wave["pages"]
     a_pd, a_pre = pd.stats(), prefill.stats()
     tokens, syncs, decode_s, steps = decode_delta(a_pd, b_pd)
     fresh = a_pre["prefill"]["chunk_local"] - b_pre["prefill"]["chunk_local"]
@@ -1614,6 +1784,8 @@ def run_pd(device="cuda", preset="llama_1b", max_tokens=16):
         raise AssertionError(f"pd wave checks failed: fresh {fresh}, stats {a_pd}")
     launch_checks("pd", launches, L, fresh, steps, n_split_of(pd, device))
     ttft = sorted(r[1] for r in res)
+    breakdown = pd_breakdown(tracing.events(), n_req, wave_pages, float(np.median(ttft)),
+                             begin_s)
     out.update(requests=n_req, wave_max_tokens=wmax, ttft_p50_s=float(np.median(ttft)),
                ttft_max_s=ttft[-1], decode_tokens=tokens, decode_host_syncs=syncs,
                decode_steps=steps, decode_s=decode_s,
@@ -1623,7 +1795,8 @@ def run_pd(device="cuda", preset="llama_1b", max_tokens=16):
                seal=dict(calls=seal.calls, pages=seal.n_pages, ms_per_page=seal.ms_per_page()),
                install=dict(calls=install.calls, pages=install.n_pages,
                             ms_per_page=install.ms_per_page()),
-               kv_ship=a_pd["kv_ship"], slo_pd=a_pd["slo"]["ttft_s"])
+               kv_ship=a_pd["kv_ship"], slo_pd=a_pd["slo"]["ttft_s"],
+               ttft_breakdown=breakdown)
     if cuda:
         out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
         out["seal_parts"] = time_seal_parts(pd)
@@ -3181,11 +3354,17 @@ def time_1f1b(devices, preset="llama_1b", n_micro=8, b=1, t=PIPE_SEQ, lr=0.1, ov
     devices[0], each ended by a synchronize of every card; per stage, the
     device time of its ops (CUDA events around each op on its card) over
     the step's wall time, against the GPipe bound of the idle share,
-    (S - 1) / (M + S - 1)."""
+    (S - 1) / (M + S - 1); beside it each stage's bubble from its own
+    `pipeline.fwd` / `pipeline.bwd` trace windows (`bubble_stats`: idle
+    over the stage's span, its first window to its last), whose busy
+    seconds must be within PIPE_BUSY_TOL of the CUDA-event busy ms; then
+    one more step with RAY_TPU_TRACE=0, which must record no window and
+    create no CUDA event."""
     import torch
     from ray_tpu_torch.models.convert import init_params
     from ray_tpu_torch.models.llama import Llama, LlamaConfig
     from ray_tpu_torch.train.mpmd import PipelineStage, sgd
+    from ray_tpu_torch.util import tracing
 
     cfg = getattr(LlamaConfig, preset)(**(overrides or {}))
     model = init_params(Llama(cfg, device=devices[0]),
@@ -3211,11 +3390,23 @@ def time_1f1b(devices, preset="llama_1b", n_micro=8, b=1, t=PIPE_SEQ, lr=0.1, ov
     run_1f1b(stages, mbs, tgts)
     sync()
     events = [[] for _ in devices]
+    tracing.clear()
     t0 = time.perf_counter()
     run_1f1b(stages, mbs, tgts, watch)
     sync()
     step_ms = (time.perf_counter() - t0) * 1e3
     busy = [sum(a.elapsed_time(z) for a, z in ev) for ev in events]
+    windows = [e for e in tracing.events() if e["cat"] == "pipeline"]
+    bubble = tracing.bubble_stats(tracing.to_chrome(windows), extra_cats=("pipeline",))
+    per_stage = [bubble["workers"].get((os.getpid(), i), {}) for i in range(len(stages))]
+    tracing.clear()
+    with environ(RAY_TPU_TRACE="0"):
+        tracing.refresh()
+        n_events = tracing.DEVICE_EVENTS
+        run_1f1b(stages, mbs, tgts)
+        sync()
+        off = dict(windows=len(tracing.events()), cuda_events=tracing.DEVICE_EVENTS - n_events)
+    tracing.refresh()
     del stages
     tgts0 = [y.to(devices[0]) for y in tgts]
     whole_step(model, mbs, tgts0, lr)
@@ -3229,13 +3420,37 @@ def time_1f1b(devices, preset="llama_1b", n_micro=8, b=1, t=PIPE_SEQ, lr=0.1, ov
     out = dict(step_ms=step_ms, whole_step_ms=whole_ms, tokens_per_s=tokens / step_ms * 1e3,
                whole_tokens_per_s=tokens / whole_ms * 1e3, busy_ms=busy,
                busy_share=[x / step_ms for x in busy],
-               gpipe_idle_bound=(n - 1) / (n_micro + n - 1))
+               gpipe_idle_bound=(n - 1) / (n_micro + n - 1),
+               window_bubble=[dict(w, stage=i) for i, w in enumerate(per_stage)],
+               window_busy_over_event_busy=[w.get("busy_s", 0.0) * 1e3 / x
+                                            for w, x in zip(per_stage, busy)],
+               trace_off=off)
     log(f"[{tag}] 1F1B step, {preset} bf16, {n} stages on {[str(d) for d in devices]}, M="
         f"{n_micro} of B={b} T={t}: {step_ms:.1f} ms ({out['tokens_per_s']:.0f} tokens/s), "
         f"the whole model's step on {devices[0]} {whole_ms:.1f} ms "
         f"({out['whole_tokens_per_s']:.0f} tokens/s); each stage's device-busy share "
+        f"(CUDA events, busy over the step's wall time) "
         f"{[round(x, 3) for x in out['busy_share']]} (GPipe idle bound "
-        f"{out['gpipe_idle_bound']:.3f})")
+        f"{out['gpipe_idle_bound']:.3f}) ({smi_line()})")
+    log(f"[{tag}] 1F1B bubble from the stages' trace windows (bubble_stats: idle over each "
+        f"stage's span, first window to last): " + "; ".join(
+            f"stage {i}: {w.get('windows', 0)} windows, busy {w.get('busy_s', 0) * 1e3:.1f} ms "
+            f"of span {w.get('span_s', 0) * 1e3:.1f} ms, bubble "
+            f"{w.get('bubble_fraction', 0):.3f}" for i, w in enumerate(per_stage))
+        + f"; GPipe bound {n - 1}/{n_micro + n - 1} = {out['gpipe_idle_bound']:.3f}; with "
+        f"RAY_TPU_TRACE=0: {off['windows']} windows, {off['cuda_events']} CUDA events")
+    checks = {
+        f"{2 * n_micro} windows a stage": all(w.get("windows") == 2 * n_micro
+                                             for w in per_stage),
+        f"window busy within {PIPE_BUSY_TOL:.0%} of CUDA-event busy (ratios "
+        f"{[round(r, 4) for r in out['window_busy_over_event_busy']]})":
+            all(abs(r - 1) <= PIPE_BUSY_TOL for r in out["window_busy_over_event_busy"]),
+        "RAY_TPU_TRACE=0: no window, no CUDA event": off == dict(windows=0, cuda_events=0),
+    }
+    for what, ok in checks.items():
+        log(f"[{tag}] {'ok  ' if ok else 'FAIL'} 1F1B trace: {what}")
+    if not all(checks.values()):
+        raise AssertionError(f"{tag} 1F1B trace windows: {out}")
     return out
 
 
@@ -4245,14 +4460,91 @@ def check_dp_raises(device="cuda"):
     return msg
 
 
+def run_rl_sebulba(device="cuda", iters=3):
+    """(h) Path `rl_sebulba`: the sebulba pipeline's lockstep schedule, in
+    process, as ray_tpu's SebulbaPipeline drives it over actors: the port's
+    RolloutActor on jax_env="cartpole" (DeviceRollout(TorchCartPole) on
+    `device`) at IMPALA's defaults (1 env x 50 steps, seed 0), its weights
+    at version 0, then `iters` times sample_traj, IMPALA's _sebulba_update
+    on the trajectory without its version and actor, and set_weights(w,
+    version). The IMPALA is the port's, built without its inline EnvRunner
+    (gymnasium is not on the chip machine). Its params must be torch.equal
+    to the same learner fed the same DeviceRollout directly, the recompile
+    guard must read 1, the `pipeline.act` windows must carry versions
+    0..iters-1, and no kernel may launch."""
+    import torch
+    from ray_tpu_torch.rllib import DeviceRollout, IMPALAConfig, TorchCartPole
+    from ray_tpu_torch.rllib.algorithms.impala import IMPALA, IMPALALearner
+    from ray_tpu_torch.rllib.learner import make_learner_group
+    from ray_tpu_torch.rllib.rl_module import RLModule
+    from ray_tpu_torch.rllib.sample_batch import SampleBatch
+    from ray_tpu_torch.rllib.sebulba import RolloutActor
+    from ray_tpu_torch.util import tracing
+
+    class DeviceIMPALA(IMPALA):
+        def setup(self, config):
+            self.learner_group = make_learner_group(
+                IMPALALearner, RLModule(TorchCartPole.spec()), config, seed=config.seed)
+            self.learner = self.learner_group.learner
+
+    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
+    cfg = IMPALAConfig().resources(device=device).sebulba(enabled=False, lockstep=True,
+                                                          jax_env="cartpole")
+    kw = dict(num_envs=cfg.num_envs_per_env_runner, rollout_len=cfg.rollout_fragment_length,
+              seed=cfg.seed)
+    algo = DeviceIMPALA(cfg)
+    actor = RolloutActor({**kw, "device": cfg.device}, index=0, jax_env=cfg.sebulba_jax_env)
+    ref = IMPALALearner(RLModule(TorchCartPole.spec()), cfg, seed=cfg.seed)
+    ref_roll = DeviceRollout(TorchCartPole, device=device, **kw)
+    tracing.clear()
+    reset_launch_counts()
+    actor.set_weights(algo.get_weights(), 0)
+    times = []
+    for version in range(1, iters + 1):
+        t0 = time.perf_counter()
+        traj, info = actor.sample_traj()
+        algo._sebulba_update(SampleBatch({k: v for k, v in traj.items()
+                                          if k not in ("version", "actor")}))
+        actor.set_weights(algo.get_weights(), version)
+        sync()
+        times.append(time.perf_counter() - t0)
+        ref_roll.set_weights(ref.get_weights(), version - 1)
+        ref.update(ref_roll.sample())
+    launches = no_launches("rl_sebulba", device)
+    got, want = algo.get_weights(), ref.get_weights()
+    equal = got.keys() == want.keys() and all(torch.equal(got[k], want[k]) for k in want)
+    versions = [e["args"]["version"] for e in tracing.events() if e["name"] == "pipeline.act"]
+    cache = algo.learner.jit_cache_size()
+    checks = {
+        f"params torch.equal to the learner fed DeviceRollout directly, after {iters} "
+        f"iterations": equal,
+        f"jit_cache_size() == 1 ({cache})": cache == 1,
+        f"pipeline.act windows carry versions {list(range(iters))} ({versions})":
+            versions == list(range(iters)),
+        f"info steps == {kw['num_envs'] * kw['rollout_len']} ({info['steps']})":
+            info["steps"] == kw["num_envs"] * kw["rollout_len"],
+    }
+    for what, ok in checks.items():
+        log(f"[rl] rl_sebulba {'ok  ' if ok else 'FAIL'} {what}")
+    log(f"[rl] rl_sebulba lockstep on {device}: {iters} iterations of sample_traj + "
+        f"_sebulba_update + set_weights, {1e3 * float(np.median(times)):.2f} ms an iteration "
+        f"(median; {smi_line()})")
+    if not all(checks.values()):
+        raise AssertionError(f"rl_sebulba checks failed: {checks}")
+    return dict(iterations=iters, params_equal=equal, jit_cache_size=cache,
+                act_versions=versions, ms_an_iteration=[1e3 * t for t in times],
+                launches=launches)
+
+
 RL_PATHS = ("rl_device", "rl_cnn", "rl_offline", "rl_offpolicy", "rl_multi_agent",
-            "rl_dreamer")
+            "rl_dreamer", "rl_sebulba")
 
 
 def run_rl(device="cuda"):
     """The `rl` phase: (a) cuda-against-cpu parity of every learner's update,
     (b) path `rl_device`, (c) path `rl_cnn`, (d) path `rl_offline`, (e) path
-    `rl_offpolicy`, (f) path `rl_multi_agent`, (g) path `rl_dreamer`, and
+    `rl_offpolicy`, (f) path `rl_multi_agent`, (g) path `rl_dreamer`, (h)
+    path `rl_sebulba`, and
     the dp learner group's ValueError on one card. Path `rl_ppo`
     (PPOConfig().environment("CartPole-v1")...build().train()), the online
     off-policy Algorithms' `train()` and `PPOConfig().multi_agent(...)`
@@ -4263,6 +4555,7 @@ def run_rl(device="cuda"):
                      ("rl_device", run_rl_device), ("rl_cnn", run_rl_cnn),
                      ("rl_offline", run_rl_offline), ("rl_offpolicy", run_rl_offpolicy),
                      ("rl_multi_agent", run_rl_multi_agent), ("rl_dreamer", run_rl_dreamer),
+                     ("rl_sebulba", run_rl_sebulba),
                      ("dp_raises", check_dp_raises)):
         t0 = time.perf_counter()
         out[name] = fn(device)

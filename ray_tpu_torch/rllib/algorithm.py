@@ -11,7 +11,13 @@ one builder chain configures both packages.
 Remote env runners (`num_env_runners > 0`), evaluation actors and the
 sebulba pipeline schedule `ray_tpu` actors: the port does not copy the
 runtime, so they raise `NotImplementedError` here (ROADMAP §C). The
-port's `EnvRunner` is a plain object that `ray_tpu.remote` makes an actor.
+port's `EnvRunner` and `RolloutActor` are plain objects that
+`ray_tpu.remote` makes actors. The pipeline is composed instead: build
+the algorithm with `.sebulba(enabled=False, ...)` and its `sebulba_*`
+fields set, and hand it to `ray_tpu.rllib.sebulba.SebulbaPipeline`,
+which reads the hooks JAX's reads (`_supports_sebulba`,
+`_make_runner_kwargs`, `_sebulba_update`, `get_weights`,
+`learner.jit_cache_size`).
 """
 
 import copy
@@ -21,7 +27,7 @@ from typing import Any, Callable, Dict, List, Optional, Type, Union
 import numpy as np
 
 from ray_tpu_torch.train.checkpoint import Checkpoint
-from .env_runner import EnvRunner, resolve_env_creator
+from .env_runner import EnvRunner, host_env_runner, resolve_env_creator
 from .sample_batch import SampleBatch
 
 _RUNTIME = ("runs ray_tpu actors, runtime code the port does not copy (ROADMAP.md §C): "
@@ -65,8 +71,19 @@ class AlgorithmConfig:
         self.evaluation_duration = 5
         self.evaluation_num_env_runners = 0
         self.evaluation_parallel_to_training = False
-        # sebulba pipeline (raises in the port; see the module note)
+        # sebulba pipeline (composed, not built; see the module note)
         self.sebulba_enabled = False
+        self.sebulba_num_rollout_actors = 2
+        self.sebulba_inflight_rollouts = 2
+        self.sebulba_replay_capacity = 64
+        self.sebulba_replay_mode = "uniform"   # or "fifo"
+        self.sebulba_sample_batch_count = 1    # trajectories per update
+        self.sebulba_min_replay = 1
+        self.sebulba_broadcast_interval = 1    # updates per param broadcast
+        self.sebulba_max_staleness = None      # drop samples older than this
+        self.sebulba_lockstep = False          # sync-parity schedule
+        self.sebulba_replay_seed = None        # defaults to config.seed
+        self.sebulba_jax_env = None            # e.g. "cartpole" (device path)
         # misc
         self.seed = 0
         self.framework_str = "torch"
@@ -148,10 +165,27 @@ class AlgorithmConfig:
             self.evaluation_parallel_to_training = evaluation_parallel_to_training
         return self
 
-    def sebulba(self, *, enabled: bool = True, **_):
-        """Accepted so one builder chain configures both packages; building
-        an algorithm with it enabled raises (see the module note)."""
+    def sebulba(self, *, enabled: bool = True, num_rollout_actors=None,
+                inflight_rollouts=None, replay_capacity=None, replay_mode=None,
+                sample_batch_count=None, min_replay=None, broadcast_interval=None,
+                max_staleness=None, lockstep=None, replay_seed=None, jax_env=None):
+        """The sebulba pipeline's settings (Podracer, arXiv:2104.06272), as
+        JAX's `sebulba()` stores them; an unknown keyword raises TypeError.
+        `jax_env` names a device env of `rllib/sebulba.py` ("cartpole").
+        Building an algorithm with `enabled=True` raises (see the module
+        note)."""
         self.sebulba_enabled = bool(enabled)
+        for name, value in (("num_rollout_actors", num_rollout_actors),
+                            ("inflight_rollouts", inflight_rollouts),
+                            ("replay_capacity", replay_capacity),
+                            ("replay_mode", replay_mode),
+                            ("sample_batch_count", sample_batch_count),
+                            ("min_replay", min_replay),
+                            ("broadcast_interval", broadcast_interval),
+                            ("max_staleness", max_staleness), ("lockstep", lockstep),
+                            ("replay_seed", replay_seed), ("jax_env", jax_env)):
+            if value is not None:
+                setattr(self, f"sebulba_{name}", value)
         return self
 
     def framework(self, framework: str = "torch", **_):
@@ -204,14 +238,18 @@ class Algorithm:
 
     # -- runner --------------------------------------------------------------
     def _make_runner_kwargs(self) -> Dict[str, Any]:
+        """A rollout producer's kwargs: the EnvRunner's, and the learner's
+        `device`, where a device-resident rollout (`sebulba.RolloutActor`
+        on a device env) runs."""
         cfg = self.config
         return dict(env_creator=resolve_env_creator(cfg.env, cfg.env_config),
                     num_envs=cfg.num_envs_per_env_runner,
                     rollout_len=cfg.rollout_fragment_length,
-                    explore=cfg.explore, seed=cfg.seed, gamma=cfg.gamma)
+                    explore=cfg.explore, seed=cfg.seed, gamma=cfg.gamma,
+                    device=cfg.device)
 
     def _setup_runners(self):
-        self._local_runner = EnvRunner(**self._make_runner_kwargs())
+        self._local_runner = host_env_runner(self._make_runner_kwargs())
 
     def _sample_all(self, weights) -> (SampleBatch, Dict):
         b = self._local_runner.sample(weights)
@@ -254,14 +292,24 @@ class Algorithm:
         """Greedy-policy episodes on a cached inline runner."""
         cfg = self.config
         if self._local_eval_runner is None:
-            self._local_eval_runner = EnvRunner(
-                **{**self._eval_runner_kwargs(), "seed": cfg.seed + 10_000})
+            self._local_eval_runner = host_env_runner(
+                {**self._eval_runner_kwargs(), "seed": cfg.seed + 10_000})
         runner = self._local_eval_runner
         runner.set_weights(self.get_weights())
         start = runner.num_completed_episodes()
         while runner.num_completed_episodes() - start < cfg.evaluation_duration:
             runner.sample()
         return runner.pop_metrics()
+
+    # the sebulba pipeline replays data collected under OLDER params, so
+    # only algorithms with an off-policy correction (V-trace) opt in
+    _supports_sebulba = False
+
+    def _sebulba_update(self, batch: SampleBatch) -> Dict[str, float]:
+        """One learner update on a replay-sampled [T, B] batch: the sebulba
+        pipeline's learn stage. Algorithms that preprocess the batch first
+        (APPO's V-trace targets) override it."""
+        return self.learner_group.update(batch)
 
     def get_weights(self):
         raise NotImplementedError

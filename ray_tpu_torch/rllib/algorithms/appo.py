@@ -28,6 +28,8 @@ class APPOConfig(PPOConfig):
 
 
 class APPO(PPO):
+    _supports_sebulba = True
+
     @torch.no_grad()
     def _targets(self, batch):
         """V-trace (pg advantages, value targets) of a [T, B] batch under the

@@ -71,6 +71,10 @@ class IMPALALearner(TorchLearner):
 
 
 class IMPALA(Algorithm):
+    # V-trace corrects for stale behaviour policies, so replayed sebulba
+    # trajectories (gap >= 1) are exactly its intended input
+    _supports_sebulba = True
+
     def setup(self, config: IMPALAConfig):
         self._setup_runners()
         spec = self._local_runner.get_spec()

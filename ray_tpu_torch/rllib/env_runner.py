@@ -217,3 +217,10 @@ class Episodes:
                 "episode_return_max": float(np.max(rets)),
                 "episode_return_min": float(np.min(rets)),
                 "episode_len_mean": float(np.mean(lens))}
+
+
+def host_env_runner(runner_kwargs: Dict) -> EnvRunner:
+    """The EnvRunner of a rollout producer's kwargs
+    (`Algorithm._make_runner_kwargs`). It acts on the host CPU, so the
+    learner's `device` among them is not its own."""
+    return EnvRunner(**{k: v for k, v in runner_kwargs.items() if k != "device"})

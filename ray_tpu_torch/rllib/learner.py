@@ -11,6 +11,9 @@ Metrics stay device tensors until `_host_metrics`, which reads every step
 of an `update` in one copy to the host: one sync an update, not one a step.
 `metrics["grad_norm"]` is the global norm before clipping, as JAX's
 (`optax.global_norm(grads)`); `cur_lr` is schedule(n) for the n-th update.
+`jit_cache_size()` counts the distinct (column, shape, dtype) signatures
+`update_once` has seen, where JAX counts its jitted update's compiled
+variants: the recompile guard reads 1 under the fixed [T, B] contract.
 
 The data-parallel group. JAX's group is one process over a {"dp": N}
 mesh, where XLA inserts the gradient psum. The port's is N ranks, one a
@@ -54,6 +57,7 @@ class TorchLearner:
         self.device = resolve_device(getattr(config, "device", "cuda"))
         self.net = module.make_net(seed, self.device)
         self._num_updates = 0
+        self._signatures = set()   # the inputs' (column, shape, dtype) sets seen
         self._dp = None
         self.dp_bytes = 0          # bytes all-reduced by the last dp update
         if mesh is not None:
@@ -92,6 +96,8 @@ class TorchLearner:
         tensors. The metrics are device tensors, but for `cur_lr`. In a dp
         group the batch is the whole minibatch, and the step is the group's;
         a minibatch with fewer rows than learners returns {}, as JAX's."""
+        self._signatures.add(tuple(sorted(
+            (k, tuple(v.shape), str(v.dtype).replace("torch.", "")) for k, v in batch.items())))
         if self._dp is not None:
             _, n, rank = self._dp
             rows = min(v.shape[0] for v in batch.values())
@@ -118,6 +124,13 @@ class TorchLearner:
         metrics["cur_lr"] = float(self._lr_schedule(self._num_updates))
         self._num_updates += 1
         return metrics
+
+    def jit_cache_size(self) -> int:
+        """The number of distinct input signatures (columns, shapes,
+        dtypes) the update has seen: JAX's recompile guard. Fixed-shape
+        [T, B] batches make it 1 across a whole run; a second entry is a
+        shape or dtype leak."""
+        return len(self._signatures)
 
     @torch.no_grad()
     def _dp_mean(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

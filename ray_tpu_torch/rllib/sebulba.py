@@ -1,6 +1,6 @@
-"""Device-resident rollouts: the port's counterpart of the device half of
-`ray_tpu/rllib/sebulba.py` (`JaxCartPole`, `DeviceRollout`; Podracer
-architectures, arXiv:2104.06272).
+"""Device-resident rollouts and the rollout actor: the port's counterpart
+of `ray_tpu/rllib/sebulba.py`'s `JaxCartPole`, `DeviceRollout` and
+`RolloutActor` (Podracer architectures, arXiv:2104.06272).
 
 `TorchCartPole` is CartPole-v1 as tensor functions (classic-control
 physics, Barto-Sutton-Anderson '83, f32) over a [B, 4] state on a device,
@@ -14,22 +14,32 @@ it, and one copy to the host ends `sample()`, as JAX's one `device_get`.
 It emits EnvRunner's columns and bootstrap rule, and keeps the episode
 metrics on the host after the unroll.
 
-The actor-driven pieces (`RolloutActor`, `SebulbaPipeline`, `ReplayActor`)
-schedule `ray_tpu` actors and stay with the runtime (ROADMAP §C).
+`RolloutActor` is a plain class (a caller makes it an actor): one
+rollout producer, `DeviceRollout` on a device env or the gymnasium
+`EnvRunner`, whose `sample_traj` stamps each trajectory with the version
+of the weights it was collected under and records a `pipeline.act`
+window. `ray_tpu.rllib.sebulba.SebulbaPipeline` (which schedules actors
+and the replay actor, runtime code the port does not copy) drives it
+over the port's IMPALA or APPO; its lockstep mode then reproduces the
+port's synchronous IMPALA exactly.
 """
 
 import math
-from typing import Dict, Optional
+import os
+import socket
+import time
+from typing import Any, Dict, Optional
 
 import torch
 
 from ray_tpu_torch.device import resolve_device
+from ray_tpu_torch.util import metrics, tracing
 from . import sample_batch as SB
-from .env_runner import Episodes, record_param_version
+from .env_runner import Episodes, host_env_runner, record_param_version
 from .rl_module import ModuleSpec, RLModule
 from .sample_batch import SampleBatch
 
-__all__ = ["TorchCartPole", "DeviceRollout"]
+__all__ = ["TorchCartPole", "DeviceRollout", "RolloutActor"]
 
 
 class TorchCartPole:
@@ -176,3 +186,81 @@ class DeviceRollout:
 
     def close(self):
         self._state = None
+
+
+# ---------------------------------------------------------------------------
+# rollout actor
+# ---------------------------------------------------------------------------
+
+def _rollout_backend(runner_kwargs: Dict[str, Any], jax_env):
+    """`DeviceRollout` on `jax_env` (a name of `_TORCH_ENVS` or an env
+    class) on the runner kwargs' device, "cuda" when they name none (never
+    the CPU unless asked); else the gymnasium `EnvRunner`, which acts on
+    the host CPU."""
+    if jax_env is not None:
+        return DeviceRollout(jax_env, num_envs=runner_kwargs["num_envs"],
+                             rollout_len=runner_kwargs["rollout_len"],
+                             seed=runner_kwargs.get("seed", 0),
+                             device=runner_kwargs.get("device", "cuda"))
+    return host_env_runner(runner_kwargs)
+
+
+class RolloutActor:
+    """One saturated act+step loop; `ray_tpu.remote(...)(RolloutActor)`
+    deploys it as an actor.
+
+    ``sample_traj`` returns two values, (trajectory, info): the [T, B]
+    trajectory can stay in the actor's object store while the small info
+    dict (version, step count) travels back by value."""
+
+    def __init__(self, runner_kwargs: Dict[str, Any], index: int = 0, jax_env=None):
+        self.index = index
+        self._params = None
+        self._version = -1
+        self._impl = _rollout_backend(runner_kwargs, jax_env)
+
+    def ping(self) -> int:
+        return self.index
+
+    def get_spec(self):
+        return self._impl.get_spec()
+
+    def init_params(self):
+        return self._impl.init_params()
+
+    def node_info(self) -> Dict:
+        return {"pid": os.getpid(), "ppid": os.getppid(),
+                "hostname": socket.gethostname(), "actor": self.index}
+
+    def set_weights(self, params, version: int):
+        """Broadcast target: the learner does not wait on it (but in
+        lockstep mode)."""
+        self._params = params
+        self._version = int(version)
+        self._impl.set_weights(params, version)
+
+    def sample_traj(self):
+        t0 = time.time()
+        batch = self._impl.sample(self._params)
+        t1 = time.time()
+        steps = int(batch[SB.REWARDS].size)
+        metrics.get_or_create(metrics.Counter, "rllib_env_steps",
+                              "env steps collected by sebulba rollout actors").inc(steps)
+        tracing.ship_window("pipeline.act", "rllib", None, t0, t1, tid=os.getpid(),
+                            args={"actor": self.index, "version": self._version})
+        traj = dict(batch)
+        traj["version"] = self._version
+        traj["actor"] = self.index
+        info = {"version": self._version, "steps": steps, "actor": self.index,
+                "dur_s": t1 - t0}
+        return traj, info
+
+    # ray_tpu's actor-method options protocol (what `ray_tpu.actor.method`
+    # sets): the call returns two object refs
+    sample_traj.__rtpu_method_options__ = {"num_returns": 2}
+
+    def pop_metrics(self) -> Dict:
+        return self._impl.pop_metrics()
+
+    def close(self):
+        self._impl.close()

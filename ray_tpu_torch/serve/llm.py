@@ -92,6 +92,7 @@ from ray_tpu_torch.ops.paged_attention import PagedKVCache
 from ray_tpu_torch.serve import radix_cache as _radix
 from ray_tpu_torch.serve.kv_transfer import KVPageStash, kv_demote_enabled
 from ray_tpu_torch.util import metrics as _metrics
+from ray_tpu_torch.util import tracing
 
 
 @dataclasses.dataclass
@@ -645,7 +646,8 @@ class LLMServer:
 
     def _note_sync(self, tokens: int, dt_s: float, chunk: Optional[int] = None):
         """Record one host sync of the decode engine (a fused chunk or a
-        speculative verify tick) in stats() and the SLO histograms."""
+        speculative verify tick) in stats(), the SLO histograms and the
+        trace ring (`serve.decode_chunk`)."""
         st = self._decode_stats
         st["host_syncs"] += 1
         st["tokens"] += tokens
@@ -664,6 +666,14 @@ class LLMServer:
         if self.page_mgr is not None and self.page_mgr.num_pages:
             self._m_kv_util.observe(
                 self.page_mgr.pages_in_use / self.page_mgr.num_pages, tags=eng_tags)
+        if tracing.enabled():
+            # one span per device round trip (the sync has happened, so the
+            # window covers the device work): the decode timeline shows the
+            # chunked ticks (N tokens a sync)
+            tracing.record_span(
+                "serve.decode_chunk", "serve", tracing.current_trace_id(),
+                tracing.new_span_id(), None, time.time() - dt_s, dt_s,
+                args={"tokens": tokens, "chunk": chunk, "batch": len(self._active)})
 
     def reconfigure(self, user_config: Optional[Dict[str, Any]]):
         """Serve `user_config` hook: adjust engine knobs that need neither a

@@ -27,6 +27,14 @@ installed pages. A sealed page is gathered on the device and copied once
 into the segment; an installed segment is read through tensors that alias
 it, copied once to the device and scattered into the pool in place.
 
+Each streamed request is one trace (`util/tracing.py`, JAX's spans): the
+decode side records its `serve.pd.queue` (slot reservation), one
+`serve.pd.prefill` a wait for sealed segments, one `serve.pd.kv_ship` a
+segment pulled and installed, and `serve.pd.first_decode` (activation to
+the second token, polled off the tick loop); the prefill side records
+`serve.pd.prefill_chunk` and `serve.pd.kv_seal` spans under the same
+trace id.
+
 RAY_TPU_KV_SHIP=0 restores the whole-KV-in-the-RPC hand-off (`prefill_kv`).
 PD needs paged=True: the dense cache has no page identity to ship.
 """
@@ -41,6 +49,7 @@ import torch
 from ray_tpu_torch.serve import kv_transfer
 from ray_tpu_torch.serve.llm import LLMConfig, LLMServer, _PrefillJob
 from ray_tpu_torch.util import metrics as _metrics
+from ray_tpu_torch.util import tracing
 
 
 def _require_paged(server: LLMServer, who: str):
@@ -101,8 +110,7 @@ class PrefillServer(LLMServer):
         shipment in the background; returns the ship header at once (the
         segments follow through prefill_wait). The first `skip_pages` pages
         are never shipped: the decode side holds them in its prefix cache.
-        `trace_id` is accepted for the reference's signature; the port has
-        no tracing spans yet."""
+        The shipment's spans go under `trace_id`."""
         _require_paged(self, "PrefillServer")
         cfg = self.config
         prompt = list(prompt_ids)
@@ -124,8 +132,8 @@ class PrefillServer(LLMServer):
                 "KV pages NOT shipped: decode already held them in its "
                 "prefix cache").inc(skip_pages)
         job.task = asyncio.ensure_future(self._run_ship(
-            ship_id, job, slot_idx, prompt, cached, skip_pages, temperature,
-            top_p, top_k, logprobs))
+            ship_id, job, slot_idx, prompt, cached, skip_pages, trace_id,
+            temperature, top_p, top_k, logprobs))
         L, Kh, _n, pg, D = self.cache.k_pages.shape
         return {"ship": True, "ship_id": ship_id,
                 "layout": [int(L), int(Kh), int(pg), int(D)],
@@ -137,7 +145,8 @@ class PrefillServer(LLMServer):
 
     async def _run_ship(self, ship_id: str, job: _ShipJob, slot_idx: int,
                         prompt: List[int], cached: int, skip_pages: int,
-                        temperature, top_p, top_k, logprobs: bool):
+                        trace_id: Optional[str], temperature, top_p, top_k,
+                        logprobs: bool):
         cfg = self.config
         ps = cfg.page_size
         total_pages = -(-len(prompt) // ps)
@@ -152,14 +161,19 @@ class PrefillServer(LLMServer):
                 # pull of these overlaps the next chunk
                 done_pages = total_pages if last_logits is not None else pj.pos // ps
                 if done_pages > published:
-                    job.segments.append(self._publish_pages(
-                        ship_id, seg_index, slot_idx, published, done_pages - published))
+                    with tracing.span("serve.pd.kv_seal", "serve", trace_id=trace_id,
+                                      args={"pages": done_pages - published}):
+                        seg = self._publish_pages(ship_id, seg_index, slot_idx, published,
+                                                  done_pages - published)
+                    job.segments.append(seg)
                     seg_index += 1
                     published = done_pages
                     job.event.set()
                 if last_logits is not None:
                     break
-                last_logits = self._prefill_chunk(pj)
+                with tracing.span("serve.pd.prefill_chunk", "serve", trace_id=trace_id,
+                                  args={"pos": pj.pos}):
+                    last_logits = self._prefill_chunk(pj)
                 await asyncio.sleep(0)   # let waiters and pulls interleave
             if cfg.prefix_cache:
                 # the NEXT request sharing this prefix prefills its suffix only
@@ -302,6 +316,7 @@ class DecodeServer(LLMServer):
     def __init__(self, config: Optional[LLMConfig] = None, params=None):
         super().__init__(config, params)
         self._ship_reader = kv_transfer.ShipReader()
+        self._trace_polls = set()   # the first_decode polls in flight (the loop holds tasks weakly)
 
     def _pd_slo_tags(self) -> Dict[str, str]:
         return {"engine": self._slo_tags["engine"], "path": "pd"}
@@ -343,14 +358,18 @@ class DecodeServer(LLMServer):
         are sealed."""
         P = len(prompt)
         ps = self.config.page_size
+        trace_id = tracing.new_trace_id()
+        t_q0 = time.time()
         # the reservation comes FIRST: its cached page count decides how many
         # leading pages prefill need not ship
         slot_idx, cached = await self._reserve(prompt, P + max_tokens, use_prefix=True)
+        tracing.record_window("serve.pd.queue", "serve", trace_id, t_q0, time.time(),
+                              args={"slot": slot_idx})
         skip_pages = cached // ps
         reader = self._ship_reader
         ship_id = None
         try:
-            header = await source.begin(prompt, skip_pages, None, temperature, top_p,
+            header = await source.begin(prompt, skip_pages, trace_id, temperature, top_p,
                                         top_k, logprobs)
             ship_id = header["ship_id"]
             L, Kh, pg, D = header["layout"]
@@ -368,8 +387,11 @@ class DecodeServer(LLMServer):
             installed = header["skip_pages"]
             res: Dict[str, Any] = {"done": False}
             while not res["done"]:
+                t_w0 = time.time()
                 res = await source.wait(ship_id, have)
+                tracing.record_window("serve.pd.prefill", "serve", trace_id, t_w0, time.time())
                 for seg in res["segments"]:
+                    t_s0 = time.time()
                     att = await reader.fetch(
                         seg, (L, Kh, pg, D), header["dtype"], data_addr,
                         rpc_fetch=lambda oid: source.fetch(ship_id, oid))
@@ -380,6 +402,9 @@ class DecodeServer(LLMServer):
                     finally:
                         att.close()
                     installed = seg["page_start"] + seg["n_pages"]
+                    tracing.record_window("serve.pd.kv_ship", "serve", trace_id, t_s0,
+                                          time.time(), args={"pages": seg["n_pages"],
+                                                             "bytes": seg["nbytes"]})
                 have += len(res["segments"])
             if installed != total_pages:
                 raise RuntimeError(f"shipment ended at page {installed}/{total_pages}")
@@ -395,13 +420,16 @@ class DecodeServer(LLMServer):
             self.page_mgr.register_prefix(slot_idx, prompt)
         return self._finish_admit(slot_idx, P, max_tokens, eos_id, stream, temperature,
                                   top_p, top_k, logprobs, int(res["token"]),
-                                  res.get("logprob"), t_request)
+                                  res.get("logprob"), t_request, trace_id)
 
     def _finish_admit(self, slot_idx: int, P: int, max_tokens: int, eos_id,
                       stream: bool, temperature, top_p, top_k, logprobs: bool,
-                      first: int, logprob: Optional[float], t_request: float):
+                      first: int, logprob: Optional[float], t_request: float,
+                      trace_id: Optional[str] = None):
         """The shared tail of both PD admissions: build the slot, emit the
-        first token (sampled by prefill), observe PD TTFT, start decoding."""
+        first token (sampled by prefill), observe PD TTFT, start decoding;
+        with a trace id, record `serve.pd.first_decode` when the first
+        decode tick lands the second token."""
         # prompt_ids=None: PD needs the paged cache and speculation the dense
         # one, so prompt-lookup drafting never runs here
         slot = self._make_slot(P, max_tokens, eos_id, stream, temperature, top_p,
@@ -424,6 +452,10 @@ class DecodeServer(LLMServer):
         else:
             self._active[slot_idx] = slot
             self._ensure_tick_loop()
+            if trace_id is not None and tracing.enabled():
+                poll = asyncio.ensure_future(_first_decode_window(slot, trace_id, time.time()))
+                self._trace_polls.add(poll)
+                poll.add_done_callback(self._trace_polls.discard)
         return slot_idx, slot, finished
 
     async def generate_with_kv(self, prompt_ids: List[int], kv: Dict[str, Any],
@@ -485,6 +517,14 @@ class DecodeServer(LLMServer):
         self.cache.k_pages[:, :, rows] = k_pages.to(self.device)
         self.cache.v_pages[:, :, rows] = v_pages.to(self.device)
         self.cache.lengths[slot_idx] = plen
+
+
+async def _first_decode_window(slot, trace_id: str, t_act: float):
+    """TTFT's tail: activation to the first decode tick landing token 2
+    (token 1 was sampled on prefill). Polls the slot, off the tick loop."""
+    while len(slot.generated) < 2 and not slot.done_event.is_set():
+        await asyncio.sleep(0.002)
+    tracing.record_window("serve.pd.first_decode", "serve", trace_id, t_act, time.time())
 
 
 class PDServer(DecodeServer):

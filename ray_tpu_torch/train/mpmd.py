@@ -21,26 +21,36 @@ Where the port differs from JAX's module:
   runtime code, which the port does not import. A runner that composes
   `ray_tpu.train.mpmd.MPMDPipeline` with actors of this class gets JAX's
   schedule (the tests do so).
-- The `pipeline.fwd` / `pipeline.bwd` trace windows need
-  `ray_tpu/util/tracing.py` (runtime code) and are left out.
 - A stage takes an explicit `device` ("cuda" by default); its ops run
   under that device, and `forward` and `backward` move their inputs to
   it. They do not wait for the device. Driven from one host thread, four
   llama_1b stages on four cards at B=1 barely overlapped: each card was
   busy about a quarter of the 1F1B step, which took longer than the whole
   model's step on one card (four NVIDIA H100s, `chip_smoke.py --cards 4`).
+- Each op records JAX's `pipeline.fwd` / `pipeline.bwd` window, args
+  {"stage", "mb"}, through the port's `util/tracing.py` (ring and ship
+  outbox). JAX's window ends after `block_until_ready`; the port's stage
+  does not wait, so on a card the window is a pair of CUDA events on the
+  stage's stream (`tracing.DeviceClock`: the device's time for the op,
+  with no host sync), placed on the wall-clock axis when the ring is read.
+  On the CPU it is host time. Each stage's tid is (pid, stage), where
+  JAX's is the pid of the stage's actor: in-process stages share a pid,
+  and `tracing.bubble_stats` groups windows by tid.
 - Parameters are a tree (dicts, lists, tuples) of tensors
   (`torch.utils._pytree`); a stage function may be
   `torch.func.functional_call` over an `nn.Module`.
 """
 
 import contextlib
+import os
+import time
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
 from torch.utils import _pytree as pytree
 
 from ray_tpu_torch.device import resolve_device
+from ray_tpu_torch.util import tracing
 
 __all__ = ["PipelineStage", "sgd"]
 
@@ -92,6 +102,27 @@ class PipelineStage:
         self._grad = None
         self._steps = 0
         self._peak_stash = 0
+        self._clock = (tracing.DeviceClock(self.device) if self.device.type == "cuda"
+                       else None)
+
+    # ---------------------------------------------------------------- trace
+    def _open(self):
+        """The start of an op's window: a CUDA event on the stage's stream,
+        host time on the CPU, None with tracing off."""
+        if not tracing.enabled():
+            return None
+        return time.time() if self._clock is None else self._clock.start()
+
+    def _ship(self, name: str, t0, mb) -> None:
+        if t0 is None:
+            return
+        tid, args = (os.getpid(), self.index), {"stage": self.index, "mb": mb}
+        if self._clock is None:
+            tracing.ship_window(name, "pipeline", tracing.current_trace_id(), t0,
+                                time.time(), tid=tid, args=args)
+        else:
+            self._clock.ship_window(name, "pipeline", tracing.current_trace_id(), t0,
+                                    tid=tid, args=args)
 
     def _here(self):
         """Run on this stage's card (a kernel launches on the current device)."""
@@ -113,6 +144,7 @@ class PipelineStage:
         ``backward`` (remat); forward-only runs pass stash=False so
         nothing accumulates. ``after`` is an ignored sequencing token (a
         runner passes the previous op of this stage)."""
+        t0 = self._open()
         x, target = self._to_device(x), self._to_device(target)
         with self._here(), torch.no_grad():
             if self._owns_loss() and target is not None:
@@ -122,6 +154,7 @@ class PipelineStage:
         if stash:
             self._stash[mb] = (x, target)
             self._peak_stash = max(self._peak_stash, len(self._stash))
+        self._ship("pipeline.fwd", t0, mb)
         return out
 
     def backward(self, mb, grad=None, after=None):
@@ -129,6 +162,7 @@ class PipelineStage:
         autograd, accumulate the parameters' gradient, return the input's
         (None at stage 0, where nothing consumes it). ``after`` is the
         runner's sequencing token."""
+        t0 = self._open()
         x, target = self._stash.pop(mb)
         leaves, spec = pytree.tree_flatten(self.params)
         with self._here(), torch.enable_grad():
@@ -146,6 +180,7 @@ class PipelineStage:
             dp = [torch.zeros_like(p) if g is None else g
                   for p, g in zip(leaves, grads[:len(leaves)])]
             self._grad = dp if self._grad is None else [a + b for a, b in zip(self._grad, dp)]
+        self._ship("pipeline.bwd", t0, mb)
         if self.is_first or not wants_dx:
             return None
         return grads[-1]

@@ -151,3 +151,75 @@ def test_actor_pipeline_train_step_matches_reference(ray_session, S, M):
             np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=1e-5)
     assert out["stats"]["peak_live_refs"] <= S + 1, out["stats"]
     assert all(s["stash_depth"] == 0 for s in out["stats"]["stages"])
+
+
+def _run_1f1b(stages, mbs, tgts):
+    """One step in process in MPMDPipeline.train_step's order: scan the
+    stages round-robin, running each stage's next planned op once its input
+    exists."""
+    from collections import deque
+    S, M = len(stages), len(mbs)
+    plans = [deque(tmpmd._one_f_one_b_plan(i, S, M)) for i in range(S)]
+    acts, grads = {}, {}
+    while any(plans):
+        for i, plan in enumerate(plans):
+            if not plan:
+                continue
+            kind, m = plan[0]
+            if kind == "F":
+                x = mbs[m] if i == 0 else acts.pop((i - 1, m), None)
+                if x is None:
+                    continue
+                out = stages[i].forward(m, x, tgts[m] if i == S - 1 else None)
+                if i < S - 1:
+                    acts[(i, m)] = out
+            else:
+                g = None if i == S - 1 else grads.pop((i + 1, m), None)
+                if i < S - 1 and g is None:
+                    continue
+                grads[(i, m)] = stages[i].backward(m, g)
+            plan.popleft()
+    return [s.apply_grads(M) for s in stages]
+
+
+def test_stage_windows_match_jax_in_1f1b_order():
+    """2 stages x M=4 in process: the port's pipeline.fwd / pipeline.bwd
+    windows carry JAX's (name, stage, mb) sequence, each stage under its
+    own tid, 2M windows a stage in bubble_stats; with RAY_TPU_TRACE=0
+    none is recorded."""
+    from ray_tpu.train.mpmd import PipelineStage as JStage, sgd as jsgd
+    from ray_tpu.util import tracing as jtracing
+    from ray_tpu_torch.util import tracing as ttracing
+    S, d, M = 2, 8, 4
+    params, jfn = _tanh_stages(S, d)
+    mbs, tgts = _inputs(M, 4, d)
+    tfn, tloss = _torch_stage_fns()
+    jst = [JStage(i, S, jfn, params[i], loss_fn=_mse if i == S - 1 else None,
+                  optimizer=jsgd(0.1)) for i in range(S)]
+    tst = [tmpmd.PipelineStage(i, S, tfn, _np(params[i]), loss_fn=tloss if i == S - 1 else None,
+                               optimizer=tmpmd.sgd(0.1), device="cpu") for i in range(S)]
+    seqs = []
+    try:
+        for tracing, stages, xs, ts in ((jtracing, jst, mbs, tgts),
+                                        (ttracing, tst, [np.array(x) for x in mbs],
+                                         [np.array(t) for t in tgts])):
+            tracing.clear()
+            _run_1f1b(stages, xs, ts)
+            evs = [e for e in tracing.events() if e["cat"] == "pipeline"]
+            seqs.append(([(e["name"], e["args"]["stage"], e["args"]["mb"]) for e in evs],
+                         evs, tracing.take_shipped()))
+        (want, _, _), (got, evs, shipped) = seqs
+        assert got == want and len(got) == 2 * S * M
+        assert {e["tid"] for e in evs} == {(evs[0]["pid"], i) for i in range(S)}
+        assert [(e["name"], e["args"]["stage"], e["args"]["mb"]) for e in shipped] == got
+        stats = ttracing.bubble_stats(ttracing.to_chrome(evs), extra_cats=("pipeline",))
+        assert [w["windows"] for w in stats["workers"].values()] == [2 * M] * S
+        ttracing.clear()
+        with pytest.MonkeyPatch.context() as m:
+            m.setenv("RAY_TPU_TRACE", "0")
+            ttracing.refresh()
+            _run_1f1b(tst, [np.array(x) for x in mbs], [np.array(t) for t in tgts])
+            assert ttracing.events() == []
+    finally:
+        ttracing.clear()
+        ttracing.refresh()

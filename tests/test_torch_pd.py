@@ -275,3 +275,51 @@ def test_pd_slo_histograms_tagged(servers):
 
     assert any(t.get("path") == "pd" for t in series_tags("serve_ttft_s"))
     assert any(t.get("path") == "pd" for t in series_tags("serve_tpot_ms"))
+
+
+def _pd_traces(tracing):
+    """The ring's `serve.pd.*` windows and spans as {trace id: [(name,
+    args)]} in ring order, and the `serve.decode_chunk` spans' args."""
+    traces, chunks = {}, []
+    for e in tracing.events():
+        if e["name"].startswith("serve.pd."):
+            traces.setdefault(e.get("trace_id"), []).append((e["name"], e.get("args")))
+        elif e["name"] == "serve.decode_chunk":
+            chunks.append(e["args"])
+    return traces, chunks
+
+
+def test_pd_trace_windows_match_jax():
+    """JAX's request decomposition, request by request on fresh servers:
+    one trace id a request holding the decode side's queue / prefill /
+    kv_ship / first_decode windows and the prefill side's prefill_chunk /
+    kv_seal spans, in the same order with the same args; the engine's
+    decode_chunk spans alike. No timing is compared."""
+    from ray_tpu.util import tracing as jtracing
+    from ray_tpu_torch.util import tracing as ttracing
+    jset, tset = _build()
+    prompts = [list(range(5, 25)), list(range(60, 131)), [7, 3, 11] * 9]
+
+    async def one(server, p):
+        out = await server.generate(p, max_tokens=6)
+        await asyncio.sleep(0.05)     # first_decode's poll records after token 2
+        return out
+
+    runs = []
+    for (_, _, pd), tracing in ((jset, jtracing), (tset, ttracing)):
+        tracing.clear()
+        for p in prompts:
+            asyncio.run(one(pd, p))
+        runs.append(_pd_traces(tracing))
+        tracing.clear()
+    (want, want_chunks), (got, got_chunks) = runs
+    assert None not in got and len(got) == len(want) == len(prompts)
+    assert list(got.values()) == list(want.values())
+    assert got_chunks == want_chunks and got_chunks
+    for seq in got.values():
+        names = [n for n, _ in seq]
+        assert names[0] == "serve.pd.queue" and names[-1] == "serve.pd.first_decode"
+        assert names.count("serve.pd.queue") == names.count("serve.pd.first_decode") == 1
+        seal = sum(a["pages"] for n, a in seq if n == "serve.pd.kv_seal")
+        shipped = sum(a["pages"] for n, a in seq if n == "serve.pd.kv_ship")
+        assert seal == shipped > 0
