@@ -124,7 +124,19 @@ Phases, in order; a failing phase raises and the script exits non-zero:
              bytes, save and restore seconds and ms per step of each feed
              logged; (d) one step fed by the iterator under torch.profiler:
              the batch's host-to-device copy is a pinned copy on a stream
-             other than the flash forward kernel's.
+             other than the flash forward kernel's; (e) path `train_fit`:
+             TorchTrainer(...).fit() over (c)'s loop and batches (given as
+             datasets={"train": ...}, read through get_dataset_shard),
+             CheckpointConfig(num_to_keep=1), FailureConfig(max_failures=1):
+             6 steps each reporting {"loss", "step"}, checkpoints at steps 2
+             and 4, step 3's first attempt raising before its report and the
+             retry restoring from get_checkpoint(): no error, the history's
+             losses, every loss tensor and the final params equal (c)'s
+             uninterrupted run, only checkpoint_000001 (step 4) left and
+             named by the result, forward, dQ and dK/dV 16 launches each per
+             step taken (112 over 7); the fit's seconds, its ms a step
+             against the bare loop's, each report() call, the saves, the
+             report's checkpoint copies and the bytes left logged.
 12. mesh    - the device mesh (ray_tpu_torch.parallel): (a) world 1 on NCCL:
              make_mesh and auto_mesh, shard_tree of llama_1b's seeded bf16
              state_dict from the host (every block torch.equal to the
@@ -249,7 +261,18 @@ with at most 1e-3 of their coordinates lr / 100 apart; (c) llama_1b (bf16
 params) on {"fsdp": 4}, checkpointed sharded after step 3 of 6 (each rank
 its own blocks and AdamW moments), restored into a fresh model and AdamW:
 losses and every rank's blocks torch.equal to the uninterrupted run, with
-the bytes a rank and the seconds to save and to restore. `seqpipe`: ring attention at sp=4
+the bytes a rank and the seconds to save and to restore; (d) path
+`fsdp_fit`: every rank calls TorchTrainer(loop,
+scaling_config=ScalingConfig(num_workers=4, use_gpu=True),
+run_config=RunConfig(<a fresh shared directory>)).fit() over (c)'s loop,
+4 steps each reporting {"loss", "step"}, a sharded checkpoint reported at
+step 2 by every rank, then a second fit in a fresh directory with
+resume_from_checkpoint=Checkpoint(<the first run's checkpoint_000000>)
+taking steps 3-4: the losses of steps 3-4 and every rank's blocks
+torch.equal to the first fit's, progress.jsonl written by rank 0 alone (4
+lines, then 2), the copy holding every rank's shard and the layout, B1, B2
+and B3 16 launches each a rank a step (96 over 6), _world_info (4, rank);
+rank 0's copy seconds of the sharded checkpoint logged. `seqpipe`: ring attention at sp=4
 (llama_1b, bf16, B=1, T=16384, 4096 tokens a card, the batch placed by
 data_sharding(mesh, True)) against the f32 witness on one card at the
 whole T (loss, gathered logits, the sp-psum'd gradients), the bf16 flash
@@ -2391,7 +2414,8 @@ def profile_feed(step, batch, dev, sync):
             warm)
 
 
-def run_trainer(device="cuda", preset="llama_1b", batch=4, seq=2048, steps=6, save_at=3):
+def run_trainer(device="cuda", preset="llama_1b", batch=4, seq=2048, steps=6, save_at=3,
+                keep=None):
     """(c) train_resume and (d) the feed under the profiler. llama_1b at full
     width and depth, bf16, B=4, T=2048, build_llama_trainer's defaults:
     run A takes `steps` steps fed by iter_device_batches(prefetch=2) and is
@@ -2403,7 +2427,10 @@ def run_trainer(device="cuda", preset="llama_1b", batch=4, seq=2048, steps=6, sa
     restore, its losses and its final params are torch.equal to A's, and
     the flash kernels launch 16 times each per step. Then one step fed by
     the iterator runs under torch.profiler: the batch's copy must be a
-    pinned copy on a stream that runs no flash forward kernel."""
+    pinned copy on a stream that runs no flash forward kernel. `keep`, a
+    dict, receives run A's loss tensors, its final params on the host, its
+    ms a step after the save and the checkpoint's bytes (what `train_fit`
+    is held to)."""
     import gc
     import os
     import tempfile
@@ -2444,6 +2471,10 @@ def run_trainer(device="cuda", preset="llama_1b", batch=4, seq=2048, steps=6, sa
         more, out["ms_per_step_iterator"] = run_steps(step, feed, steps - save_at, sync)
         losses_a += more
         final_a = snapshot(model)
+        if keep is not None:
+            keep.update(losses=losses_a, final={k: v.cpu() for k, v in final_a.items()},
+                        ms_per_step=out["ms_per_step_iterator"],
+                        checkpoint_bytes=out["checkpoint_bytes"])
         del model, opt, step, feed
 
         # B: the same steps from the same init, fed by the plain copy
@@ -2529,6 +2560,193 @@ def run_trainer(device="cuda", preset="llama_1b", batch=4, seq=2048, steps=6, sa
         f"{[round(x, 4) for x in out['losses']]} ({smi})")
     if not all(checks.values()):
         raise AssertionError(f"trainer checks failed: {checks}")
+    return out
+
+
+@contextlib.contextmanager
+def timed_calls(module, name):
+    """Every outermost call of `module.name` in the block timed (a call it
+    makes of itself, as copytree does for a subdirectory, is inside its
+    caller's time): yields the list of each call's wall seconds."""
+    real = getattr(module, name)
+    seconds, depth = [], [0]
+
+    def timed(*args, **kw):
+        depth[0] += 1
+        t0 = time.perf_counter()
+        try:
+            return real(*args, **kw)
+        finally:
+            depth[0] -= 1
+            if not depth[0]:
+                seconds.append(time.perf_counter() - t0)
+
+    setattr(module, name, timed)
+    try:
+        yield seconds
+    finally:
+        setattr(module, name, real)
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path)
+               for f in files)
+
+
+FIT_SAVE_AT = (2, 4)    # train_fit reports a checkpoint after these steps
+FIT_FAIL_AT = 3         # the step whose first attempt raises before its report
+
+
+def run_train_fit(run_a, device="cuda", preset="llama_1b", batch=4, seq=2048, steps=6):
+    """(e) Path `train_fit`: TorchTrainer(...).fit() over the loop of
+    run_trainer's run A (the same build, seed and host batches, the batches
+    given as datasets={"train": ...} and read through
+    get_dataset_shard("train") and iter_device_batches(prefetch=2)), with
+    RunConfig(storage_path=<a temporary directory>,
+    CheckpointConfig(num_to_keep=1), FailureConfig(max_failures=1)): every
+    step reports {"loss", "step"}, steps FIT_SAVE_AT also a checkpoint
+    (model, AdamW, step); step FIT_FAIL_AT's first attempt raises after its
+    step and before its report, and the retry restores from
+    get_checkpoint() and takes the steps from there. Held: no error; the
+    history's steps and losses, each loss tensor (the retried step's too)
+    and the final params equal run A's (`run_a`, from run_trainer's
+    `keep`); the book keeps the last checkpoint alone, which
+    result.checkpoint names; the flash kernels launch 16 times each per
+    step taken. Timed: the fit, its ms a step over its last two steps (each
+    with its report) against run A's bare loop, each report() call, and
+    rank 0's checkpoint copies."""
+    import gc
+    import tempfile
+
+    import torch
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.train.llm_step import build_llama_trainer, host_batches
+
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    smi = smi_line()
+    root = tempfile.mkdtemp(prefix="chip_smoke_fit_")
+    scratch = os.path.join(root, "scratch")
+    batches = host_batches(getattr(LlamaConfig, preset)().vocab_size, batch, seq)[:steps]
+    seen = dict(attempts=0, resumed_from=[], losses={}, marks={}, reports=[], saves=[])
+
+    def loop(config):
+        seen["attempts"] += 1
+        attempt = seen["attempts"]
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        model, opt, step, _, dev = build_llama_trainer(preset, batch, seq, device=device)
+        start = 0
+        ckpt = train.get_checkpoint()
+        if ckpt is not None:
+            state = ckpt.to_state(target={"model": model.state_dict(),
+                                          "optim": opt.state_dict()})
+            model.load_state_dict(state["model"])
+            opt.load_state_dict(state["optim"])
+            start = state["step"]
+            seen["resumed_from"].append(start)
+            del state
+        shard = train.get_dataset_shard("train")
+        feed = train.iter_device_batches(shard[start:config["steps"]], device=dev, prefetch=2)
+        for n, tokens in zip(range(start + 1, config["steps"] + 1), feed):
+            seen["marks"][attempt, n] = time.perf_counter()
+            loss = step(tokens)
+            if n == FIT_FAIL_AT and attempt == 1:
+                raise RuntimeError(f"injected failure at step {n}")
+            seen["losses"][n] = loss
+            metrics = {"loss": loss.item(), "step": n}
+            ckpt = None
+            if n in FIT_SAVE_AT:
+                t0 = time.perf_counter()
+                ckpt = train.Checkpoint.from_state(
+                    {"model": model.state_dict(), "optim": opt.state_dict(), "step": n},
+                    path=os.path.join(config["scratch"], f"step{n}"))
+                seen["saves"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            train.report(metrics, checkpoint=ckpt)
+            seen["reports"].append((n, ckpt is not None, time.perf_counter() - t0))
+            if ckpt is not None:
+                shutil.rmtree(ckpt.path)        # the run directory holds its copy
+        sync()
+        seen["marks"][attempt, "end"] = time.perf_counter()
+        seen["final_equal"] = equal_trees({k: v.cpu() for k, v in model.state_dict().items()},
+                                          run_a["final"])
+
+    need = 3 * run_a["checkpoint_bytes"]     # the loop's, the old copy and the new at step 4
+    free = shutil.disk_usage(root).free
+    out = dict(device=smi, preset=preset, batch=batch, seq=seq, steps=steps,
+               save_at=list(FIT_SAVE_AT), fail_at=FIT_FAIL_AT)
+    try:
+        if free < 1.2 * need:
+            raise AssertionError(f"disk too small for train_fit: {free} < 1.2 x {need}")
+        reset_flash_counts()
+        with timed_calls(shutil, "copytree") as copies:
+            t0 = time.perf_counter()
+            result = train.TorchTrainer(
+                loop, train_loop_config={"steps": steps, "scratch": scratch},
+                datasets={"train": batches},
+                run_config=train.RunConfig(
+                    name="fit", storage_path=root,
+                    checkpoint_config=train.CheckpointConfig(num_to_keep=1),
+                    failure_config=train.FailureConfig(max_failures=1))).fit()
+            out["fit_s"] = time.perf_counter() - t0
+        launches = dict(zip(FLASH_NAMES, flash_counts()))
+        kept = sorted(d for d in os.listdir(result.path) if d.startswith("checkpoint_"))
+        out.update(
+            error=repr(result.error), kept=kept, bytes_left=dir_bytes(result.path),
+            checkpoint=result.checkpoint and os.path.basename(result.checkpoint.path),
+            kept_step=(train.Checkpoint(result.checkpoint.path).get_metadata()["metrics"]["step"]
+                       if result.checkpoint else None),
+            progress_lines=len(open(os.path.join(result.path, "progress.jsonl")).readlines()))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    taken = sorted(k for k in seen["marks"] if k[1] != "end")
+    last = seen["attempts"]
+    ms_fit = (seen["marks"][last, "end"] - seen["marks"][last, steps - 1]) / 2 * 1e3
+    history = result.metrics_history
+    want = [x.item() for x in run_a["losses"]]
+    out.update(
+        attempts=seen["attempts"], resumed_from=seen["resumed_from"], steps_taken=len(taken),
+        launches=launches, history_steps=[m["step"] for m in history],
+        losses=[m["loss"] for m in history], losses_run_a=want,
+        ms_per_step_fit=ms_fit, ms_per_step_bare=run_a["ms_per_step"],
+        report_ms=[(n, ck, x * 1e3) for n, ck, x in seen["reports"]],
+        save_s=seen["saves"], copy_s=copies, removed=not os.path.exists(root))
+    layers = getattr(LlamaConfig, preset)().n_layers
+    launches_due = layers * len(taken) if cuda else 0     # CPU tensors launch no kernel
+    checks = {
+        "fit() returned no error": result.error is None,
+        f"one failure at step {FIT_FAIL_AT}, resumed from step {FIT_SAVE_AT[0]}":
+            seen["attempts"] == 2 and seen["resumed_from"] == [FIT_SAVE_AT[0]],
+        f"history steps 1-{steps}, losses equal run A's": out["history_steps"] == list(
+            range(1, steps + 1)) and out["losses"] == want,
+        "every loss tensor (the retried step's too) torch.equal run A's": all(
+            torch.equal(seen["losses"][n], run_a["losses"][n - 1]) for n in range(1, steps + 1)),
+        "final params torch.equal run A's": seen.get("final_equal", False),
+        f"one checkpoint kept, checkpoint_000001 (step {FIT_SAVE_AT[-1]}), named by the result":
+            kept == ["checkpoint_000001"] and out["checkpoint"] == "checkpoint_000001"
+            and out["kept_step"] == FIT_SAVE_AT[-1],
+        f"progress.jsonl holds {steps} lines": out["progress_lines"] == steps,
+        f"two copies by report ({len(copies)})": len(copies) == len(FIT_SAVE_AT),
+        f"fwd, dq, dkv each launched {layers} x {len(taken)} steps taken" + (
+            "" if cuda else " (0 on the CPU)"): all(c == launches_due for c in launches.values()),
+        "run directory removed": out["removed"],
+    }
+    for what, ok in checks.items():
+        log(f"[train_fit] {'ok  ' if ok else 'FAIL'} {what}")
+    bare_ms = [x for _, ck, x in out["report_ms"] if not ck]
+    log(f"[train_fit] {preset} B={batch} T={seq}: fit {out['fit_s']:.2f} s over "
+        f"{len(taken)} steps taken; ms/step over steps {steps - 1}-{steps} in fit() "
+        f"{ms_fit:.1f} against the bare loop's {run_a['ms_per_step']:.1f}; report() without "
+        f"a checkpoint {min(bare_ms):.3f}-{max(bare_ms):.3f} ms; saves "
+        f"{[round(x, 2) for x in seen['saves']]} s, report's copies "
+        f"{[round(x, 2) for x in copies]} s, reports with a checkpoint "
+        f"{[round(x / 1e3, 2) for _, ck, x in out['report_ms'] if ck]} s; bytes left "
+        f"{out['bytes_left']}; launches {launches} ({smi})")
+    if not all(checks.values()):
+        raise AssertionError(f"train_fit checks failed: {checks}")
     return out
 
 
@@ -5054,10 +5272,142 @@ def checkpoint_fsdp_cards(rank, world, device, preset, seq, steps=6, save_at=3):
     return out
 
 
+def fit_fsdp_cards(rank, world, device, preset, seq, steps=4, save_at=2):
+    """(d) Path `fsdp_fit`: (c)'s loop under TorchTrainer on every rank,
+    ScalingConfig(num_workers=world), in a temporary directory shared by
+    the ranks (removed at the end): a first fit takes `steps` steps and
+    reports a sharded checkpoint after step `save_at`; a second fit in a
+    fresh directory resumes from the first run's checkpoint_000000 (rank 0's
+    copy, whose path every rank knows from the run directory) and takes the
+    rest. Rank 0 returns the readings, and raises where a check fails."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.parallel.mesh import make_mesh
+    from ray_tpu_torch.parallel.sharding import data_sharding
+    from ray_tpu_torch.train.llm_step import build_llama_trainer, train_state
+    from ray_tpu_torch.train.worker_group import _world_info
+    cuda = device == "cuda"
+    mesh = make_mesh({"fsdp": world}, device=device)
+    where = [tempfile.mkdtemp(prefix="chip_smoke_fit_") if rank == 0 else None]
+    dist.broadcast_object_list(where, src=0)
+    root = where[0]
+    scaling = train.ScalingConfig(num_workers=world, use_gpu=cuda)
+    seen = {"losses": {}, "saves": []}
+
+    def loop(config):
+        model, opt, step, batches, _ = build_llama_trainer(preset, world, seq, device=device,
+                                                           mesh=mesh)
+        start = 0
+        ckpt = train.get_checkpoint()
+        if ckpt is not None:
+            got = ckpt.to_state(target=train_state(model, opt)[0], mesh=mesh)
+            model.load_state_dict(got["model"])
+            opt.load_state_dict(got["optim"])
+            start = got["step"]
+            del got
+        feed = train.iter_device_batches(batches[start:steps], sharding=data_sharding(mesh))
+        for n, tokens in zip(range(start + 1, steps + 1), feed):
+            loss = step(tokens)
+            seen["losses"][n] = loss
+            ckpt = None
+            if n == save_at:
+                state, specs = train_state(model, opt, step=n)
+                t0 = time.perf_counter()
+                ckpt = train.Checkpoint.from_state(
+                    state, path=os.path.join(root, "scratch", f"step{n}"), mesh=mesh,
+                    specs=specs)
+                seen["saves"].append(time.perf_counter() - t0)
+            train.report({"loss": loss.item(), "step": n}, checkpoint=ckpt)
+        seen["final"] = snapshot(model)
+
+    def fit(name, resume=None):
+        return train.TorchTrainer(loop, scaling_config=scaling,
+                                  run_config=train.RunConfig(name=name, storage_path=root),
+                                  resume_from_checkpoint=resume).fit()
+
+    world_info = _world_info(scaling)
+    try:
+        reset_flash_counts()
+        with timed_calls(shutil, "copytree") as copies:
+            t0 = time.perf_counter()
+            first = fit("first")
+            first_s = time.perf_counter() - t0
+            losses, final = dict(seen["losses"]), seen.pop("final")
+            _world_barrier(device)
+            kept = os.path.join(first.path, "checkpoint_000000")
+            t0 = time.perf_counter()
+            second = fit("second", resume=train.Checkpoint(kept))
+            second_s = time.perf_counter() - t0
+        launches = dict(zip(FLASH_NAMES, flash_counts()))
+        equal = dict(losses=all(torch.equal(seen["losses"][n], losses[n])
+                                for n in range(save_at + 1, steps + 1)),
+                     blocks=equal_trees(seen.pop("final"), final))
+        del final
+        _world_barrier(device)
+        listing = dict(
+            first=sorted(os.listdir(first.path)), second=sorted(os.listdir(second.path)),
+            kept=sorted(os.listdir(kept)), shards=sorted(os.listdir(os.path.join(kept, "shards"))),
+            progress=[len(open(os.path.join(r.path, "progress.jsonl")).readlines())
+                      for r in (first, second)])
+        mine = dict(equal=equal, world_info=world_info, launches=launches,
+                    errors=[repr(first.error), repr(second.error)],
+                    steps=[[m["step"] for m in r.metrics_history] for r in (first, second)],
+                    copy_s=copies, save_s=seen["saves"], fit_s=[first_s, second_s],
+                    bytes_copied=dir_bytes(kept) if rank == 0 else None)
+    finally:
+        _world_barrier(device)
+        if rank == 0:
+            shutil.rmtree(root, ignore_errors=True)
+    seen_all = [None] * world
+    dist.all_gather_object(seen_all, mine)
+    _reset_peak(device)
+    if rank != 0:
+        return None
+    layers = getattr(LlamaConfig, preset)().n_layers
+    due = layers * (steps + steps - save_at) if cuda else 0     # CPU tensors launch none
+    shards = ["layout.json"] + [f"rank-{r:05d}.pt" for r in range(world)]
+    out = dict(ranks=seen_all, listing=listing, losses=[losses[n].item()
+                                                         for n in sorted(losses)],
+               removed=not os.path.exists(root))
+    checks = {
+        "no error in either fit": all(r["errors"] == ["None", "None"] for r in seen_all),
+        f"_world_info is ({world}, rank) on every rank": all(
+            tuple(r["world_info"]) == (world, i) for i, r in enumerate(seen_all)),
+        f"steps 1-{steps}, then {save_at + 1}-{steps}, on every rank": all(
+            r["steps"] == [list(range(1, steps + 1)), list(range(save_at + 1, steps + 1))]
+            for r in seen_all),
+        f"losses of steps {save_at + 1}-{steps} and every rank's blocks torch.equal": all(
+            r["equal"]["losses"] and r["equal"]["blocks"] for r in seen_all),
+        f"progress.jsonl by rank 0 alone: {steps}, then {steps - save_at} lines":
+            listing["progress"] == [steps, steps - save_at],
+        "one checkpoint copy, with every rank's shard and the layout":
+            listing["first"] == [".run_id", "checkpoint_000000", "progress.jsonl"]
+            and listing["shards"] == shards and len(seen_all[0]["copy_s"]) == 1
+            and all(not r["copy_s"] for r in seen_all[1:]),
+        f"B1, B2, B3 {due} launches each on every rank ({layers} x {2 * steps - save_at} "
+        f"steps)": all(c == due for r in seen_all for c in r["launches"].values()),
+        "directory removed": out["removed"],
+    }
+    for what, ok in checks.items():
+        log(f"[fsdp] fit {'ok  ' if ok else 'FAIL'} {what}")
+    log(f"[fsdp] fit: {preset} on {{'fsdp': {world}}} through TorchTrainer, sharded "
+        f"checkpoint at step {save_at} ({seen_all[0]['bytes_copied']} bytes copied by rank 0 in "
+        f"{[round(x, 3) for x in seen_all[0]['copy_s']]} s; saves a rank "
+        f"{[[round(x, 3) for x in r['save_s']] for r in seen_all]} s); fit s a rank "
+        f"{[[round(x, 2) for x in r['fit_s']] for r in seen_all]}; launches a rank "
+        f"{[r['launches'] for r in seen_all]}")
+    if not all(checks.values()):
+        raise AssertionError(f"fsdp fit checks failed: {checks}")
+    return out
+
+
 def fsdp_cards(rank, world, device, presets):
     """The `fsdp` group: (a) train_fsdp_cards, (b) the f32 layouts of
     llama_1b and a 2-layer Mixtral-width MoE against one card, (c)
-    checkpoint_fsdp_cards."""
+    checkpoint_fsdp_cards, (d) fit_fsdp_cards."""
     t0 = time.perf_counter()
     res = dict(train_fsdp=train_fsdp_cards(rank, world, device, presets))
     t1 = time.perf_counter()
@@ -5070,8 +5420,11 @@ def fsdp_cards(rank, world, device, presets):
     t2 = time.perf_counter()
     res["checkpoint"] = checkpoint_fsdp_cards(rank, world, device, presets["llama"],
                                               presets.get("fsdp_seq", 2048))
-    res["seconds"] = dict(train_fsdp=t1 - t0, layouts=t2 - t1,
-                          checkpoint=time.perf_counter() - t2)
+    t3 = time.perf_counter()
+    res["fit"] = fit_fsdp_cards(rank, world, device, presets["llama"],
+                                presets.get("fsdp_seq", 2048))
+    res["seconds"] = dict(train_fsdp=t1 - t0, layouts=t2 - t1, checkpoint=t3 - t2,
+                          fit=time.perf_counter() - t3)
     if rank == 0:
         log(f"[fsdp] group took {res['seconds']}")
     return res if rank == 0 else {}
@@ -5642,7 +5995,10 @@ def main() -> int:
 
     train = dict(grads=check_train_grads(), head_bf16=check_head_bf16(), **run_train())
     topology, nccl = check_topology(), check_nccl_world()
-    trainer = dict(run_trainer(), topology=topology, nccl=nccl)
+    run_a = {}
+    trainer = dict(run_trainer(keep=run_a), topology=topology, nccl=nccl)
+    trainer["fit"] = run_train_fit(run_a)
+    del run_a
     mesh = run_mesh()
     train_mesh = run_train_mesh()
     seqpipe = run_seqpipe()
@@ -5655,6 +6011,7 @@ def main() -> int:
     paths = {"serve": summary["launches"], "serve_moe": moe["launches"],
              "serve_pd": pd["launches"], "serve_tiered": tiered["launches"],
              "train": train["launches"], "train_resume": trainer["launches"],
+             "train_fit": trainer["fit"]["launches"],
              "serve_tp": mesh["launches"], "train_mesh": train_mesh["launches"],
              "ring": seqpipe["launches"]["ring"],
              "pipeline": seqpipe["launches"]["pipeline"], **rl["launches"]}

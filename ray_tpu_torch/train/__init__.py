@@ -1,14 +1,29 @@
-"""Training: the Llama decoder's step (`llm_step.py`), the counterpart of
-bench.py's flagship training step, with the checkpoint and the device feed
-of `ray_tpu.train`, and one stage of an MPMD pipeline (`mpmd.py`). The
-trainer, its worker actors and the pipeline's actor runner are `ray_tpu`'s
-runtime: `worker_group.py` holds the functions of it that touch the
-process world."""
+"""Training: the Train library's entry point (`TorchTrainer`, the port of
+`ray_tpu.train.JaxTrainer`, with its configs and the in-loop session:
+report / get_checkpoint / get_context / get_dataset_shard), the Llama
+decoder's step (`llm_step.py`, the counterpart of bench.py's flagship
+training step), the checkpoint and the device feed, and one stage of an
+MPMD pipeline (`mpmd.py`). The actor runtime stays with `ray_tpu`:
+`MPMDPipeline`, `build_pipeline` and the trainer's actor paths are
+composed from it over the port's `PipelineStage` and `TrainWorker`."""
 
 from ray_tpu_torch.train.checkpoint import Checkpoint
+from ray_tpu_torch.train.config import (TRAIN_DATASET_KEY, BackendConfig, CheckpointConfig,
+                                        DataConfig, FailureConfig, RunConfig, ScalingConfig,
+                                        SyncConfig, TrainingFailedError)
 from ray_tpu_torch.train.ingest import iter_device_batches, prefetch_iterator
 from ray_tpu_torch.train.llm_step import make_train_step, train_llama
 from ray_tpu_torch.train.mpmd import PipelineStage, sgd
+from ray_tpu_torch.train.session import (TrainContext, TrainingStopped, get_checkpoint,
+                                         get_context, get_dataset_shard, report)
+from ray_tpu_torch.train.trainer import Result, TorchTrainer
 
-__all__ = ["Checkpoint", "iter_device_batches", "make_train_step", "prefetch_iterator",
-           "train_llama", "PipelineStage", "sgd"]
+__all__ = [
+    "BackendConfig", "Checkpoint", "CheckpointConfig", "DataConfig",
+    "FailureConfig", "RunConfig", "SyncConfig", "TRAIN_DATASET_KEY",
+    "TrainingFailedError",
+    "ScalingConfig", "TorchTrainer", "Result", "TrainContext",
+    "TrainingStopped", "report", "get_checkpoint", "get_context",
+    "get_dataset_shard", "iter_device_batches", "prefetch_iterator",
+    "PipelineStage", "sgd", "make_train_step", "train_llama",
+]

@@ -183,6 +183,8 @@ def test_port_imports_no_jax_flax_or_ray_tpu():
     scanned = {str(f.relative_to(REPO)) for f in files}
     assert {f"ray_tpu_torch/parallel/{m}.py" for m in ("mesh", "sharding", "xla_ops")} <= scanned
     assert {"ray_tpu_torch/util/tracing.py", "ray_tpu_torch/rllib/sebulba.py"} <= scanned
+    assert {f"ray_tpu_torch/train/{m}.py" for m in ("config", "session", "trainer",
+                                                    "worker_group")} <= scanned
     banned = ("jax", "jaxlib", "flax", "optax", "orbax", "ray_tpu")
     bad = [(str(f.relative_to(REPO)), mod) for f in files for mod in _imports(f)
            if mod.split(".")[0] in banned]
