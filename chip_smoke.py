@@ -87,7 +87,18 @@ Phases, in order; a failing phase raises and the script exits non-zero:
              `kv_seal` spans, each family's p50 a request and its share of
              TTFT p50; the kv_seal pages equal to the pages shipped; beside
              them a stopwatch on the awaited prefill_begin, which no window
-             covers) and the seal / install times a page.
+             covers) and the seal / install times a page. Path
+             `serve_pd_proc`: the same checks with the PrefillServer in a
+             child process (`PrefillProcess`: spawned, a pipe, one asyncio
+             loop, every call and reply pickled; two CUDA contexts share
+             the card) behind a handle-shaped object: sequential ids equal
+             the colocated server's, the shared prefix not shipped again,
+             every segment attached here, a pull over the child's KV data
+             server and the whole-KV hand-off; the wave with B1 counted in
+             the child and B4 here, its TTFT p50/p99, tokens/s and
+             breakdown with the child's spans merged by trace id; the seal
+             ms a page in the child, the install ms a page here; no
+             `rtpt-*` segment left after both close.
 9. tiered  - radix KV demotion at llama_1b width (path `serve_tiered`): 8
              families of 1024-token prefixes round-robin on a 32-page pool
              with a 64 MiB stash, restored pages torch.equal to their
@@ -136,7 +147,15 @@ Phases, in order; a failing phase raises and the script exits non-zero:
              named by the result, forward, dQ and dK/dV 16 launches each per
              step taken (112 over 7); the fit's seconds, its ms a step
              against the bare loop's, each report() call, the saves, the
-             report's checkpoint copies and the bytes left logged.
+             report's checkpoint copies and the bytes left logged; (f) path
+             `ckpt_whole`: 4 gloo ranks on CPU tensors write llama_1b's
+             seeded bf16 weights and AdamW state (one optimizer step at lr
+             0 on seeded gradients) sharded on {"fsdp": 4} and restore it
+             onto {"fsdp": 2, "tp": 2}, every
+             block torch.equal the whole's there; this process reads it
+             whole (weights torch.equal the seed's, its peak host RSS
+             sampled) and serves it: greedy ids equal a server built from
+             the seed's weights, B1 and B4 counted.
 12. mesh    - the device mesh (ray_tpu_torch.parallel): (a) world 1 on NCCL:
              make_mesh and auto_mesh, shard_tree of llama_1b's seeded bf16
              state_dict from the host (every block torch.equal to the
@@ -261,7 +280,12 @@ with at most 1e-3 of their coordinates lr / 100 apart; (c) llama_1b (bf16
 params) on {"fsdp": 4}, checkpointed sharded after step 3 of 6 (each rank
 its own blocks and AdamW moments), restored into a fresh model and AdamW:
 losses and every rank's blocks torch.equal to the uninterrupted run, with
-the bytes a rank and the seconds to save and to restore; (d) path
+the bytes a rank and the seconds to save and to restore; then the same
+checkpoint read whole on every rank: rank 0's weights torch.equal
+gather_state_dict of the live blocks at the save and, served on card 0,
+give the greedy ids of a server built from those; every rank restores it
+onto {"fsdp": 2, "tp": 2}, its blocks and moments torch.equal the whole's
+there; (d) path
 `fsdp_fit`: every rank calls TorchTrainer(loop,
 scaling_config=ScalingConfig(num_workers=4, use_gpu=True),
 run_config=RunConfig(<a fresh shared directory>)).fit() over (c)'s loop,
@@ -1602,7 +1626,9 @@ PD_WINDOWS = ("queue", "prefill", "kv_ship", "first_decode")   # the decode side
 PD_SPANS = ("prefill_chunk", "kv_seal")                        # the prefill side's
 
 
-def pd_breakdown(events, n_req, shipped_pages, ttft_p50_s, begin_s):
+def pd_breakdown(events, n_req, shipped_pages, ttft_p50_s, begin_s, tag="pd",
+                 inside="in one process the wave's prefill chunks and decode ticks run "
+                        "inside it"):
     """The PD wave's TTFT breakdown from the trace ring: per request (one
     trace id), the seconds of each `serve.pd.*` family summed; their p50
     over the requests and its share of TTFT p50. Checks: one trace a
@@ -1635,9 +1661,9 @@ def pd_breakdown(events, n_req, shipped_pages, ttft_p50_s, begin_s):
         f"one prefill_begin a request ({len(begin_s)})": len(begin_s) == n_req,
     }
     for what, ok in checks.items():
-        log(f"[pd] {'ok  ' if ok else 'FAIL'} {what}")
+        log(f"[{tag}] {'ok  ' if ok else 'FAIL'} {what}")
     if not all(checks.values()):
-        raise AssertionError(f"pd trace checks failed: {counts}, seal pages {seal_pages}")
+        raise AssertionError(f"{tag} trace checks failed: {counts}, seal pages {seal_pages}")
     out = dict(ttft_p50_s=ttft_p50_s, windows_a_request=counts, kv_seal_pages=seal_pages,
                families={})
     for fam in PD_WINDOWS + PD_SPANS:
@@ -1653,16 +1679,265 @@ def pd_breakdown(events, n_req, shipped_pages, ttft_p50_s, begin_s):
     out["begin"] = dict(p50_s=float(np.median(begin_s)), max_s=max(begin_s),
                         share_of_ttft_p50=float(np.median(begin_s)) / ttft_p50_s,
                         calls=len(begin_s))
-    log(f"[pd] TTFT breakdown over {n_req} requests (trace windows, p50 a request, share of "
+    log(f"[{tag}] TTFT breakdown over {n_req} requests (trace windows, p50 a request, share of "
         f"TTFT p50 {ttft_p50_s * 1e3:.1f} ms): " + ", ".join(
             f"{f} {r['p50_s'] * 1e3:.2f} ms ({r['share_of_ttft_p50']:.3f})"
             for f, r in out["families"].items())
         + f"; windows before the first token cover {float(np.median(before)) * 1e3:.2f} ms a "
-        f"request (p50); the awaited prefill_begin (stopwatch, no window; in one process the "
-        f"wave's prefill chunks and decode ticks run inside it) "
+        f"request (p50); the awaited prefill_begin (stopwatch, no window; {inside}) "
         f"{out['begin']['p50_s'] * 1e3:.2f} ms ({out['begin']['share_of_ttft_p50']:.3f}); "
         f"kv_seal pages {seal_pages}; first_decode falls after the first token ({smi_line()})")
     return out
+
+
+# ------------------------------------------------------------------ pd across processes
+PREFILL_METHODS = ("prefill_begin", "prefill_wait", "prefill_fetch", "prefill_drop",
+                   "prefill_kv")
+
+
+def state_digest(sd):
+    """sha256 over a state_dict's keys, dtypes, shapes and bytes."""
+    import hashlib
+    import torch
+    h = hashlib.sha256()
+    for key, t in sd.items():
+        t = t.detach().to("cpu").contiguous()
+        h.update(f"{key}:{t.dtype}:{tuple(t.shape)};".encode())
+        h.update(t.reshape(-1).view(torch.uint8).numpy())
+    return h.hexdigest()
+
+
+def _send(conn, lock, msg):
+    """One message through the pipe, pickled by the standard pickler: a
+    tensor crosses as its bytes, never as a handle to shared memory."""
+    import pickle
+    blob = pickle.dumps(msg, protocol=5)
+    with lock:
+        conn.send_bytes(blob)
+
+
+def _prefill_child(conn, config, params_path, digest):
+    """The child of `PrefillProcess`: a PrefillServer built from the
+    parent's weights (a torch.save file), checked against the parent's
+    digest, then one asyncio loop answering calls by id."""
+    import threading
+    import traceback
+    import torch
+    from ray_tpu_torch.serve.pd import PrefillServer
+    lock = threading.Lock()
+    try:
+        params = torch.load(params_path, map_location="cpu", weights_only=True, mmap=True)
+        server = PrefillServer(config, params=params)
+        del params
+        mine = state_digest(server.model.state_dict())
+        if mine != digest:
+            raise AssertionError(f"the child's weights differ from the parent's: digest "
+                                 f"{mine} != {digest}")
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        _send(conn, lock, (None, False, traceback.format_exc()))
+        return
+    _send(conn, lock, (None, True, dict(pid=os.getpid(), digest=mine)))
+    asyncio.run(_prefill_child_loop(conn, lock, server))
+
+
+async def _prefill_child_loop(conn, lock, server):
+    """Read calls (id, name, args, kwargs) on a thread; run each as a task
+    of this loop, so a shipment's chunk task keeps running between calls;
+    answer (id, ok, value). Besides the five prefill methods it answers
+    what the parent cannot see from its own process: this process's launch
+    counts, kv_ship_counters(), trace ring and stats(), and a stopwatch on
+    the seal."""
+    import pickle
+    import threading
+    import traceback
+    from ray_tpu_torch.util import metrics as tm
+    from ray_tpu_torch.util import tracing
+
+    loop = asyncio.get_running_loop()
+    inbox = asyncio.Queue()
+
+    def read():
+        while True:
+            try:
+                msg = pickle.loads(conn.recv_bytes())
+            except (EOFError, OSError):
+                msg = None
+            loop.call_soon_threadsafe(inbox.put_nowait, msg)
+            if msg is None or msg[1] == "close":
+                return
+
+    threading.Thread(target=read, daemon=True).start()
+    device = "cuda" if server.device.type == "cuda" else "cpu"
+    watch = {}
+
+    def watch_seal():
+        watch["seal"] = Stopwatch(server, "_publish_pages", lambda a, out: out["n_pages"],
+                                  device)
+
+    def seal_watched():
+        w = watch.pop("seal")
+        w.restore()
+        return dict(calls=w.calls, pages=w.n_pages, ms_per_page=w.ms_per_page())
+
+    local = dict(launch_counts=launch_counts, reset_launch_counts=reset_launch_counts,
+                 ship_counters=tm.kv_ship_counters, trace_events=tracing.events,
+                 trace_clear=tracing.clear, stats=server.stats, watch_seal=watch_seal,
+                 seal_watched=seal_watched)
+
+    async def answer(cid, name, a, kw):
+        try:
+            if name in PREFILL_METHODS:
+                reply = (cid, True, await getattr(server, name)(*a, **kw))
+            else:
+                reply = (cid, True, local[name](*a, **kw))
+        except BaseException as e:  # noqa: BLE001 - the error reaches the request
+            reply = (cid, False, f"{type(e).__name__}: {e}\n{traceback.format_exc()}")
+        _send(conn, lock, reply)
+
+    tasks = set()
+    while True:
+        msg = await inbox.get()
+        if msg is None or msg[1] == "close":
+            break
+        task = asyncio.ensure_future(answer(*msg))
+        tasks.add(task)
+        task.add_done_callback(tasks.discard)
+    for task in tasks:
+        task.cancel()
+    if server._kv_server is not None:
+        server._kv_server.close()
+    server._ship_writer.close()       # unlinks any segment not dropped
+    if msg is not None:
+        _send(conn, lock, (msg[0], True, "closed"))
+
+
+class _Reply:
+    """The awaitable a `.remote()` returns (a DeploymentResponse's part)."""
+
+    def __init__(self, fut):
+        self._fut = fut
+
+    def __await__(self):
+        return asyncio.wrap_future(self._fut).__await__()
+
+    def result(self, timeout=None):
+        return self._fut.result(timeout)
+
+
+class _RemoteMethod:
+    def __init__(self, owner, name):
+        self._owner, self._name = owner, name
+
+    def remote(self, *a, **kw):
+        return self._owner.call(self._name, *a, **kw)
+
+
+class PrefillProcess:
+    """A PrefillServer in a child process (the `spawn` context: CUDA does
+    not survive a fork), behind an object shaped like a serve
+    DeploymentHandle: `prefill_begin`, `prefill_wait`, `prefill_fetch`,
+    `prefill_drop` and `prefill_kv` each have a `.remote()` that sends the
+    call through a pipe and returns an awaitable, as JAX's `_WirePrefill`
+    (`benchmarks/serving_bench.py`) does in one process. Every message is
+    pickled both ways. The child's weights come from `params` through a
+    torch.save file in a temporary directory (removed once the child has
+    loaded it, or at close); the child checks a digest of its state_dict
+    against this one's. `get(name)` calls one of the child's own readings
+    (`launch_counts`, `ship_counters`, `trace_events`, ...) and waits.
+    `segments` collects the shm names of every segment a `prefill_wait`
+    frame announced."""
+
+    CALLS = ("launch_counts", "reset_launch_counts", "ship_counters", "trace_events",
+             "trace_clear", "stats", "watch_seal", "seal_watched")
+
+    def __init__(self, config, params):
+        import concurrent.futures
+        import itertools
+        import multiprocessing as mp
+        import tempfile
+        import threading
+        import torch
+        self._tmp = tempfile.mkdtemp(prefix="chip_smoke_prefill_")
+        path = os.path.join(self._tmp, "params.pt")
+        host = {k: v.detach().to("cpu") for k, v in params.items()}
+        torch.save(host, path)
+        self.digest = state_digest(host)
+        del host
+        ctx = mp.get_context("spawn")
+        self._conn, child = ctx.Pipe()
+        self._proc = ctx.Process(target=_prefill_child,
+                                 args=(child, config, path, self.digest), daemon=True)
+        self._proc.start()
+        child.close()
+        self._lock = threading.Lock()
+        self._ids = itertools.count(1)
+        self._waiting = {}
+        self.ready = concurrent.futures.Future()
+        self.segments = set()
+        self.info = None
+        for name in PREFILL_METHODS:
+            setattr(self, name, _RemoteMethod(self, name))
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self):
+        import pickle
+        from ray_tpu_torch._private.object_store import seg_name
+        while True:
+            try:
+                cid, ok, value = pickle.loads(self._conn.recv_bytes())
+            except (EOFError, OSError):
+                break
+            fut, name = (self.ready, None) if cid is None else self._waiting.pop(cid, (None, None))
+            if fut is None:
+                continue
+            if ok and name == "prefill_wait":
+                self.segments.update(seg_name(s[k]) for s in value["segments"]
+                                     for k in ("oid", "wire"))
+            if ok:
+                fut.set_result(value)
+            else:
+                fut.set_exception(RuntimeError(f"prefill process: {value}"))
+        err = RuntimeError(f"the prefill process is gone (exit code {self._proc.exitcode})")
+        for fut in [self.ready] + [f for f, _ in list(self._waiting.values())]:
+            if not fut.done():
+                fut.set_exception(err)
+
+    def call(self, name, *a, **kw):
+        import concurrent.futures
+        fut = concurrent.futures.Future()
+        cid = next(self._ids)
+        self._waiting[cid] = (fut, name)
+        _send(self._conn, self._lock, (cid, name, a, kw))
+        return _Reply(fut)
+
+    def wait_ready(self, timeout=600):
+        """The child's pid and digest once it serves; raises its error."""
+        self.info = self.ready.result(timeout)
+        shutil.rmtree(self._tmp, ignore_errors=True)
+        return self.info
+
+    def get(self, name, *a, timeout=120, **kw):
+        return self.call(name, *a, **kw).result(timeout)
+
+    def close(self):
+        """Stop the child (its writer unlinks any segment left), wait for
+        it, and remove the weights file."""
+        if self._proc.is_alive():
+            try:
+                self.get("close", timeout=60)
+            except Exception:  # noqa: BLE001 - the join below decides
+                pass
+        self._proc.join(timeout=30)
+        if self._proc.is_alive():
+            self._proc.kill()
+            self._proc.join(timeout=10)
+        self._conn.close()
+        shutil.rmtree(self._tmp, ignore_errors=True)
+
+    def segments_left(self):
+        """The announced segments still in /dev/shm."""
+        return sorted(n for n in self.segments if os.path.exists(f"/dev/shm/{n}"))
 
 
 def run_pd(device="cuda", preset="llama_1b", max_tokens=16):
@@ -1684,7 +1959,10 @@ def run_pd(device="cuda", preset="llama_1b", max_tokens=16):
     its TTFT breakdown from the trace windows (`pd_breakdown`).
     Seal (device to shm) and install (shm to device) times per page are
     measured around every call of (a) and (b), the device synchronized on
-    both sides; the wave runs without those syncs."""
+    both sides; the wave runs without those syncs. (d) Path
+    `serve_pd_proc` (`run_pd_proc`): (a)-(c) again with the prefill
+    replica in a child process; the child is started first, so that its
+    start overlaps (a)-(c)."""
     import gc
     import torch
     from ray_tpu_torch.serve.llm import LLMServer
@@ -1693,149 +1971,358 @@ def run_pd(device="cuda", preset="llama_1b", max_tokens=16):
     from ray_tpu_torch.util import tracing
 
     cuda = device == "cuda"
+    shm_before = set(shm_segments())
     colo = LLMServer(serving_config(preset, device))
     params = colo.model.state_dict()
-    prefill = PrefillServer(serving_config(preset, device), params=params)
-    pd = PDServer(serving_config(preset, device), params=params, prefill=prefill)
-    mc = pd.model_cfg
-    L = mc.n_layers
-    page_bytes = 2 * pd.cache.k_pages[:, :, 0].numel() * pd.cache.k_pages.element_size()
-    pool_bytes = pd.cache.k_pages.numel() * pd.cache.k_pages.element_size()
-    seal = Stopwatch(prefill, "_publish_pages", lambda a, out: out["n_pages"], device)
-    install = Stopwatch(pd, "_install_pages", lambda a, out: a[2], device)
-    gen = lambda srv, p, n=max_tokens: asyncio.run(srv.generate(p, max_tokens=n))["tokens"]
-    gen(colo, list(range(1, 50)), 8)          # warm-up, both paths
-    gen(pd, list(range(1, 50)), 8)
+    child = PrefillProcess(serving_config(preset, device), params)
+    try:   # the child runs until run_pd_proc closes it
+        prefill = PrefillServer(serving_config(preset, device), params=params)
+        pd = PDServer(serving_config(preset, device), params=params, prefill=prefill)
+        mc = pd.model_cfg
+        L = mc.n_layers
+        page_bytes = 2 * pd.cache.k_pages[:, :, 0].numel() * pd.cache.k_pages.element_size()
+        pool_bytes = pd.cache.k_pages.numel() * pd.cache.k_pages.element_size()
+        seal = Stopwatch(prefill, "_publish_pages", lambda a, out: out["n_pages"], device)
+        install = Stopwatch(pd, "_install_pages", lambda a, out: a[2], device)
+        gen = lambda srv, p, n=max_tokens: asyncio.run(srv.generate(p, max_tokens=n))["tokens"]
+        gen(colo, list(range(1, 50)), 8)          # warm-up, both paths
+        gen(pd, list(range(1, 50)), 8)
 
-    wave1, wave2 = slice_prompts(mc.vocab_size)
-    seq = wave1 + wave2
-    k0 = tm.kv_ship_counters()
-    if cuda:
-        torch.cuda.synchronize()
-        base_mem = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-    equal, saved_at_hit = [], None
-    for i, p in enumerate(seq):
-        want = gen(colo, p)
-        before_saved = tm.kv_ship_counters()["saved_pages"]
-        got = gen(pd, p)
-        equal.append(got == want)
-        if i == len(wave1):   # wave 2's first prompt: the shared 256-token prefix
-            saved_at_hit = tm.kv_ship_counters()["saved_pages"] - before_saved
-    peak_growth = (torch.cuda.max_memory_allocated() - base_mem) if cuda else 0
-    k1 = tm.kv_ship_counters()
-    shipped = {k: k1[k] - k0[k] for k in k1}
+        wave1, wave2 = slice_prompts(mc.vocab_size)
+        seq = wave1 + wave2
+        k0 = tm.kv_ship_counters()
+        if cuda:
+            torch.cuda.synchronize()
+            base_mem = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        equal, saved_at_hit, wants = [], None, []
+        for i, p in enumerate(seq):
+            want = gen(colo, p)
+            wants.append(want)
+            before_saved = tm.kv_ship_counters()["saved_pages"]
+            got = gen(pd, p)
+            equal.append(got == want)
+            if i == len(wave1):   # wave 2's first prompt: the shared 256-token prefix
+                saved_at_hit = tm.kv_ship_counters()["saved_pages"] - before_saved
+        peak_growth = (torch.cuda.max_memory_allocated() - base_mem) if cuda else 0
+        k1 = tm.kv_ship_counters()
+        shipped = {k: k1[k] - k0[k] for k in k1}
 
-    rng = np.random.default_rng(999)
-    p_pull, p_rpc = rng.integers(1, mc.vocab_size, 200).tolist(), rng.integers(
-        1, mc.vocab_size, 150).tolist()
-    with environ(RAY_TPU_KV_ATTACH="0"):
-        before = tm.kv_ship_counters()
-        pull_equal = gen(pd, p_pull) == gen(colo, p_pull)
-        pulls = tm.kv_ship_counters()["stream_pulls"] - before["stream_pulls"]
-    with environ(RAY_TPU_KV_SHIP="0"):
-        before = tm.kv_ship_counters()
-        rpc_equal = gen(pd, p_rpc) == gen(colo, p_rpc)
-        rpc_segments = tm.kv_ship_counters()["segments"] - before["segments"]
+        rng = np.random.default_rng(999)
+        p_pull, p_rpc = rng.integers(1, mc.vocab_size, 200).tolist(), rng.integers(
+            1, mc.vocab_size, 150).tolist()
+        pulled = dict(pull=(p_pull, gen(colo, p_pull)), whole=(p_rpc, gen(colo, p_rpc)))
+        with environ(RAY_TPU_KV_ATTACH="0"):
+            before = tm.kv_ship_counters()
+            pull_equal = gen(pd, p_pull) == pulled["pull"][1]
+            pulls = tm.kv_ship_counters()["stream_pulls"] - before["stream_pulls"]
+        with environ(RAY_TPU_KV_SHIP="0"):
+            before = tm.kv_ship_counters()
+            rpc_equal = gen(pd, p_rpc) == pulled["whole"][1]
+            rpc_segments = tm.kv_ship_counters()["segments"] - before["segments"]
 
-    checks = {
-        f"PD ids == colocated ids for all {len(seq)} sequential requests": all(equal),
-        f"the shared 256-token prefix was not shipped again (saved pages {saved_at_hit} >= 4)":
-            (saved_at_hit or 0) >= 4,
-        f"shipped bytes == pages x {page_bytes} B ({shipped['pages']:.0f} pages)":
-            shipped["bytes"] == shipped["pages"] * page_bytes and shipped["pages"] > 0,
-        "every segment attached same-host": shipped["attach_hits"] == shipped["segments"],
-        f"peak memory during PD admission grew by less than one K pool "
-        f"({peak_growth / 2**20:.1f} MiB < {pool_bytes / 2**20:.1f} MiB)":
-            peak_growth < pool_bytes,
-        f"RAY_TPU_KV_ATTACH=0: pulled over the data server ({pulls:.0f} stream pulls), "
-        f"ids equal": pulls >= 1 and pull_equal,
-        "RAY_TPU_KV_SHIP=0: whole-KV hand-off, no segment, ids equal":
-            rpc_equal and rpc_segments == 0,
-    }
-    for what, ok in checks.items():
-        log(f"[pd] {'ok  ' if ok else 'FAIL'} {what}")
-    if not all(checks.values()):
-        raise AssertionError(f"pd checks failed: equal {equal}, shipped {shipped}, "
-                             f"saved at hit {saved_at_hit}, peak growth {peak_growth}")
-    out = dict(sequential_requests=len(seq), max_tokens=max_tokens, ids_equal=all(equal),
-               saved_pages_at_hit=saved_at_hit, shipped=shipped, page_bytes=page_bytes,
-               peak_growth_bytes=peak_growth, pool_bytes=pool_bytes,
-               stream_pulls=pulls, rpc_handoff_equal=rpc_equal)
-    del colo
+        checks = {
+            f"PD ids == colocated ids for all {len(seq)} sequential requests": all(equal),
+            f"the shared 256-token prefix was not shipped again (saved pages {saved_at_hit} >= 4)":
+                (saved_at_hit or 0) >= 4,
+            f"shipped bytes == pages x {page_bytes} B ({shipped['pages']:.0f} pages)":
+                shipped["bytes"] == shipped["pages"] * page_bytes and shipped["pages"] > 0,
+            "every segment attached same-host": shipped["attach_hits"] == shipped["segments"],
+            f"peak memory during PD admission grew by less than one K pool "
+            f"({peak_growth / 2**20:.1f} MiB < {pool_bytes / 2**20:.1f} MiB)":
+                peak_growth < pool_bytes,
+            f"RAY_TPU_KV_ATTACH=0: pulled over the data server ({pulls:.0f} stream pulls), "
+            f"ids equal": pulls >= 1 and pull_equal,
+            "RAY_TPU_KV_SHIP=0: whole-KV hand-off, no segment, ids equal":
+                rpc_equal and rpc_segments == 0,
+        }
+        for what, ok in checks.items():
+            log(f"[pd] {'ok  ' if ok else 'FAIL'} {what}")
+        if not all(checks.values()):
+            raise AssertionError(f"pd checks failed: equal {equal}, shipped {shipped}, "
+                                 f"saved at hit {saved_at_hit}, peak growth {peak_growth}")
+        out = dict(sequential_requests=len(seq), max_tokens=max_tokens, ids_equal=all(equal),
+                   saved_pages_at_hit=saved_at_hit, shipped=shipped, page_bytes=page_bytes,
+                   peak_growth_bytes=peak_growth, pool_bytes=pool_bytes,
+                   stream_pulls=pulls, rpc_handoff_equal=rpc_equal)
+        del colo
+        gc.collect()
+
+        # (c) the concurrent wave, on fresh prompts, without the stopwatches'
+        # device syncs: its TTFT and tokens/s are those of the plain path. The
+        # trace ring is cleared just before it and read after it.
+        seal.restore()
+        install.restore()
+        wave1, wave2 = slice_prompts(mc.vocab_size, seed=4321)
+        wmax = 32
+        b_pd, b_pre = pd.stats(), prefill.stats()
+        pd.slo_snapshot()
+        k_wave = tm.kv_ship_counters()
+        begin_s = time_begins(pd._ship_source())
+        tracing.clear()
+        reset_launch_counts()
+        res, wall = [], 0.0
+        for wave in (wave1, wave2):
+            got, seconds = asyncio.run(wave_then_settle(pd, wave, wmax, device))
+            res += got
+            wall += seconds
+        launches = launch_counts()
+        del pd._ship_source().begin              # the class's method again
+        wave_pages = tm.kv_ship_counters()["pages"] - k_wave["pages"]
+        a_pd, a_pre = pd.stats(), prefill.stats()
+        tokens, syncs, decode_s, steps = decode_delta(a_pd, b_pd)
+        fresh = a_pre["prefill"]["chunk_local"] - b_pre["prefill"]["chunk_local"]
+        n_req = len(wave1) + len(wave2)
+        for toks, _, _ in res:
+            if len(toks) != wmax or not all(0 <= t < mc.vocab_size for t in toks):
+                raise AssertionError(f"bad PD output: {len(toks)} tokens {toks[:8]}...")
+        wave_checks = {
+            "the PD server prefilled nothing":
+                a_pd["prefill"]["chunks"] == b_pd["prefill"]["chunks"],
+            f"every fresh prompt took the chunk-local path on the prefill side ({fresh})":
+                fresh == n_req - 1,
+            f"slo_snapshot() counts the wave's {n_req} PD requests":
+                pd.slo_snapshot()["ttft_count"] == n_req,
+        }
+        for what, ok in wave_checks.items():
+            log(f"[pd] {'ok  ' if ok else 'FAIL'} {what}")
+        if not all(wave_checks.values()):
+            raise AssertionError(f"pd wave checks failed: fresh {fresh}, stats {a_pd}")
+        launch_checks("pd", launches, L, fresh, steps, n_split_of(pd, device))
+        ttft = sorted(r[1] for r in res)
+        breakdown = pd_breakdown(tracing.events(), n_req, wave_pages, float(np.median(ttft)),
+                                 begin_s)
+        out.update(requests=n_req, wave_max_tokens=wmax, ttft_p50_s=float(np.median(ttft)),
+                   ttft_max_s=ttft[-1], decode_tokens=tokens, decode_host_syncs=syncs,
+                   decode_steps=steps, decode_s=decode_s,
+                   decode_tokens_per_s=tokens / decode_s if decode_s else None,
+                   host_syncs_per_token=syncs / tokens, wall_s=wall, launches=launches,
+                   fresh_first_chunks=fresh, paged_n_split=n_split_of(pd, device),
+                   seal=dict(calls=seal.calls, pages=seal.n_pages, ms_per_page=seal.ms_per_page()),
+                   install=dict(calls=install.calls, pages=install.n_pages,
+                                ms_per_page=install.ms_per_page()),
+                   kv_ship=a_pd["kv_ship"], slo_pd=a_pd["slo"]["ttft_s"],
+                   ttft_breakdown=breakdown)
+        if cuda:
+            out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+            out["seal_parts"] = time_seal_parts(pd)
+        log(f"[pd] sequential: {len(seq)} requests x {max_tokens} tokens, ids equal; shipped "
+            f"{shipped['pages']:.0f} pages, {shipped['bytes'] / 2**20:.1f} MiB in "
+            f"{shipped['segments']:.0f} segments, {shipped['saved_pages']:.0f} pages not shipped; "
+            f"peak growth {peak_growth / 2**20:.1f} MiB")
+        log(f"[pd] seal (device -> shm) {out['seal']['ms_per_page']:.4f} ms a page over "
+            f"{seal.n_pages} pages, install (shm -> device) {out['install']['ms_per_page']:.4f} "
+            f"ms a page over {install.n_pages} pages")
+        log(f"[pd] wave: {n_req} requests x {wmax} tokens in {wall:.2f} s: TTFT p50 "
+            f"{out['ttft_p50_s'] * 1e3:.1f} ms, decode {out['decode_tokens_per_s']:.1f} tokens/s "
+            f"over {syncs} host syncs for {tokens} tokens ({steps} steps, "
+            f"{syncs / tokens:.4f} syncs a token); launches {launches}")
+        del pd, prefill
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    except BaseException:
+        child.close()
+        raise
+    out["proc"] = run_pd_proc(child, params, list(zip(seq, wants)), pulled, out, shm_before,
+                              device, preset, max_tokens)
+    del params
     gc.collect()
-
-    # (c) the concurrent wave, on fresh prompts, without the stopwatches'
-    # device syncs: its TTFT and tokens/s are those of the plain path. The
-    # trace ring is cleared just before it and read after it.
-    seal.restore()
-    install.restore()
-    wave1, wave2 = slice_prompts(mc.vocab_size, seed=4321)
-    wmax = 32
-    b_pd, b_pre = pd.stats(), prefill.stats()
-    pd.slo_snapshot()
-    k_wave = tm.kv_ship_counters()
-    begin_s = time_begins(pd._ship_source())
-    tracing.clear()
-    reset_launch_counts()
-    res, wall = [], 0.0
-    for wave in (wave1, wave2):
-        got, seconds = asyncio.run(wave_then_settle(pd, wave, wmax, device))
-        res += got
-        wall += seconds
-    launches = launch_counts()
-    del pd._ship_source().begin              # the class's method again
-    wave_pages = tm.kv_ship_counters()["pages"] - k_wave["pages"]
-    a_pd, a_pre = pd.stats(), prefill.stats()
-    tokens, syncs, decode_s, steps = decode_delta(a_pd, b_pd)
-    fresh = a_pre["prefill"]["chunk_local"] - b_pre["prefill"]["chunk_local"]
-    n_req = len(wave1) + len(wave2)
-    for toks, _, _ in res:
-        if len(toks) != wmax or not all(0 <= t < mc.vocab_size for t in toks):
-            raise AssertionError(f"bad PD output: {len(toks)} tokens {toks[:8]}...")
-    wave_checks = {
-        "the PD server prefilled nothing":
-            a_pd["prefill"]["chunks"] == b_pd["prefill"]["chunks"],
-        f"every fresh prompt took the chunk-local path on the prefill side ({fresh})":
-            fresh == n_req - 1,
-        f"slo_snapshot() counts the wave's {n_req} PD requests":
-            pd.slo_snapshot()["ttft_count"] == n_req,
-    }
-    for what, ok in wave_checks.items():
-        log(f"[pd] {'ok  ' if ok else 'FAIL'} {what}")
-    if not all(wave_checks.values()):
-        raise AssertionError(f"pd wave checks failed: fresh {fresh}, stats {a_pd}")
-    launch_checks("pd", launches, L, fresh, steps, n_split_of(pd, device))
-    ttft = sorted(r[1] for r in res)
-    breakdown = pd_breakdown(tracing.events(), n_req, wave_pages, float(np.median(ttft)),
-                             begin_s)
-    out.update(requests=n_req, wave_max_tokens=wmax, ttft_p50_s=float(np.median(ttft)),
-               ttft_max_s=ttft[-1], decode_tokens=tokens, decode_host_syncs=syncs,
-               decode_steps=steps, decode_s=decode_s,
-               decode_tokens_per_s=tokens / decode_s if decode_s else None,
-               host_syncs_per_token=syncs / tokens, wall_s=wall, launches=launches,
-               fresh_first_chunks=fresh, paged_n_split=n_split_of(pd, device),
-               seal=dict(calls=seal.calls, pages=seal.n_pages, ms_per_page=seal.ms_per_page()),
-               install=dict(calls=install.calls, pages=install.n_pages,
-                            ms_per_page=install.ms_per_page()),
-               kv_ship=a_pd["kv_ship"], slo_pd=a_pd["slo"]["ttft_s"],
-               ttft_breakdown=breakdown)
     if cuda:
-        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
-        out["seal_parts"] = time_seal_parts(pd)
-    log(f"[pd] sequential: {len(seq)} requests x {max_tokens} tokens, ids equal; shipped "
-        f"{shipped['pages']:.0f} pages, {shipped['bytes'] / 2**20:.1f} MiB in "
-        f"{shipped['segments']:.0f} segments, {shipped['saved_pages']:.0f} pages not shipped; "
-        f"peak growth {peak_growth / 2**20:.1f} MiB")
-    log(f"[pd] seal (device -> shm) {out['seal']['ms_per_page']:.4f} ms a page over "
-        f"{seal.n_pages} pages, install (shm -> device) {out['install']['ms_per_page']:.4f} "
-        f"ms a page over {install.n_pages} pages")
-    log(f"[pd] wave: {n_req} requests x {wmax} tokens in {wall:.2f} s: TTFT p50 "
-        f"{out['ttft_p50_s'] * 1e3:.1f} ms, decode {out['decode_tokens_per_s']:.1f} tokens/s "
-        f"over {syncs} host syncs for {tokens} tokens ({steps} steps, "
-        f"{syncs / tokens:.4f} syncs a token); launches {launches}")
-    del pd, prefill, params
+        torch.cuda.empty_cache()
+    return out
+
+
+def shm_segments():
+    """The port's shm segments (`rtpt-*`) now in /dev/shm."""
+    from ray_tpu_torch._private.object_store import SEG_PREFIX
+    root = Path("/dev/shm")
+    return sorted(p.name for p in root.glob(f"{SEG_PREFIX}*")) if root.is_dir() else []
+
+
+def _split_ship(parent, child):
+    """A kv_ship_counters() delta across the two processes: what prefill
+    seals and serves is counted in the child, what decode pulls here."""
+    sealed = ("bytes", "pages", "segments", "requests", "saved_pages", "rpc_fallback_bytes")
+    return {k: (child if k in sealed else parent)[k] for k in parent}
+
+
+def run_pd_proc(child, params, sequential, pulled, inproc, shm_before, device="cuda",
+                preset="llama_1b", max_tokens=16):
+    """Path `serve_pd_proc`: `run_pd`'s checks with the PrefillServer in a
+    child process (`PrefillProcess`, started by run_pd on the same card:
+    two CUDA contexts time-slice one H100) and a fresh PDServer here whose
+    prefill replica is the child's handle. (a) The same sequential prompts:
+    ids equal the colocated server's (from run_pd), the shared prefix not
+    shipped again, every segment attached here and sealed there, no byte
+    over the RPC fetch; (b) one request over the child's KV data server
+    (RAY_TPU_KV_ATTACH=0) and one over the whole-KV hand-off
+    (RAY_TPU_KV_SHIP=0), ids equal; (c) the same concurrent wave as run_pd's
+    (10 prompts, 32 tokens): B1 counted in the child, once a layer per
+    fresh first chunk, B4 here, once a layer per decode step, the PD server
+    prefilling nothing and the child decoding nothing; the TTFT breakdown
+    with the child's `prefill_chunk` / `kv_seal` spans merged by trace id,
+    beside the in-process wave's. Seal ms a page is a stopwatch in the
+    child, install ms a page one here, around (a) and (b). After the
+    child closes, no `rtpt-*` segment it announced, and none new, is left
+    in /dev/shm."""
+    import gc
+    import torch
+    from ray_tpu_torch.serve.pd import PDServer
+    from ray_tpu_torch.util import metrics as tm
+    from ray_tpu_torch.util import tracing
+
+    cuda = device == "cuda"
+    tag = "pd_proc"
+    try:
+        t0 = time.perf_counter()
+        info = child.wait_ready()
+        ready_s = time.perf_counter() - t0
+        pd = PDServer(serving_config(preset, device), params=params, prefill=child)
+        mc = pd.model_cfg
+        L = mc.n_layers
+        page_bytes = 2 * pd.cache.k_pages[:, :, 0].numel() * pd.cache.k_pages.element_size()
+        gen = lambda p, n=max_tokens: asyncio.run(pd.generate(p, max_tokens=n))["tokens"]
+        gen(list(range(1, 50)), 8)                # warm-up
+        install = Stopwatch(pd, "_install_pages", lambda a, out: a[2], device)
+        child.get("watch_seal")
+        k0, c0 = tm.kv_ship_counters(), child.get("ship_counters")
+        n_wave1 = len(slice_prompts(mc.vocab_size)[0])
+        equal, saved_at_hit = [], None
+        for i, (p, want) in enumerate(sequential):
+            before = child.get("ship_counters")["saved_pages"]
+            equal.append(gen(p) == want)
+            if i == n_wave1:
+                saved_at_hit = child.get("ship_counters")["saved_pages"] - before
+        k1, c1 = tm.kv_ship_counters(), child.get("ship_counters")
+        shipped = _split_ship({k: k1[k] - k0[k] for k in k1}, {k: c1[k] - c0[k] for k in c1})
+        with environ(RAY_TPU_KV_ATTACH="0"):
+            before = tm.kv_ship_counters()
+            pull_equal = gen(pulled["pull"][0]) == pulled["pull"][1]
+            pulls = tm.kv_ship_counters()["stream_pulls"] - before["stream_pulls"]
+        with environ(RAY_TPU_KV_SHIP="0"):
+            before = child.get("ship_counters")
+            whole_equal = gen(pulled["whole"][0]) == pulled["whole"][1]
+            whole_segments = child.get("ship_counters")["segments"] - before["segments"]
+        install.restore()
+        seal = child.get("seal_watched")
+        checks = {
+            f"PD ids == colocated ids for all {len(sequential)} sequential requests, prefill "
+            f"in process {info['pid']}": all(equal),
+            f"the shared 256-token prefix was not shipped again (saved pages {saved_at_hit} "
+            f">= 4)": (saved_at_hit or 0) >= 4,
+            f"shipped bytes == pages x {page_bytes} B ({shipped['pages']:.0f} pages)":
+                shipped["bytes"] == shipped["pages"] * page_bytes and shipped["pages"] > 0,
+            f"every segment sealed in the child attached here ({shipped['attach_hits']:.0f} "
+            f"hits)": shipped["attach_hits"] == shipped["segments"] > 0,
+            "no byte over the RPC fetch on the attach rung": shipped["rpc_fallback_bytes"] == 0,
+            f"RAY_TPU_KV_ATTACH=0: pulled over the child's data server ({pulls:.0f} stream "
+            f"pulls), ids equal": pulls >= 1 and pull_equal,
+            "RAY_TPU_KV_SHIP=0: whole-KV hand-off across the pipe, no segment, ids equal":
+                whole_equal and whole_segments == 0,
+        }
+        for what, ok in checks.items():
+            log(f"[{tag}] {'ok  ' if ok else 'FAIL'} {what}")
+        if not all(checks.values()):
+            raise AssertionError(f"{tag} checks failed: equal {equal}, shipped {shipped}, "
+                                 f"saved at hit {saved_at_hit}")
+        out = dict(child_pid=info["pid"], ready_wait_s=ready_s,
+                   sequential_requests=len(sequential), ids_equal=True,
+                   saved_pages_at_hit=saved_at_hit, shipped=shipped, page_bytes=page_bytes,
+                   stream_pulls=pulls, whole_kv_equal=whole_equal, seal_in_child=seal,
+                   install=dict(calls=install.calls, pages=install.n_pages,
+                                ms_per_page=install.ms_per_page()))
+
+        # (c) the wave, each process's counters and ring reset just before
+        wave1, wave2 = slice_prompts(mc.vocab_size, seed=4321)
+        wmax = 32
+        b_pd, b_pre = pd.stats(), child.get("stats")
+        pd.slo_snapshot()
+        k_wave, c_wave = tm.kv_ship_counters(), child.get("ship_counters")
+        begin_s = time_begins(pd._ship_source())
+        tracing.clear()
+        child.get("trace_clear")
+        reset_launch_counts()
+        child.get("reset_launch_counts")
+        res, wall = [], 0.0
+        for wave in (wave1, wave2):
+            got, seconds = asyncio.run(wave_then_settle(pd, wave, wmax, device))
+            res += got
+            wall += seconds
+        here, there = launch_counts(), child.get("launch_counts")
+        del pd._ship_source().begin
+        events = tracing.events() + child.get("trace_events")
+        k_end, c_end = tm.kv_ship_counters(), child.get("ship_counters")
+        wave_ship = _split_ship({k: k_end[k] - k_wave[k] for k in k_end},
+                                {k: c_end[k] - c_wave[k] for k in c_end})
+        a_pd, a_pre = pd.stats(), child.get("stats")
+        tokens, syncs, decode_s, steps = decode_delta(a_pd, b_pd)
+        fresh = a_pre["prefill"]["chunk_local"] - b_pre["prefill"]["chunk_local"]
+        n_req = len(wave1) + len(wave2)
+        for toks, _, _ in res:
+            if len(toks) != wmax or not all(0 <= t < mc.vocab_size for t in toks):
+                raise AssertionError(f"bad PD output: {len(toks)} tokens {toks[:8]}...")
+        launches = dict(flash_fwd=there["flash_fwd"],
+                        flash_bwd_dq=here["flash_bwd_dq"] + there["flash_bwd_dq"],
+                        flash_bwd_dkv=here["flash_bwd_dkv"] + there["flash_bwd_dkv"],
+                        paged_decode=here["paged_decode"],
+                        paged_decode_combine=here["paged_decode_combine"])
+        wave_checks = {
+            "the PD server prefilled nothing and launched no B1":
+                a_pd["prefill"]["chunks"] == b_pd["prefill"]["chunks"]
+                and here["flash_fwd"] == 0,
+            "the prefill process launched no B4":
+                there["paged_decode"] == there["paged_decode_combine"] == 0,
+            f"every fresh prompt took the chunk-local path in the child ({fresh})":
+                fresh == n_req - 1,
+            f"slo_snapshot() counts the wave's {n_req} PD requests":
+                pd.slo_snapshot()["ttft_count"] == n_req,
+            f"every wave segment attached here ({wave_ship['attach_hits']:.0f} of "
+            f"{wave_ship['segments']:.0f})": wave_ship["attach_hits"] == wave_ship["segments"] > 0,
+        }
+        for what, ok in wave_checks.items():
+            log(f"[{tag}] {'ok  ' if ok else 'FAIL'} {what}")
+        if not all(wave_checks.values()):
+            raise AssertionError(f"{tag} wave checks failed: here {here}, there {there}, "
+                                 f"fresh {fresh}, shipped {wave_ship}")
+        launch_checks(tag, launches, L, fresh, steps, n_split_of(pd, device))
+        ttft = sorted(r[1] for r in res)
+        breakdown = pd_breakdown(events, n_req, wave_ship["pages"], float(np.median(ttft)),
+                                 begin_s, tag=tag,
+                                 inside="the call and its reply cross the pipe; the "
+                                        "child's prefill chunks run in its own process")
+        out.update(requests=n_req, wave_max_tokens=wmax, ttft_p50_s=float(np.median(ttft)),
+                   ttft_p99_s=float(np.percentile(ttft, 99)), ttft_max_s=ttft[-1],
+                   decode_tokens=tokens, decode_host_syncs=syncs, decode_steps=steps,
+                   decode_s=decode_s,
+                   decode_tokens_per_s=tokens / decode_s if decode_s else None,
+                   wall_s=wall, launches=launches, launches_here=here,
+                   launches_in_child=there, fresh_first_chunks=fresh,
+                   paged_n_split=n_split_of(pd, device), wave_kv_ship=wave_ship,
+                   ttft_breakdown=breakdown)
+        log(f"[{tag}] wave across processes: {n_req} requests x {wmax} tokens in {wall:.2f} "
+            f"s: TTFT p50 {out['ttft_p50_s'] * 1e3:.1f} ms, p99 {out['ttft_p99_s'] * 1e3:.1f} "
+            f"ms, decode {out['decode_tokens_per_s']:.1f} tokens/s (in process: TTFT p50 "
+            f"{inproc['ttft_p50_s'] * 1e3:.1f} ms, max {inproc['ttft_max_s'] * 1e3:.1f} ms, "
+            f"decode {inproc['decode_tokens_per_s']:.1f} tokens/s); B1 {there['flash_fwd']} "
+            f"in the child, B4 {here['paged_decode']} here; seal in the child "
+            f"{seal['ms_per_page']:.4f} ms a page over {seal['pages']} pages, install here "
+            f"{out['install']['ms_per_page']:.4f} ms a page over {install.n_pages} pages (in "
+            f"process {inproc['seal']['ms_per_page']:.4f} / "
+            f"{inproc['install']['ms_per_page']:.4f}); two CUDA contexts on one card "
+            f"({smi_line()})")
+        del pd
+    finally:
+        child.close()
     gc.collect()
+    left = child.segments_left()
+    new = sorted(set(shm_segments()) - shm_before)
+    ok = not left and not new and bool(child.segments)
+    log(f"[{tag}] {'ok  ' if ok else 'FAIL'} no segment left in /dev/shm after both close "
+        f"({len(child.segments)} announced, {len(left)} left, {len(new)} new rtpt-*)")
+    if not ok:
+        raise AssertionError(f"{tag}: segments left {left}, new {new}")
+    out["segments_announced"] = len(child.segments)
     if cuda:
         torch.cuda.empty_cache()
     return out
@@ -2747,6 +3234,245 @@ def run_train_fit(run_a, device="cuda", preset="llama_1b", batch=4, seq=2048, st
         f"{out['bytes_left']}; launches {launches} ({smi})")
     if not all(checks.values()):
         raise AssertionError(f"train_fit checks failed: {checks}")
+    return out
+
+
+CKPT_WHOLE_FROM = {"fsdp": 4}              # the mesh the ranks write on
+CKPT_WHOLE_ONTO = {"fsdp": 2, "tp": 2}     # the mesh they restore onto
+CKPT_WHOLE_TOKENS = 16                     # greedy tokens a prompt, both servers
+
+
+class RssPeak:
+    """Samples this process's resident set (/proc/self/statm) every `every`
+    seconds on a thread between start() and stop(); `peak` and `base` in
+    bytes."""
+
+    def __init__(self, every=0.005):
+        import threading
+        self.every, self.base, self.peak = every, 0, 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    @staticmethod
+    def rss():
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    def _run(self):
+        while not self._stop.is_set():
+            self.peak = max(self.peak, self.rss())
+            self._stop.wait(self.every)
+
+    def start(self):
+        self.base = self.peak = self.rss()
+        self._thread.start()
+        return self
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self.rss())
+        return self.peak
+
+
+def _bare_trainer(preset, seq, mesh, device, param_dtype="bfloat16"):
+    """`preset`'s shard-local model on `mesh` and its AdamW, as
+    build_llama_trainer makes them, with no weight drawn."""
+    import torch
+    from ray_tpu_torch.models.llama import Llama, LlamaConfig
+    from ray_tpu_torch.ops.optim import make_optimizer
+    cfg = getattr(LlamaConfig, preset)(max_seq_len=seq,
+                                       param_dtype=getattr(torch, param_dtype))
+    model = Llama(cfg, device=device, mesh=mesh)
+    opt, _ = make_optimizer(model.parameters(), lr=1e-4, optimizer="adamw", weight_decay=1e-4)
+    return model, opt
+
+
+def _meta_state(preset, seq, mesh, param_dtype="bfloat16"):
+    """(state, specs) of train_state on the meta device: the target specs
+    of a restore onto `mesh`."""
+    from ray_tpu_torch.train.llm_step import train_state
+    return train_state(*_bare_trainer(preset, seq, mesh, "meta", param_dtype))
+
+
+def _ckpt_whole_rank(rank, world, store, results, root, preset, seq):
+    """A gloo rank of `ckpt_whole` (CPU tensors): `preset`'s shard-local
+    model on CKPT_WHOLE_FROM with its blocks of the seeded bf16 weights in
+    `root`/seeded.pt, AdamW's state from one optimizer step at lr 0 on
+    seeded gradients (real moments; the weights stay the seed's; a CPU
+    training step of llama_1b on 4 gloo ranks would take most of a
+    minute), written sharded with train_state's specs; then restored onto
+    CKPT_WHOLE_ONTO with its specs, every block and moment held to the
+    whole read's block under that mesh."""
+    import traceback
+    try:
+        import torch
+        import torch.distributed as dist
+        from ray_tpu_torch.models.convert import shard_state_dict
+        from ray_tpu_torch.parallel.mesh import make_mesh
+        from ray_tpu_torch.parallel.sharding import local_slice
+        from ray_tpu_torch.train import Checkpoint
+        from ray_tpu_torch.train.llm_step import train_state
+        _tp_rank_world(rank, world, store, "gloo", None)
+        torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+        mesh = make_mesh(CKPT_WHOLE_FROM, device="cpu")
+        t0 = time.perf_counter()
+        model, opt = _bare_trainer(preset, seq, mesh, "cpu")
+        seeded = torch.load(os.path.join(root, "seeded.pt"), map_location="cpu",
+                            weights_only=True, mmap=True)
+        model.load_state_dict(shard_state_dict(seeded, mesh))
+        del seeded
+        build_s = time.perf_counter() - t0
+
+        def lr_zero(optim, args, kwargs):   # after make_optimizer's hook sets the rate
+            for group in optim.param_groups:
+                group["lr"] = 0.0
+
+        opt.register_step_pre_hook(lr_zero)
+        draw = torch.Generator().manual_seed(1000 + rank)
+        for p in model.parameters():
+            p.grad = torch.randn(p.shape, generator=draw).to(p.dtype)
+        opt.step()
+        state, specs = train_state(model, opt, step=1)
+        path = os.path.join(root, "ck")
+        t0 = time.perf_counter()
+        Checkpoint.from_state(state, path=path, mesh=mesh, specs=specs)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(os.path.join(path, "shards", f"rank-{rank:05d}.pt"))
+        del model, opt, state
+        other = make_mesh(CKPT_WHOLE_ONTO, device="cpu")
+        target, tspecs = _meta_state(preset, seq, other)
+        ckpt = Checkpoint.from_directory(path)
+        t0 = time.perf_counter()
+        got = ckpt.to_state(mesh=other, specs=tspecs)
+        reshard_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        whole = ckpt.to_state()
+        whole_s = time.perf_counter() - t0
+        # the saved dtypes come back: bf16 weights and moments, f32 norm scales
+        want = shard_state_dict(whole["model"], other)
+        bad = [k for k, v in got["model"].items()
+               if (v.dtype, v.shape) != (target["model"][k].dtype, target["model"][k].shape)
+               or not torch.equal(v, want[k])]
+        dtypes = [p.dtype for p in target["model"].values()]
+        for i, spec in tspecs["optim"]["state"].items():
+            for name in ("exp_avg", "exp_avg_sq"):
+                g, w = got["optim"]["state"][i][name], whole["optim"]["state"][i][name]
+                if g.dtype != dtypes[i] or not torch.equal(g, local_slice(w, spec[name], other)):
+                    bad.append(f"optim {i} {name}")
+        value = dict(bytes=nbytes, build_s=build_s, save_s=save_s,
+                     reshard_s=reshard_s, whole_s=whole_s, bad=bad,
+                     leaves=len(got["model"]) + 2 * len(got["optim"]["state"]),
+                     moments_nonzero=bool(any(s["exp_avg_sq"].abs().sum() > 0
+                                              for s in got["optim"]["state"].values())))
+        del got, whole, want
+        dist.barrier()
+        dist.destroy_process_group()
+        results.put((rank, value, None))
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        results.put((rank, None, traceback.format_exc()))
+
+
+def run_ckpt_whole(device="cuda", preset="llama_1b", seq=16, world=4):
+    """Path `ckpt_whole`: a sharded checkpoint read whole and onto another
+    mesh. `world` gloo ranks on CPU tensors (spawn_ranks) write `preset`'s
+    seeded bf16 weights and AdamW state on CKPT_WHOLE_FROM
+    (`_ckpt_whole_rank`) and restore it onto CKPT_WHOLE_ONTO: each rank's
+    blocks torch.equal the whole's blocks there. The seed's whole weights
+    are drawn here (init_params on `device`) and reach the ranks through a
+    torch.save file, each rank loading its blocks. Then this process reads
+    the checkpoint whole with to_state() (its peak host RSS sampled during
+    the read), every weight torch.equal to the seed's, and serves it:
+    LLMServer(params=whole["model"]) on `device` gives the greedy ids of a
+    server built from the seed's whole weights on the slice's prompts,
+    with B1 and B4 counted on the first server. The checkpoint lives in a
+    temporary directory removed at the end."""
+    import gc
+    import tempfile
+    import torch
+    from ray_tpu_torch.models.convert import init_params
+    from ray_tpu_torch.models.llama import Llama, LlamaConfig
+    from ray_tpu_torch.serve.llm import LLMServer
+    from ray_tpu_torch.train import Checkpoint
+
+    tag = "ckpt_whole"
+    cfg = getattr(LlamaConfig, preset)(max_seq_len=seq, param_dtype=torch.bfloat16)
+    root = tempfile.mkdtemp(prefix="chip_smoke_whole_")
+    try:
+        model = Llama(cfg, device=device)
+        init_params(model, torch.Generator(device=device).manual_seed(0))
+        ref = {k: v.to("cpu", copy=True) for k, v in model.state_dict().items()}
+        del model
+        torch.save(ref, os.path.join(root, "seeded.pt"))
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(_ckpt_whole_rank, world, (root, preset, seq))
+        ranks_s = time.perf_counter() - t0
+        rss = RssPeak().start()
+        t0 = time.perf_counter()
+        whole = Checkpoint.from_directory(os.path.join(root, "ck")).to_state()
+        read_s = time.perf_counter() - t0
+        rss.stop()
+        unequal = [k for k, v in whole["model"].items()
+                   if k not in ref or v.dtype != ref[k].dtype or not torch.equal(v, ref[k])]
+        weights_equal = whole["model"].keys() == ref.keys() and not unequal
+        state_bytes = sum(t.numel() * t.element_size() for t in whole["model"].values()) + sum(
+            t.numel() * t.element_size() for s in whole["optim"]["state"].values()
+            for t in s.values())
+        gen = lambda srv, p: asyncio.run(srv.generate(p, max_tokens=CKPT_WHOLE_TOKENS))["tokens"]
+        wave1, wave2 = slice_prompts(cfg.vocab_size)
+        prompts = wave1 + wave2
+        served = LLMServer(serving_config(preset, device), params=whole["model"])
+        del whole
+        gc.collect()
+        gen(served, list(range(1, 50)))              # warm-up
+        before = served.stats()
+        reset_launch_counts()
+        got = [gen(served, p) for p in prompts]
+        launches = launch_counts()
+        after = served.stats()
+        n_split = n_split_of(served, device)
+        del served
+        gc.collect()
+        plain = LLMServer(serving_config(preset, device), params=ref)
+        want = [gen(plain, p) for p in prompts]
+        del plain, ref
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    tokens, syncs, _, steps = decode_delta(after, before)
+    fresh = after["prefill"]["chunk_local"] - before["prefill"]["chunk_local"]
+    checks = {
+        f"{world} ranks: every block and AdamW moment on {CKPT_WHOLE_ONTO} torch.equal the "
+        f"whole's block there, bf16 kept ({ranks[0]['leaves']} leaves a rank)":
+            all(not r["bad"] for r in ranks),
+        "AdamW's moments were written (a step taken)": all(r["moments_nonzero"] for r in ranks),
+        "the whole read's weights torch.equal the seed's whole weights, in their dtypes":
+            weights_equal,
+        f"greedy ids of the server built from the whole read == the seed's server's "
+        f"({len(prompts)} prompts x {CKPT_WHOLE_TOKENS} tokens)": got == want,
+        "the directory is removed": not os.path.exists(root),
+    }
+    for what, ok in checks.items():
+        log(f"[{tag}] {'ok  ' if ok else 'FAIL'} {what}")
+    if not all(checks.values()):
+        raise AssertionError(f"{tag} checks failed: {[r['bad'][:4] for r in ranks]}, "
+                             f"weights unequal {unequal[:4]}, ids {got} vs {want}")
+    launch_checks(tag, launches, cfg.n_layers, fresh, steps, n_split)
+    out = dict(ranks=ranks, ranks_s=ranks_s, read_whole_s=read_s, state_bytes=state_bytes,
+               rss_base_bytes=rss.base, rss_peak_bytes=rss.peak,
+               rss_growth_bytes=rss.peak - rss.base, launches=launches,
+               fresh_first_chunks=fresh, decode_steps=steps, prompts=len(prompts))
+    log(f"[{tag}] {preset} bf16 on {CKPT_WHOLE_FROM} ({world} gloo ranks, CPU; AdamW stepped "
+        f"at lr 0 on seeded gradients): build s {[round(r['build_s'], 1) for r in ranks]}, "
+        f"bytes a rank {[r['bytes'] for r in ranks]}, save s "
+        f"{[round(r['save_s'], 2) for r in ranks]}; reshard onto {CKPT_WHOLE_ONTO} s "
+        f"{[round(r['reshard_s'], 2) for r in ranks]}; whole read on a rank s "
+        f"{[round(r['whole_s'], 2) for r in ranks]}; the ranks took {ranks_s:.1f} s. This "
+        f"process read {state_bytes / 2**30:.2f} GiB whole in {read_s:.2f} s, host RSS "
+        f"{rss.base / 2**30:.2f} -> peak {rss.peak / 2**30:.2f} GiB during the read; served "
+        f"on {device}: ids equal, launches {launches} ({smi_line()})")
     return out
 
 
@@ -5204,12 +5930,15 @@ def checkpoint_fsdp_cards(rank, world, device, preset, seq, steps=6, save_at=3):
     writing its own blocks of the params and AdamW's moments, in a
     temporary directory removed at the end), restored into a fresh model
     and AdamW on the same mesh, steps save_at+1..steps: losses and every
-    rank's blocks torch.equal to the uninterrupted run. Rank 0 returns the
-    bytes a rank and the seconds to save and to restore."""
+    rank's blocks torch.equal to the uninterrupted run. Then the same
+    checkpoint is read whole and restored onto another mesh
+    (`_whole_fsdp_cards`). Rank 0 returns the bytes a rank and the seconds
+    to save, to restore, to read whole and to reshard."""
     import os
     import tempfile
     import torch
     import torch.distributed as dist
+    from ray_tpu_torch.models.convert import gather_state_dict
     from ray_tpu_torch.parallel.mesh import make_mesh
     from ray_tpu_torch.parallel.sharding import data_sharding
     from ray_tpu_torch.train import Checkpoint, iter_device_batches
@@ -5231,6 +5960,8 @@ def checkpoint_fsdp_cards(rank, world, device, preset, seq, steps=6, save_at=3):
         Checkpoint.from_state(state, path=path, mesh=mesh, specs=specs)
         save_s = time.perf_counter() - t0
         nbytes = os.path.getsize(os.path.join(path, "shards", f"rank-{rank:05d}.pt"))
+        live = gather_state_dict(model.state_dict(), mesh)     # the whole, by collectives
+        live = {k: v.to("cpu", copy=True) for k, v in live.items()} if rank == 0 else None
         losses += [step(t) for t in feed(batches[save_at:steps])]
         final = snapshot(model)
         del model, opt, step, state
@@ -5249,26 +5980,99 @@ def checkpoint_fsdp_cards(rank, world, device, preset, seq, steps=6, save_at=3):
         equal = dict(losses=all(torch.equal(x, y) for x, y in zip(resumed, losses[save_at:])),
                      blocks=equal_trees(snapshot(model), final))
         del model, opt, step, final
+        _reset_peak(device)
+        whole = _whole_fsdp_cards(rank, device, preset, seq, path, live)
+        del live
     finally:
         _world_barrier(device)
         if rank == 0:
             shutil.rmtree(where[0], ignore_errors=True)
     seen = [None] * world
     dist.all_gather_object(seen, dict(equal=equal, bytes=nbytes, save_s=save_s,
-                                      restore_s=restore_s))
+                                      restore_s=restore_s, whole=whole))
     _reset_peak(device)
     if rank != 0:
         return None
     out = dict(ranks=seen, losses=[x.item() for x in losses], removed=not os.path.exists(where[0]))
-    ok = all(r["equal"]["losses"] and r["equal"]["blocks"] for r in seen) and out["removed"]
+    ok = all(r["equal"]["losses"] and r["equal"]["blocks"] and not r["whole"]["bad"]
+             for r in seen) and out["removed"] and seen[0]["whole"]["ids_equal"] and seen[0][
+        "whole"]["weights_equal"]
     log(f"[fsdp] sharded checkpoint, {preset} bf16 on {{'fsdp': {world}}}, saved after step "
         f"{save_at} of {steps}, restored into a fresh model and AdamW: losses and every "
         f"rank's blocks torch.equal the uninterrupted run "
         f"{[r['equal'] for r in seen]}; bytes a rank {[r['bytes'] for r in seen]}, save s "
         f"{[round(r['save_s'], 3) for r in seen]}, restore s "
         f"{[round(r['restore_s'], 3) for r in seen]}; directory removed {out['removed']}")
+    w = [r["whole"] for r in seen]
+    log(f"[fsdp] the same checkpoint read whole on every rank ({w[0]['read_threads']} threads "
+        f"a rank; s {[round(x['whole_s'], 2) for x in w]}): rank 0's whole weights torch.equal "
+        f"gather_state_dict of the live blocks {w[0]['weights_equal']}, served on card 0 with "
+        f"greedy ids equal a server built from the gathered weights {w[0]['ids_equal']} "
+        f"({w[0]['prompts']} prompts x {CKPT_WHOLE_TOKENS} tokens); restored onto "
+        f"{CKPT_WHOLE_ONTO} (s {[round(x['reshard_s'], 2) for x in w]}), every block and moment "
+        f"torch.equal shard_state_dict / local_slice of the whole there: "
+        f"{[not x['bad'] for x in w]}")
     if not ok:
         raise AssertionError(f"sharded checkpoint: {out}")
+    return out
+
+
+def _whole_fsdp_cards(rank, device, preset, seq, path, live):
+    """(c, continued) The fsdp checkpoint at `path` read whole on every
+    rank (host tensors); rank 0 serves it on its card: its weights equal
+    `live` (gather_state_dict of the blocks when they were saved) and its
+    greedy ids on the slice's prompts equal a server built from `live`.
+    Then every rank restores it onto CKPT_WHOLE_ONTO with the target's
+    specs, each block and AdamW moment torch.equal the whole's block
+    there (shard_state_dict, local_slice), in the saved dtype. The reads
+    run with the host's cores shared among the ranks, as torchrun's
+    OMP_NUM_THREADS does: with torch's default (every core in each of 4
+    ranks) a whole read took 55-56 s a rank on four H100s (32 host cores)."""
+    import torch
+    import torch.distributed as dist
+    from ray_tpu_torch.models.convert import shard_state_dict
+    from ray_tpu_torch.parallel.mesh import make_mesh
+    from ray_tpu_torch.parallel.sharding import local_slice
+    from ray_tpu_torch.serve.llm import LLMServer
+    from ray_tpu_torch.train import Checkpoint
+    ckpt = Checkpoint.from_directory(path)
+    threads, read_threads = torch.get_num_threads(), max(
+        1, (os.cpu_count() or 1) // dist.get_world_size())
+    torch.set_num_threads(read_threads)
+    t0 = time.perf_counter()
+    whole = ckpt.to_state()
+    whole_s = time.perf_counter() - t0
+    other = make_mesh(CKPT_WHOLE_ONTO, device=device)
+    dtype = str(whole["model"]["layers_0.attn.wq.weight"].dtype).rsplit(".", 1)[-1]
+    _, tspecs = _meta_state(preset, seq, other, dtype)
+    t0 = time.perf_counter()
+    got = ckpt.to_state(mesh=other, specs=tspecs)
+    reshard_s = time.perf_counter() - t0
+    want = shard_state_dict(whole["model"], other)
+    bad = [k for k, v in got["model"].items()
+           if v.dtype != whole["model"][k].dtype or not torch.equal(v, want[k])]
+    for i, spec in tspecs["optim"]["state"].items():
+        for name in ("exp_avg", "exp_avg_sq"):
+            g, w = got["optim"]["state"][i][name], whole["optim"]["state"][i][name]
+            if g.dtype != w.dtype or not torch.equal(g, local_slice(w, spec[name], other)):
+                bad.append(f"optim {i} {name}")
+    del got, want
+    torch.set_num_threads(threads)
+    out = dict(whole_s=whole_s, reshard_s=reshard_s, bad=bad, read_threads=read_threads)
+    if rank == 0:
+        prompts = sum(slice_prompts(whole["model"]["embed.embedding"].shape[0]), [])
+        gen = lambda srv, p: asyncio.run(srv.generate(p, max_tokens=CKPT_WHOLE_TOKENS))["tokens"]
+        served = LLMServer(serving_config(preset, device), params=whole["model"])
+        got_ids = [gen(served, p) for p in prompts]
+        del served
+        ref = LLMServer(serving_config(preset, device), params=live)
+        want_ids = [gen(ref, p) for p in prompts]
+        del ref
+        out.update(prompts=len(prompts), ids_equal=got_ids == want_ids,
+                   weights_equal=all(torch.equal(v, live[k]) for k, v in whole["model"].items()))
+    del whole
+    _reset_peak(device)
+    _world_barrier(device)
     return out
 
 
@@ -5999,6 +6803,7 @@ def main() -> int:
     trainer = dict(run_trainer(keep=run_a), topology=topology, nccl=nccl)
     trainer["fit"] = run_train_fit(run_a)
     del run_a
+    trainer["ckpt_whole"] = run_ckpt_whole()
     mesh = run_mesh()
     train_mesh = run_train_mesh()
     seqpipe = run_seqpipe()
@@ -6009,14 +6814,15 @@ def main() -> int:
     # are in chip_smoke.json and PERF.md), max-abs error over the checked
     # cases and the training shape
     paths = {"serve": summary["launches"], "serve_moe": moe["launches"],
-             "serve_pd": pd["launches"], "serve_tiered": tiered["launches"],
+             "serve_pd": pd["launches"], "serve_pd_proc": pd["proc"]["launches"],
+             "serve_tiered": tiered["launches"], "ckpt_whole": trainer["ckpt_whole"]["launches"],
              "train": train["launches"], "train_resume": trainer["launches"],
              "train_fit": trainer["fit"]["launches"],
              "serve_tp": mesh["launches"], "train_mesh": train_mesh["launches"],
              "ring": seqpipe["launches"]["ring"],
              "pipeline": seqpipe["launches"]["pipeline"], **rl["launches"]}
-    serve_paths = ("serve", "serve_moe", "serve_pd", "serve_tiered", "serve_tp", "ring",
-                   "pipeline") + RL_PATHS
+    serve_paths = ("serve", "serve_moe", "serve_pd", "serve_pd_proc", "serve_tiered",
+                   "ckpt_whole", "serve_tp", "ring", "pipeline") + RL_PATHS
 
     def flash_row(name, source, replaces, err):
         t = train_t[name]

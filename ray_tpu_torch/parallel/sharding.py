@@ -142,26 +142,38 @@ def spec_placements(spec: P, mesh: DeviceMesh, ndim: int):
     return tuple(Shard(dim_of[a]) if a in dim_of else Replicate() for a in names)
 
 
+def block_index(spec: P, sizes: Mapping[str, int], coord: Mapping[str, int],
+                ndim: int) -> List[Tuple[int, int]]:
+    """(number of blocks, this block's index) of each of `ndim` dimensions
+    under `spec`, at the mesh coordinate `coord` ({axis: index}) of a mesh
+    of `sizes` ({axis: size}). A dimension split over several axes is
+    numbered row-major over them, as JAX numbers a spec's tuple entry."""
+    entries = tuple(spec or ())
+    out = []
+    for d in range(ndim):
+        count, idx = 1, 0
+        for a in _entry_axes(entries[d] if d < len(entries) else None):
+            count, idx = count * sizes[a], idx * sizes[a] + coord[a]
+        out.append((count, idx))
+    return out
+
+
 def local_slice(t: torch.Tensor, spec: P, mesh: DeviceMesh) -> torch.Tensor:
     """This rank's block of the whole tensor `t` under `spec` (axes already
     filtered to the mesh): a view of `t`. Each split dimension must divide
     evenly, as JAX's device_put requires."""
     names = list(mesh.mesh_dim_names)
-    sizes = dict(zip(names, mesh.mesh.shape))
     coord = mesh.get_coordinate()
     if coord is None:
         raise ValueError("this rank is not a member of the mesh")
-    for d, entry in enumerate(tuple(spec)[: t.ndim]):
-        axes = _entry_axes(entry)
-        if not axes:
+    blocks = block_index(spec, dict(zip(names, mesh.mesh.shape)), dict(zip(names, coord)),
+                         t.ndim)
+    for d, (count, idx) in enumerate(blocks):
+        if count == 1:
             continue
-        count, idx = 1, 0
-        for a in axes:
-            count *= sizes[a]
-            idx = idx * sizes[a] + coord[names.index(a)]
         if t.shape[d] % count:
             raise ValueError(f"dimension {d} of shape {tuple(t.shape)} does not split into "
-                             f"{count} blocks over mesh axes {axes}")
+                             f"{count} blocks over mesh axes {_entry_axes(tuple(spec)[d])}")
         n = t.shape[d] // count
         t = t.narrow(d, idx * n, n)
     return t

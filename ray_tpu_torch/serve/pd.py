@@ -4,7 +4,11 @@ Counterpart of `ray_tpu/serve/pd.py`. Decode is the orchestrator: the
 decode server takes the request, asks a PREFILL server to compute the
 prompt's KV and first token, installs the pages into its own paged cache
 and runs every decode step itself, so that prompt-heavy and decode-heavy
-load scale apart.
+load scale apart. The prefill replica is a `PrefillServer` in this process
+or, as in JAX, a handle to one in another process (a serve
+DeploymentHandle: each method's `.remote()` returns an awaitable). What
+crosses the handle is plain data: headers and `prefill_wait` frames are
+metadata, `prefill_fetch` returns bytes and `prefill_kv` CPU tensors.
 
 Paged KV pages are the transfer unit, and the hand-off is a streaming data
 plane (`serve/kv_transfer.py`), not an RPC payload:
@@ -274,24 +278,31 @@ class PrefillServer(LLMServer):
                      for pool in (self.cache.k_pages, self.cache.v_pages))
 
 
-def _prefill_server(prefill) -> "PrefillServer":
-    """The port serves PD within one process: the prefill side is a
-    PrefillServer object (serve handles come with the serve runtime)."""
-    if not isinstance(prefill, PrefillServer):
-        raise TypeError(f"prefill must be a PrefillServer, got {type(prefill).__name__}")
-    return prefill
+async def _prefill_call(prefill, name: str, *a, **kw):
+    """`prefill.<name>(*a, **kw)` awaited on a PrefillServer in this
+    process; on anything else, a serve DeploymentHandle or an object shaped
+    like one (a prefill replica in another process), `.remote()` runs in
+    the loop's default executor, as it may do blocking I/O, and the
+    response it returns is awaited. An error reaches the caller: nothing
+    falls back to prefill in this process."""
+    if isinstance(prefill, PrefillServer):
+        return await getattr(prefill, name)(*a, **kw)
+    loop = asyncio.get_running_loop()
+    resp = await loop.run_in_executor(None, lambda: getattr(prefill, name).remote(*a, **kw))
+    return await resp
 
 
 class ShipSource:
-    """The decode side's handle on one prefill replica's shipment API (a
-    PrefillServer in this process). Only metadata and the RPC-fallback
-    bytes cross it."""
+    """The decode side's handle on one prefill replica's shipment API: a
+    PrefillServer in this process, or a handle whose methods have
+    `.remote()` (a serve DeploymentHandle). Only metadata and the
+    RPC-fallback bytes cross it."""
 
     def __init__(self, prefill):
-        self._p = _prefill_server(prefill)
+        self._p = prefill
 
-    async def _call(self, name: str, *a, **kw):
-        return await getattr(self._p, name)(*a, **kw)
+    def _call(self, name: str, *a, **kw):
+        return _prefill_call(self._p, name, *a, **kw)
 
     def begin(self, prompt, skip_pages, trace_id, temperature, top_p, top_k, logprobs):
         return self._call("prefill_begin", prompt, skip_pages=skip_pages,
@@ -529,8 +540,8 @@ async def _first_decode_window(slot, trace_id: str, t_act: float):
 
 class PDServer(DecodeServer):
     """Decode-as-orchestrator deployment: holds the prefill replica (a
-    PrefillServer in this process; any other object raises TypeError at
-    the first request); every generate() streams the prompt KV from
+    PrefillServer in this process, or a handle to one elsewhere, such as a
+    serve DeploymentHandle); every generate() streams the prompt KV from
     prefill and decodes here. With no prefill replica it serves colocated."""
 
     def __init__(self, config: Optional[LLMConfig] = None, params=None,
@@ -546,8 +557,8 @@ class PDServer(DecodeServer):
             self._ship_src = ShipSource(self._prefill)
         return self._ship_src
 
-    async def _remote_prefill(self, prompt: List[int], **kw):
-        return await _prefill_server(self._prefill).prefill_kv(prompt, **kw)
+    def _remote_prefill(self, prompt: List[int], **kw):
+        return _prefill_call(self._prefill, "prefill_kv", prompt, **kw)
 
     async def _pd_kv(self, prompt: List[int], **kw) -> Dict[str, Any]:
         """This request's kv argument: a streaming descriptor, or the

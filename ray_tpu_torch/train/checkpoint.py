@@ -20,9 +20,22 @@ shard-local model's and its AdamW's state dicts), and each writes them to
 `shards/rank-<rank>.pt`; the mesh's first rank writes
 `shards/layout.json`, the mesh's axes, sizes and ranks and each leaf's
 spec (the `specs` tree, where the caller gives one). Nothing is gathered.
-`to_state` with the same `mesh` reads this rank's file back onto
-`target`'s blocks; a mesh of another layout, or over other ranks, raises
-`ValueError` naming both layouts (resharding is not done).
+Read back, as JAX's orbax read gives global arrays or places them on
+another sharding:
+  * `to_state` with the same `mesh` reads this rank's file back onto
+    `target`'s blocks;
+  * `to_state` with no mesh returns the whole state: each leaf's blocks
+    from every rank's file, put in place by its spec and the rank's mesh
+    coordinate (a dimension split over several axes numbered row-major
+    over them, as `parallel.sharding.local_slice` numbers it); a leaf
+    without a spec is replicated and read from the mesh's first rank. A
+    checkpoint written without `specs` cannot be assembled and raises
+    `ValueError`;
+  * `to_state` with a mesh of another layout, or over other ranks, and
+    the target's `specs` gives this rank its blocks of the whole under
+    those specs: only the parts of each saved block that fall in this
+    rank's block are copied out of the memory-mapped files, so the whole
+    state is never built on a rank.
 """
 
 import json
@@ -36,6 +49,8 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+
+from ray_tpu_torch.parallel.sharding import P, block_index
 
 _METADATA_FILE = ".ray_tpu_ckpt_meta.json"
 _TORCH_FILE = "state.pt"
@@ -132,6 +147,101 @@ def _spec_json(tree):
     return [list(e) if isinstance(e, tuple) else e for e in tree]
 
 
+def _spec_at(specs, path) -> Optional[P]:
+    """The spec of the leaf at `path` in a JSON specs tree (`_spec_json`),
+    or None: a leaf the tree does not name is replicated."""
+    node = specs
+    for key in path:
+        if not isinstance(node, dict) or str(key) not in node:
+            return None
+        node = node[str(key)]
+    return P(*node) if isinstance(node, list) else None
+
+
+def _map_leaves(tree, fn, path=()):
+    """fn(path, leaf) over the leaves of dicts, lists and tuples."""
+    if type(tree) in (dict, OrderedDict):
+        return type(tree)((k, _map_leaves(v, fn, path + (k,))) for k, v in tree.items())
+    if type(tree) in (list, tuple):
+        return type(tree)(_map_leaves(v, fn, path + (i,)) for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def _leaf_at(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+class _Sources:
+    """Every rank's file of a sharded checkpoint, memory-mapped, with each
+    rank's mesh coordinate; a block shared by several ranks (a replicated
+    axis) is read from the first of them."""
+
+    def __init__(self, shards: str, layout: Dict):
+        self.sizes = layout["mesh"]
+        self.specs = layout["specs"]
+        names, dims = list(self.sizes), list(self.sizes.values())
+        self.coords = [dict(zip(names, (int(c) for c in np.unravel_index(i, dims))))
+                       for i in range(len(layout["ranks"]))]
+        self.payloads = [torch.load(os.path.join(shards, f"rank-{r:05d}.pt"),
+                                    map_location="cpu", weights_only=True, mmap=True)
+                         for r in layout["ranks"]]
+
+    def _pieces(self, path, leaf):
+        """(the whole shape, [(its start in the whole, the saved block)])
+        of one leaf, one piece a distinct block."""
+        spec = _spec_at(self.specs, path)
+        seen, pieces, shape = set(), [], None
+        for coord, payload in zip(self.coords, self.payloads):
+            blocks = block_index(spec, self.sizes, coord, leaf.ndim)
+            key = tuple(i for _, i in blocks)
+            if key in seen:
+                continue
+            seen.add(key)
+            t = _leaf_at(payload["tree"], path)
+            shape = [n * c for n, (c, _) in zip(t.shape, blocks)]
+            pieces.append(([n * i for n, (_, i) in zip(t.shape, blocks)], t))
+        return shape, pieces
+
+    def whole(self, path, leaf):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        shape, pieces = self._pieces(path, leaf)
+        if len(pieces) == 1:
+            return leaf
+        out = torch.empty(shape, dtype=leaf.dtype)
+        for start, t in pieces:
+            out[tuple(slice(s, s + n) for s, n in zip(start, t.shape))].copy_(t)
+        return out
+
+    def block(self, path, leaf, spec, sizes, coord):
+        """The block under `spec` at mesh coordinate `coord` ({axis: index})
+        of a mesh of `sizes`: the intersection of each saved block with it,
+        copied out of the mapped files."""
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        shape, pieces = self._pieces(path, leaf)
+        lo, hi = [], []
+        for d, (count, idx) in enumerate(block_index(spec, sizes, coord, leaf.ndim)):
+            if shape[d] % count:
+                where = "/".join(map(str, path))
+                raise ValueError(f"dimension {d} of {where}'s whole shape {tuple(shape)} "
+                                 f"does not split into {count} blocks")
+            n = shape[d] // count
+            lo.append(idx * n)
+            hi.append(idx * n + n)
+        out = torch.empty([h - l for l, h in zip(lo, hi)], dtype=leaf.dtype)
+        for start, t in pieces:
+            a = [max(l, s) for l, s in zip(lo, start)]
+            b = [min(h, s + n) for h, s, n in zip(hi, start, t.shape)]
+            if any(x >= y for x, y in zip(a, b)):
+                continue
+            out[tuple(slice(x - l, y - l) for x, y, l in zip(a, b, lo))].copy_(
+                t[tuple(slice(x - s, y - s) for x, y, s in zip(a, b, start))])
+        return out
+
+
 class Checkpoint:
     """Handle to a checkpoint directory. Create with `from_directory` (user
     already wrote files) or `from_state` (we serialize a tree)."""
@@ -213,21 +323,40 @@ class Checkpoint:
         _mesh_barrier(mesh)
         return ckpt
 
-    def _shard_state(self, target, mesh):
+    def _shard_state(self, target, mesh, specs):
         import torch.distributed as dist
-        with open(os.path.join(self.path, _SHARD_DIR, _LAYOUT_FILE)) as f:
+        shards = os.path.join(self.path, _SHARD_DIR)
+        with open(os.path.join(shards, _LAYOUT_FILE)) as f:
             layout = json.load(f)
-        if mesh is None:
+        if mesh is not None:
+            here = dict(mesh=_mesh_layout(mesh), ranks=mesh.mesh.flatten().tolist())
+            if here == {k: layout[k] for k in here}:
+                pt = os.path.join(shards, f"rank-{dist.get_rank():05d}.pt")
+                return self._decode(torch.load(pt, map_location="cpu", weights_only=True,
+                                               mmap=True), target)
+        if layout.get("specs") is None:
             raise ValueError(f"{self.path} holds a sharded checkpoint of mesh "
-                             f"{layout['mesh']}: pass the mesh to restore onto")
-        here = dict(mesh=_mesh_layout(mesh), ranks=mesh.mesh.flatten().tolist())
-        if here != {k: layout[k] for k in here}:
+                             f"{layout['mesh']} written without specs: its blocks cannot "
+                             f"be assembled; restore it onto the mesh that wrote it")
+        if mesh is not None and specs is None:
             raise ValueError(f"checkpoint written on mesh {layout['mesh']} over ranks "
-                             f"{layout['ranks']}; restoring onto mesh {here['mesh']} over "
-                             f"ranks {here['ranks']}: resharding across layouts is not "
-                             f"supported")
-        pt = os.path.join(self.path, _SHARD_DIR, f"rank-{dist.get_rank():05d}.pt")
-        payload = torch.load(pt, map_location="cpu", weights_only=True, mmap=True)
+                             f"{layout['ranks']}; restoring onto mesh {_mesh_layout(mesh)} "
+                             f"over ranks {mesh.mesh.flatten().tolist()} needs the "
+                             f"target's specs (train.llm_step.train_state gives them)")
+        sources = _Sources(shards, layout)
+        first = sources.payloads[0]
+        if mesh is None:
+            fn = sources.whole
+        else:
+            coord = mesh.get_coordinate()
+            if coord is None:
+                raise ValueError("this rank is not a member of the mesh")
+            sizes, coord = _mesh_layout(mesh), dict(zip(mesh.mesh_dim_names, coord))
+            want = _spec_json(specs)
+            fn = lambda path, leaf: sources.block(path, leaf, _spec_at(want, path), sizes,
+                                                  coord)
+        payload = {"tree": _map_leaves(first["tree"], fn),
+                   "numpy_leaves": first["numpy_leaves"]}
         return self._decode(payload, target)
 
     @staticmethod
@@ -239,14 +368,17 @@ class Checkpoint:
         return _restore_like(tree, target)
 
     # -- contents ----------------------------------------------------------
-    def to_state(self, target: Any = None, mesh=None) -> Any:
+    def to_state(self, target: Any = None, mesh=None, specs: Any = None) -> Any:
         """Inverse of from_state. Tensors load on the CPU; `target`, a tree
         of like-shaped tensors (a fresh model's and optimizer's state
         dicts, say), puts each tensor on its target's device and dtype.
-        A sharded checkpoint needs the `mesh` it was written on; each rank
-        reads its own blocks."""
+        A sharded checkpoint (module docstring) comes back whole without
+        `mesh`; with the `mesh` it was written on each rank reads its own
+        blocks; with another mesh each rank gets its blocks under `specs`,
+        the target's specs tree (as `train.llm_step.train_state` returns
+        it)."""
         if os.path.exists(os.path.join(self.path, _SHARD_DIR, _LAYOUT_FILE)):
-            return self._shard_state(target, mesh)
+            return self._shard_state(target, mesh, specs)
         pt = os.path.join(self.path, _TORCH_FILE)
         if os.path.exists(pt):
             return self._decode(torch.load(pt, map_location="cpu", weights_only=True,

@@ -13,8 +13,19 @@
   tiny Llama trained on an {"fsdp": 2, "tp": 2} mesh, saved after step 2
   with each rank writing its own blocks, restored into a fresh model and
   AdamW on the same mesh: every block and AdamW moment torch.equal, steps
-  3-4 equal to the uninterrupted run's; a restore onto {"dp": 2, "fsdp":
-  2} raises naming both layouts, and one without a mesh raises."""
+  3-4 equal to the uninterrupted run's;
+- the same checkpoint read whole (no mesh): each block of the whole on
+  the writing mesh torch.equal the saved block; restored onto {"dp": 2,
+  "fsdp": 2} and onto {"fsdp": 4} with the target's specs: every block
+  and AdamW moment torch.equal the whole's block under that mesh, and two
+  resumed steps' losses within 1e-5 of the uninterrupted run's;
+- JAX's tiny Llama params written sharded by the port on {"fsdp": 2,
+  "tp": 2} in f32 and read whole equal exactly JAX's `Checkpoint.to_state()`
+  of the same params saved sharded by `llama_rules` on the same mesh of
+  JAX's CPU devices;
+- a sharded checkpoint written without specs raises `ValueError` on a
+  whole read, and a restore onto another mesh without the target's specs
+  raises naming both layouts."""
 
 import json
 import os
@@ -142,20 +153,24 @@ def test_restore_onto_target_devices_and_dtypes(tmp_path):
         ckpt.to_state(target={"nope": torch.zeros(1)})
 
 
-def _sharded_rank(rank, world, store, root):
+RESUME_TOL = 1e-5      # resumed losses on another mesh, absolute (f32, tiny)
+
+
+def _sharded_rank(rank, world, store, root, jax_params):
     import torch.distributed as dist
+    from ray_tpu_torch.models.convert import shard_state_dict
     from ray_tpu_torch.parallel import distributed as tdist
     from ray_tpu_torch.parallel.mesh import make_mesh
-    from ray_tpu_torch.parallel.sharding import data_sharding
+    from ray_tpu_torch.parallel.sharding import data_sharding, local_slice
     from ray_tpu_torch.train.ingest import iter_device_batches
     from ray_tpu_torch.train.llm_step import build_llama_trainer, train_state
     torch.set_num_threads(1)
     tdist.initialize_multihost(store, num_processes=world, process_id=rank, device="cpu")
     mesh = make_mesh({"fsdp": 2, "tp": 2}, device="cpu")
-    build = lambda seed: build_llama_trainer("tiny", 4, 16, device="cpu", seed=seed,
-                                             dtype=torch.float32, mesh=mesh,
-                                             overrides=dict(attn_impl="xla"))
-    feed = lambda bs: iter_device_batches(bs, sharding=data_sharding(mesh))
+    build = lambda seed, m=mesh, params=None: build_llama_trainer(
+        "tiny", 4, 16, device="cpu", seed=seed, dtype=torch.float32, mesh=m, params=params,
+        overrides=dict(attn_impl="xla"))
+    feed = lambda bs, m=mesh: iter_device_batches(bs, sharding=data_sharding(m))
     clone = lambda tree: {k: (clone(v) if isinstance(v, dict) else
                               v.clone() if torch.is_tensor(v) else v) for k, v in tree.items()}
     model, opt, step, batches, _ = build(0)
@@ -183,12 +198,53 @@ def _sharded_rank(rank, world, store, root):
     out["losses_equal"] = all(torch.equal(a, b) for a, b in zip(resumed, losses[2:]))
     out["final_equal"] = same(train_state(model, opt)[0]["model"], final["model"]) and same(
         train_state(model, opt)[0]["optim"]["state"], final["optim"]["state"])
-    other = make_mesh({"dp": 2, "fsdp": 2}, device="cpu")
-    for name, m in (("other_layout", other), ("no_mesh", None)):
-        try:
-            ckpt.to_state(target=train_state(model, opt)[0], mesh=m)
-        except ValueError as e:
-            out[name] = str(e)
+
+    # whole: the blocks of the whole on the writing mesh are the saved blocks
+    whole = ckpt.to_state()
+    names = list(saved["model"])
+    moments = lambda st, i: (st["optim"]["state"][i]["exp_avg"],
+                             st["optim"]["state"][i]["exp_avg_sq"])
+    out["whole_shapes"] = {k: tuple(v.shape) for k, v in whole["model"].items()}
+    out["whole_blocks"] = same(shard_state_dict(whole["model"], mesh), saved["model"]) and all(
+        torch.equal(local_slice(w, specs["optim"]["state"][i]["exp_avg"], mesh), b)
+        for i in range(len(names)) for w, b in zip(moments(whole, i), moments(saved, i)))
+    out["whole_step"] = whole["step"]
+    out["whole_optim_steps"] = sorted({float(s["step"]) for s in whole["optim"]["state"].values()})
+
+    # reshard onto two other layouts; blocks and two resumed steps
+    for axes in ({"dp": 2, "fsdp": 2}, {"fsdp": 4}):
+        other = make_mesh(axes, device="cpu")
+        model, opt, step, _, _ = build(1, other)
+        target, tspecs = train_state(model, opt)
+        got = ckpt.to_state(target=target, mesh=other, specs=tspecs)
+        want_model = shard_state_dict(whole["model"], other)
+        blocks = same(got["model"], {k: want_model[k] for k in got["model"]}) and all(
+            torch.equal(g, local_slice(w, tspecs["optim"]["state"][i]["exp_avg"], other))
+            for i in range(len(names)) for g, w in zip(moments(got, i), moments(whole, i)))
+        model.load_state_dict(got["model"])
+        opt.load_state_dict(got["optim"])
+        resumed = [float(step(t)) for t in feed(batches[2:4], other)]
+        out["/".join(axes)] = dict(
+            blocks=blocks, dtypes={str(v.dtype) for v in got["model"].values()},
+            block_shapes={k: tuple(v.shape) for k, v in got["model"].items()},
+            gap=max(abs(a - float(b)) for a, b in zip(resumed, losses[2:])))
+    try:
+        ckpt.to_state(target=train_state(model, opt)[0], mesh=other)
+    except ValueError as e:
+        out["no_specs_for_other_mesh"] = str(e)
+
+    # JAX's params written sharded by the port, for the test's whole read
+    model, opt, _, _, _ = build(0, params=jax_params)
+    jstate, jspecs = train_state(model, opt)
+    Checkpoint.from_state({"model": jstate["model"]}, path=os.path.join(root, "ck_jax"),
+                          mesh=mesh, specs={"model": jspecs["model"]})
+    nospec = Checkpoint.from_state({"model": jstate["model"]},
+                                   path=os.path.join(root, "ck_nospec"), mesh=mesh)
+    try:
+        nospec.to_state()
+    except ValueError as e:
+        out["no_specs_whole"] = str(e)
+
     out["files"] = sorted(os.listdir(os.path.join(path, "shards")))
     with open(os.path.join(path, "shards", "layout.json")) as f:
         out["layout"] = json.load(f)
@@ -198,18 +254,44 @@ def _sharded_rank(rank, world, store, root):
     return out
 
 
-def test_sharded_checkpoint_round_trip_on_four_ranks(tmp_path):
-    got = run_ranks(_sharded_rank, 4, tmp_path, str(tmp_path), timeout=120)
+def _jax_whole(root):
+    """JAX's tiny Llama params (f32, seed 0) saved sharded by llama_rules on
+    {"fsdp": 2, "tp": 2} over JAX's CPU devices 0..3 and read back whole by
+    its Checkpoint; returns (the params as numpy, the whole read)."""
+    import jax
+    import jax.numpy as jnp
+    from ray_tpu.models.llama import Llama, LlamaConfig
+    from ray_tpu.parallel.mesh import make_mesh
+    from ray_tpu.parallel.sharding import llama_rules
+    cfg = LlamaConfig.tiny(dtype=jnp.float32, param_dtype=jnp.float32, attn_impl="xla")
+    params = Llama(cfg).init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))
+    plain = lambda t: ({k: plain(v) for k, v in t.items()} if hasattr(t, "items")
+                       else np.asarray(t))
+    params = plain({"params": params["params"]})
+    mesh = make_mesh({"fsdp": 2, "tp": 2}, devices=jax.devices()[:4])
+    sharded = jax.device_put(params, llama_rules().tree_shardings(params, mesh))
+    assert any(len({str(s.index) for s in leaf.addressable_shards}) > 1
+               for leaf in jax.tree_util.tree_leaves(sharded))
+    JCheckpoint.from_state(sharded, path=os.path.join(root, "jax_ck"))
+    return params, plain(JCheckpoint.from_directory(os.path.join(root, "jax_ck")).to_state())
+
+
+@pytest.fixture(scope="module")
+def sharded(tmp_path_factory):
+    """(the ranks' results, JAX's whole read, the directory): one spawn of
+    4 gloo ranks for every sharded case."""
+    root = tmp_path_factory.mktemp("sharded")
+    params, jax_whole = _jax_whole(str(root))
+    got = run_ranks(_sharded_rank, 4, root, str(root), params, timeout=150)
+    assert not any(r["jax_loaded"] for r in got)
+    return got, jax_whole, root
+
+
+def test_sharded_checkpoint_round_trip_on_four_ranks(sharded):
+    got, _, _ = sharded
     for rank, r in enumerate(got):
-        assert not r["jax_loaded"]
         assert (r["restored_model"], r["restored_moments"], r["losses_equal"],
                 r["final_equal"], r["step"]) == (True, True, True, True, 2), (rank, r)
-        assert r["other_layout"] == (
-            "checkpoint written on mesh {'fsdp': 2, 'tp': 2} over ranks [0, 1, 2, 3]; "
-            "restoring onto mesh {'dp': 2, 'fsdp': 2} over ranks [0, 1, 2, 3]: resharding "
-            "across layouts is not supported")
-        assert r["no_mesh"].endswith("holds a sharded checkpoint of mesh {'fsdp': 2, "
-                                     "'tp': 2}: pass the mesh to restore onto")
     assert got[0]["files"] == ["layout.json"] + [f"rank-{r:05d}.pt" for r in range(4)]
     layout = got[0]["layout"]
     assert layout["mesh"] == {"fsdp": 2, "tp": 2}
@@ -217,3 +299,54 @@ def test_sharded_checkpoint_round_trip_on_four_ranks(tmp_path):
     assert layout["specs"]["model"]["layers_0.attn_norm.scale"] == []
     assert layout["specs"]["optim"]["state"]["2"]["exp_avg"] == ["tp", "fsdp"]    # wq
     assert got[0]["metadata"] == {"step": 2}
+
+
+def test_sharded_checkpoint_reads_whole(sharded):
+    """No mesh: the whole state, whose blocks on the writing mesh are the
+    saved blocks (parameters and AdamW moments), with its scalars."""
+    got, _, _ = sharded
+    for rank, r in enumerate(got):
+        assert r["whole_blocks"] and r["whole_step"] == 2 and r["whole_optim_steps"] == [2.0]
+        assert r["whole_shapes"]["layers_0.attn.wq.weight"] == (64, 64)
+        assert r["whole_shapes"]["embed.embedding"] == (256, 64)
+
+
+@pytest.mark.parametrize("axes,wq_block", [("dp/fsdp", (64, 32)), ("fsdp", (64, 16))],
+                         ids=["dp2_fsdp2", "fsdp4"])
+def test_sharded_checkpoint_reshards(sharded, axes, wq_block):
+    """Onto another mesh with the target's specs: every block and moment
+    is the whole's block there, f32 stays f32, and two resumed steps'
+    losses are within RESUME_TOL of the uninterrupted run's."""
+    got, _, _ = sharded
+    for rank, r in enumerate(got):
+        case = r[axes]
+        assert case["blocks"] and case["dtypes"] == {"torch.float32"}, (rank, case)
+        assert case["gap"] <= RESUME_TOL, (rank, case["gap"])
+        assert case["block_shapes"]["layers_0.attn.wq.weight"] == wq_block
+
+
+def test_sharded_checkpoint_refusals(sharded):
+    got, _, _ = sharded
+    for r in got:
+        assert r["no_specs_for_other_mesh"] == (
+            "checkpoint written on mesh {'fsdp': 2, 'tp': 2} over ranks [0, 1, 2, 3]; "
+            "restoring onto mesh {'fsdp': 4} over ranks [0, 1, 2, 3] needs the target's "
+            "specs (train.llm_step.train_state gives them)")
+        assert "written without specs: its blocks cannot be assembled" in r["no_specs_whole"]
+
+
+def test_whole_read_equals_jax(sharded):
+    """The port's whole read of JAX's params, written sharded by the port,
+    equals JAX's whole read of them saved sharded, exactly."""
+    from ray_tpu_torch.models.convert import state_dict_to_flax
+    _, jax_whole, root = sharded
+    whole = Checkpoint.from_directory(str(root / "ck_jax")).to_state()
+    mine = state_dict_to_flax(whole["model"])
+    flat = lambda t, pre="": ([(pre + k, v) for k, v in t.items() if not hasattr(v, "items")]
+                              + [x for k, v in t.items() if hasattr(v, "items")
+                                 for x in flat(v, pre + k + "/")])
+    want, have = dict(flat(jax_whole)), dict(flat(mine))
+    assert want.keys() == have.keys() and len(want) > 10
+    for k, v in want.items():
+        assert have[k].dtype == v.dtype == np.float32 and have[k].shape == v.shape, k
+        np.testing.assert_array_equal(have[k], v, err_msg=k)

@@ -147,15 +147,30 @@ def test_pd_requires_paged():
                                     device="cpu"))
 
 
+class _FailingHandle:
+    """A prefill handle whose every `.remote()` raises (a replica that
+    cannot be reached)."""
+
+    def __getattr__(self, name):
+        if name.startswith("_"):
+            raise AttributeError(name)
+        return self
+
+    def remote(self, *a, **kw):
+        raise ConnectionError("prefill replica unreachable")
+
+
 @pytest.mark.parametrize("ship", ["1", "0"])
-def test_pd_prefill_must_be_a_prefill_server(monkeypatch, ship):
-    """The port serves PD within one process: a prefill side that is not a
-    PrefillServer raises on both hand-offs, and nothing is served."""
+def test_pd_handle_errors_reach_the_request(monkeypatch, ship):
+    """A prefill handle whose `.remote()` raises fails the request on both
+    hand-offs, as in JAX: nothing falls back to prefill in this process,
+    and no slot stays taken."""
     monkeypatch.setenv("RAY_TPU_KV_SHIP", ship)
-    pd = tpd.PDServer(_cfg(tllm), prefill=object())
-    with pytest.raises(TypeError, match="PrefillServer"):
+    pd = tpd.PDServer(_cfg(tllm), prefill=_FailingHandle())
+    with pytest.raises(ConnectionError, match="unreachable"):
         _gen(pd, [1, 2, 3], max_tokens=2)
-    assert pd.stats()["active"] == 0
+    st = pd.stats()
+    assert st["active"] == 0 and st["free_slots"] == 4 and st["prefill"]["chunks"] == 0
 
 
 def _no_arrays(x, where=""):
