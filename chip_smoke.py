@@ -87,24 +87,30 @@ Phases, in order; a failing phase raises and the script exits non-zero:
              `kv_seal` spans, each family's p50 a request and its share of
              TTFT p50; the kv_seal pages equal to the pages shipped; beside
              them a stopwatch on the awaited prefill_begin, which no window
-             covers) and the seal / install times a page. Path
-             `serve_pd_proc`: the same checks with the PrefillServer in a
-             child process (`PrefillProcess`: spawned, a pipe, one asyncio
-             loop, every call and reply pickled; two CUDA contexts share
-             the card) behind a handle-shaped object: sequential ids equal
-             the colocated server's, the shared prefix not shipped again,
-             every segment attached here, a pull over the child's KV data
-             server and the whole-KV hand-off; the wave with B1 counted in
-             the child and B4 here, its TTFT p50/p99, tokens/s and
-             breakdown with the child's spans merged by trace id; the seal
-             ms a page in the child, the install ms a page here; no
-             `rtpt-*` segment left after both close. Path `runtime`
+             covers) and the seal / install times a page. These paths,
+             `runtime` and `serve_app` share one session of the port's
+             runtime, opened here and shut down after `serve_app` (every
+             worker gone). Path `serve_pd_proc`: the same checks with the
+             PrefillServer a serve deployment of the port's runtime
+             (`EngineReplica` "prefill", num_gpus=1: its own process, two
+             CUDA contexts sharing the card; its weights' digest equal to
+             the colocated server's) reached through its
+             DeploymentHandle: sequential ids equal the colocated
+             server's, the shared prefix not shipped again, every segment
+             attached here, a pull over the replica's KV data server and
+             the whole-KV hand-off; the wave with B1 counted in the
+             replica and B4 here, its TTFT p50/p99, tokens/s and breakdown
+             with the replica's spans merged by trace id (each read
+             through the handle); the seal ms a page in the replica, the
+             install ms a page here; no `rtpt-*` segment left after the
+             replica closes its shipping and its app is deleted. Path
+             `runtime`
              (`run_runtime`): the port's own task/actor runtime. init()
              counts the card as {"GPU": 1}; a plain task's worker has
              none of torch, jax or ray_tpu loaded and a num_gpus=0 task
              sees no card; a 128 MiB bf16 tensor drawn by a num_gpus=1
              task lands on a card here, bit-equal; a num_gpus=1
-             `ServeActor` builds the slice's llama_1b server and answers
+             `EngineReplica` "llm" builds the slice's llama_1b server and answers
              the sequential prompts through .remote()/get with the
              colocated server's ids, its own B1 and B4 counters reset
              just before and read just after (as the slice's launch
@@ -113,8 +119,22 @@ Phases, in order; a failing phase raises and the script exits non-zero:
              the actor's card, bit-equal; a second num_gpus=1 actor stays
              pending until the first is killed, then gets the card; a
              1 GiB CPU tensor through put -> get, timed, a write to one
-             get leaving the next unchanged; every worker gone after
-             shutdown().
+             get leaving the next unchanged. Path `serve_app`
+             (`run_serve_app`): Serve's deployment layer. The OpenAI app
+             serve.deployment(OpenAIIngress).bind({"llama_1b": llm}), `llm`
+             the slice's llama_1b server as a num_gpus=1 deployment
+             (`EngineReplica` "llm"), the ingress a CPU replica, behind
+             serve.start's HTTP proxy: the sequential prompts through
+             the deployment's handle with the colocated server's ids, then
+             as POST /v1/completions over http.client one at a time, as a
+             concurrent wave, one `stream: true` request and a concurrent
+             wave of streams: every answer 200 with the OpenAI shape, its
+             text ByteTokenizer's decode of the ids the engine produced for
+             it and usage their counts; B1 and B4 counted in the replica's
+             process (this process's counts 0), the replica bound to the
+             card; the replica's start, the first SSE event against the
+             engine's TTFT, the proxy + ingress + handle ms a request and
+             decode tokens/s logged.
 9. tiered  - radix KV demotion at llama_1b width (path `serve_tiered`): 8
              families of 1024-token prefixes round-robin on a 32-page pool
              with a 64 MiB stash, restored pages torch.equal to their
@@ -274,12 +294,19 @@ Phases, in order; a failing phase raises and the script exits non-zero:
 runs the multi-card phases instead (it needs four visible cards):
 `runtime` in this process (four num_gpus=1 actors of the port's runtime
 bound to four distinct cards, their uuids this process's four, then a
-num_gpus=2 actor that sees two; no model, no NCCL), `rl_dp` in a world
-of its own, then `seqpipe`, `fsdp` and `tp` in the same ranks (one
-spawned rank per card over NCCL), then MPMD in this process.
-`--phases runtime`, `--phases seqpipe`, `--phases tp`, `--phases rl_dp`
-or `--phases fsdp` runs one group alone: a rehearsal aid for a change that touches one of
-them; the check of a change is the default run. `fsdp`: (a) path
+num_gpus=2 actor that sees two; no model, no NCCL), `serve` in this
+process (run_serve_cards: the `serve_app` app with its llama_1b
+deployment at num_replicas=2, a card each, where a wave of four
+256-token-prefix families is spread by p2c and each family's repeats
+over HTTP go to the replica that advertised its prefix, ids equal to an
+in-process server's; and PD as two deployments, PrefillServer on a third
+card and PDServer bound with its handle on a fourth, ids equal, TTFT
+read), `rl_dp` in a world of its own, then `seqpipe`, `fsdp` and `tp` in
+the same ranks (one spawned rank per card over NCCL), then MPMD in this
+process. `--phases runtime`, `--phases serve`, `--phases seqpipe`,
+`--phases tp`, `--phases rl_dp` or `--phases fsdp` runs one group alone: a
+rehearsal aid for a change that touches one of them; the check of a
+change is the default run. `fsdp`: (a) path
 `train_fsdp`, llama_8b at full width (d 4096, 32 layers, 32/8 heads,
 head_dim 128, ffn 14336, vocab 32000; seeded weights), f32 master
 weights, bf16 activations, flash attention, remat, AdamW (lr 1e-4, weight
@@ -1709,11 +1736,7 @@ def pd_breakdown(events, n_req, shipped_pages, ttft_p50_s, begin_s, tag="pd",
     return out
 
 
-# ------------------------------------------------------------------ pd across processes
-PREFILL_METHODS = ("prefill_begin", "prefill_wait", "prefill_fetch", "prefill_drop",
-                   "prefill_kv")
-
-
+# ------------------------------------------------------------------ serve deployments
 def state_digest(sd):
     """sha256 over a state_dict's keys, dtypes, shapes and bytes."""
     import hashlib
@@ -1726,237 +1749,165 @@ def state_digest(sd):
     return h.hexdigest()
 
 
-def _send(conn, lock, msg):
-    """One message through the pipe, pickled by the standard pickler: a
-    tensor crosses as its bytes, never as a handle to shared memory."""
-    import pickle
-    blob = pickle.dumps(msg, protocol=5)
-    with lock:
-        conn.send_bytes(blob)
+def prompt_key(prompt):
+    """A short key of a prompt's ids, the same in every process."""
+    import hashlib
+    return hashlib.sha256(np.asarray(prompt, np.int64).tobytes()).hexdigest()[:16]
 
 
-def _prefill_child(conn, config, params_path, digest):
-    """The child of `PrefillProcess`: a PrefillServer built from the
-    parent's weights (a torch.save file), checked against the parent's
-    digest, then one asyncio loop answering calls by id."""
-    import threading
-    import traceback
-    import torch
-    from ray_tpu_torch.serve.pd import PrefillServer
-    lock = threading.Lock()
-    try:
-        params = torch.load(params_path, map_location="cpu", weights_only=True, mmap=True)
-        server = PrefillServer(config, params=params)
-        del params
-        mine = state_digest(server.model.state_dict())
-        if mine != digest:
-            raise AssertionError(f"the child's weights differ from the parent's: digest "
-                                 f"{mine} != {digest}")
-    except BaseException:  # noqa: BLE001 - reported to the parent
-        _send(conn, lock, (None, False, traceback.format_exc()))
-        return
-    _send(conn, lock, (None, True, dict(pid=os.getpid(), digest=mine)))
-    asyncio.run(_prefill_child_loop(conn, lock, server))
+class EngineReplica:
+    """One of the port's serving engines in a process of the port's runtime:
+    a serve deployment's class (`serve_pd_proc`, `serve_app`, `--cards 4`
+    `serve`) or a plain `num_gpus=1` actor (`runtime`). `kind` "llm"
+    (LLMServer), "prefill" (PrefillServer) or "pd" (PDServer, whose
+    `prefill` is a deployment handle), built in that process from `config`
+    (seeded weights unless `params` is given), TF32 off as main() sets it.
+    Through a deployment every other attribute is the engine's (the
+    prefill methods; the prefix digest and SLO snapshot ride the replica's
+    stats frame); a plain actor sees the methods defined here. Besides, it
+    answers what the driver cannot see from its own process: the launch
+    counts, the card binding, the kv_ship counters and trace ring, a digest
+    of the weights, a stopwatch on the seal, each request it served
+    (`served`: the prompt's key, the ids, TTFT and total seconds), the shm
+    segments its prefill_wait frames announced, and where a tensor the
+    driver sent landed."""
 
+    def __init__(self, kind, config, params=None, prefill=None):
+        import torch
+        from ray_tpu_torch.serve.llm import LLMServer
+        from ray_tpu_torch.serve.pd import PDServer, PrefillServer
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.device = "cuda" if config.device == "cuda" else "cpu"
+        if kind == "pd":
+            self.server = PDServer(config, params=params, prefill=prefill)
+        else:
+            self.server = {"llm": LLMServer, "prefill": PrefillServer}[kind](config, params=params)
+        self._served, self._announced, self._watch = [], set(), {}
 
-async def _prefill_child_loop(conn, lock, server):
-    """Read calls (id, name, args, kwargs) on a thread; run each as a task
-    of this loop, so a shipment's chunk task keeps running between calls;
-    answer (id, ok, value). Besides the five prefill methods it answers
-    what the parent cannot see from its own process: this process's launch
-    counts, kv_ship_counters(), trace ring and stats(), and a stopwatch on
-    the seal."""
-    import pickle
-    import threading
-    import traceback
-    from ray_tpu_torch.util import metrics as tm
-    from ray_tpu_torch.util import tracing
+    def __getattr__(self, name):
+        if name.startswith("__") or name == "server":
+            raise AttributeError(name)
+        return getattr(self.server, name)
 
-    loop = asyncio.get_running_loop()
-    inbox = asyncio.Queue()
+    def _record(self, prompt, tokens, ttft_s, total_s):
+        self._served.append(dict(key=prompt_key(prompt), tokens=list(tokens), ttft_s=ttft_s,
+                                 total_s=total_s))
 
-    def read():
-        while True:
-            try:
-                msg = pickle.loads(conn.recv_bytes())
-            except (EOFError, OSError):
-                msg = None
-            loop.call_soon_threadsafe(inbox.put_nowait, msg)
-            if msg is None or msg[1] == "close":
-                return
+    async def generate(self, prompt_ids, max_tokens=32, eos_id=None, **kw):
+        out = await self.server.generate(prompt_ids, max_tokens, eos_id, **kw)
+        self._record(prompt_ids, out["tokens"], out.get("ttft_s"), out.get("total_s"))
+        return out
 
-    threading.Thread(target=read, daemon=True).start()
-    device = "cuda" if server.device.type == "cuda" else "cpu"
-    watch = {}
+    async def generate_stream(self, prompt_ids, max_tokens=32, eos_id=None, **kw):
+        t0, toks, ttft = time.perf_counter(), [], None
+        try:
+            async for tok in self.server.generate_stream(prompt_ids, max_tokens, eos_id, **kw):
+                if ttft is None:
+                    ttft = time.perf_counter() - t0
+                toks.append(tok)
+                yield tok
+        finally:
+            self._record(prompt_ids, toks, ttft, time.perf_counter() - t0)
 
-    def watch_seal():
-        watch["seal"] = Stopwatch(server, "_publish_pages", lambda a, out: out["n_pages"],
-                                  device)
+    async def prefill_wait(self, ship_id, have=0):
+        from ray_tpu_torch._private.object_store import seg_name
+        out = await self.server.prefill_wait(ship_id, have)
+        self._announced.update(seg_name(s[k]) for s in out["segments"] for k in ("oid", "wire"))
+        return out
 
-    def seal_watched():
-        w = watch.pop("seal")
+    def served(self, clear=False):
+        out = list(self._served)
+        if clear:
+            self._served.clear()
+        return out
+
+    def close_shipping(self):
+        """Close the KV data server and the ship writer (which unlinks any
+        segment not dropped), as a prefill replica's teardown does; returns
+        the names of the segments its prefill_wait frames announced."""
+        if self.server._kv_server is not None:
+            self.server._kv_server.close()
+        self.server._ship_writer.close()
+        return sorted(self._announced)
+
+    def stats(self):
+        return self.server.stats()
+
+    def launch_counts(self):
+        return launch_counts()
+
+    def reset_launch_counts(self):
+        reset_launch_counts()
+
+    def binding(self):
+        return card_binding()
+
+    def check_tensor(self, t, seed):
+        """Where the driver's tensor landed, and whether it is bit-equal to
+        the same draw made here."""
+        return dict(device=str(t.device), equal=bool(torch_equal_draw(t, seed)))
+
+    def plan(self):
+        return dict(n_layers=self.server.model_cfg.n_layers,
+                    n_split=n_split_of(self.server, self.device))
+
+    def digest(self):
+        return state_digest(self.server.model.state_dict())
+
+    def ship_counters(self):
+        from ray_tpu_torch.util import metrics
+        return metrics.kv_ship_counters()
+
+    def trace_events(self):
+        from ray_tpu_torch.util import tracing
+        return tracing.events()
+
+    def trace_clear(self):
+        from ray_tpu_torch.util import tracing
+        tracing.clear()
+
+    def watch_seal(self):
+        self._watch["seal"] = Stopwatch(self.server, "_publish_pages",
+                                        lambda a, out: out["n_pages"], self.device)
+
+    def seal_watched(self):
+        w = self._watch.pop("seal")
         w.restore()
         return dict(calls=w.calls, pages=w.n_pages, ms_per_page=w.ms_per_page())
 
-    local = dict(launch_counts=launch_counts, reset_launch_counts=reset_launch_counts,
-                 ship_counters=tm.kv_ship_counters, trace_events=tracing.events,
-                 trace_clear=tracing.clear, stats=server.stats, watch_seal=watch_seal,
-                 seal_watched=seal_watched)
 
-    async def answer(cid, name, a, kw):
-        try:
-            if name in PREFILL_METHODS:
-                reply = (cid, True, await getattr(server, name)(*a, **kw))
-            else:
-                reply = (cid, True, local[name](*a, **kw))
-        except BaseException as e:  # noqa: BLE001 - the error reaches the request
-            reply = (cid, False, f"{type(e).__name__}: {e}\n{traceback.format_exc()}")
-        _send(conn, lock, reply)
-
-    tasks = set()
-    while True:
-        msg = await inbox.get()
-        if msg is None or msg[1] == "close":
-            break
-        task = asyncio.ensure_future(answer(*msg))
-        tasks.add(task)
-        task.add_done_callback(tasks.discard)
-    for task in tasks:
-        task.cancel()
-    if server._kv_server is not None:
-        server._kv_server.close()
-    server._ship_writer.close()       # unlinks any segment not dropped
-    if msg is not None:
-        _send(conn, lock, (msg[0], True, "closed"))
+PD_PROC_APP = "pd_proc"      # the serve app of `serve_pd_proc`'s prefill replica
 
 
-class _Reply:
-    """The awaitable a `.remote()` returns (a DeploymentResponse's part)."""
-
-    def __init__(self, fut):
-        self._fut = fut
-
-    def __await__(self):
-        return asyncio.wrap_future(self._fut).__await__()
-
-    def result(self, timeout=None):
-        return self._fut.result(timeout)
+def engine_class():
+    """`EngineReplica` by reference to this module, which the replica or
+    actor imports (run as a script, this file's own class would be pickled
+    by value with every global it reaches)."""
+    import importlib
+    return importlib.import_module("chip_smoke").EngineReplica
 
 
-class _RemoteMethod:
-    def __init__(self, owner, name):
-        self._owner, self._name = owner, name
+def engine_deployment(name, num_replicas=1):
+    """`EngineReplica` as a deployment: a card a replica (`num_gpus=1`; to a
+    card-less session a "GPU" is a number), max_ongoing_requests the
+    engine's 8 slots."""
+    from ray_tpu_torch import serve
+    return serve.deployment(engine_class(), name=name, num_replicas=num_replicas,
+                            max_ongoing_requests=8, ray_actor_options={"num_gpus": 1})
 
-    def remote(self, *a, **kw):
-        return self._owner.call(self._name, *a, **kw)
+
+def replicas_of(app, name):
+    """The replica actors of a deployment, from the serve controller."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.serve.controller import get_controller
+    return rt.get(get_controller().get_replicas.remote(app, name))
 
 
-class PrefillProcess:
-    """A PrefillServer in a child process (the `spawn` context: CUDA does
-    not survive a fork), behind an object shaped like a serve
-    DeploymentHandle: `prefill_begin`, `prefill_wait`, `prefill_fetch`,
-    `prefill_drop` and `prefill_kv` each have a `.remote()` that sends the
-    call through a pipe and returns an awaitable, as JAX's `_WirePrefill`
-    (`benchmarks/serving_bench.py`) does in one process. Every message is
-    pickled both ways. The child's weights come from `params` through a
-    torch.save file in a temporary directory (removed once the child has
-    loaded it, or at close); the child checks a digest of its state_dict
-    against this one's. `get(name)` calls one of the child's own readings
-    (`launch_counts`, `ship_counters`, `trace_events`, ...) and waits.
-    `segments` collects the shm names of every segment a `prefill_wait`
-    frame announced."""
-
-    CALLS = ("launch_counts", "reset_launch_counts", "ship_counters", "trace_events",
-             "trace_clear", "stats", "watch_seal", "seal_watched")
-
-    def __init__(self, config, params):
-        import concurrent.futures
-        import itertools
-        import multiprocessing as mp
-        import tempfile
-        import threading
-        import torch
-        self._tmp = tempfile.mkdtemp(prefix="chip_smoke_prefill_")
-        path = os.path.join(self._tmp, "params.pt")
-        host = {k: v.detach().to("cpu") for k, v in params.items()}
-        torch.save(host, path)
-        self.digest = state_digest(host)
-        del host
-        ctx = mp.get_context("spawn")
-        self._conn, child = ctx.Pipe()
-        self._proc = ctx.Process(target=_prefill_child,
-                                 args=(child, config, path, self.digest), daemon=True)
-        self._proc.start()
-        child.close()
-        self._lock = threading.Lock()
-        self._ids = itertools.count(1)
-        self._waiting = {}
-        self.ready = concurrent.futures.Future()
-        self.segments = set()
-        self.info = None
-        for name in PREFILL_METHODS:
-            setattr(self, name, _RemoteMethod(self, name))
-        self._reader = threading.Thread(target=self._read, daemon=True)
-        self._reader.start()
-
-    def _read(self):
-        import pickle
-        from ray_tpu_torch._private.object_store import seg_name
-        while True:
-            try:
-                cid, ok, value = pickle.loads(self._conn.recv_bytes())
-            except (EOFError, OSError):
-                break
-            fut, name = (self.ready, None) if cid is None else self._waiting.pop(cid, (None, None))
-            if fut is None:
-                continue
-            if ok and name == "prefill_wait":
-                self.segments.update(seg_name(s[k]) for s in value["segments"]
-                                     for k in ("oid", "wire"))
-            if ok:
-                fut.set_result(value)
-            else:
-                fut.set_exception(RuntimeError(f"prefill process: {value}"))
-        err = RuntimeError(f"the prefill process is gone (exit code {self._proc.exitcode})")
-        for fut in [self.ready] + [f for f, _ in list(self._waiting.values())]:
-            if not fut.done():
-                fut.set_exception(err)
-
-    def call(self, name, *a, **kw):
-        import concurrent.futures
-        fut = concurrent.futures.Future()
-        cid = next(self._ids)
-        self._waiting[cid] = (fut, name)
-        _send(self._conn, self._lock, (cid, name, a, kw))
-        return _Reply(fut)
-
-    def wait_ready(self, timeout=600):
-        """The child's pid and digest once it serves; raises its error."""
-        self.info = self.ready.result(timeout)
-        shutil.rmtree(self._tmp, ignore_errors=True)
-        return self.info
-
-    def get(self, name, *a, timeout=120, **kw):
-        return self.call(name, *a, **kw).result(timeout)
-
-    def close(self):
-        """Stop the child (its writer unlinks any segment left), wait for
-        it, and remove the weights file."""
-        if self._proc.is_alive():
-            try:
-                self.get("close", timeout=60)
-            except Exception:  # noqa: BLE001 - the join below decides
-                pass
-        self._proc.join(timeout=30)
-        if self._proc.is_alive():
-            self._proc.kill()
-            self._proc.join(timeout=10)
-        self._conn.close()
-        shutil.rmtree(self._tmp, ignore_errors=True)
-
-    def segments_left(self):
-        """The announced segments still in /dev/shm."""
-        return sorted(n for n in self.segments if os.path.exists(f"/dev/shm/{n}"))
+def on_replica(actor, method, *args, timeout=600):
+    """One method of one replica (not routed: that replica's own answer)."""
+    import ray_tpu_torch as rt
+    return rt.get(actor.handle_request.remote(method, *args), timeout=timeout)
 
 
 def run_pd(device="cuda", preset="llama_1b", max_tokens=16):
@@ -1980,21 +1931,30 @@ def run_pd(device="cuda", preset="llama_1b", max_tokens=16):
     measured around every call of (a) and (b), the device synchronized on
     both sides; the wave runs without those syncs. (d) Path
     `serve_pd_proc` (`run_pd_proc`): (a)-(c) again with the prefill
-    replica in a child process; the child is started first, so that its
-    start overlaps (a)-(c)."""
+    replica a serve deployment of the port's runtime (`EngineReplica`
+    "prefill", num_gpus=1), deployed first, so that its start overlaps
+    (a)-(c). The runtime's session is the caller's, or one opened here and
+    shut down at the end."""
     import gc
     import torch
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
     from ray_tpu_torch.serve.llm import LLMServer
     from ray_tpu_torch.serve.pd import PDServer, PrefillServer
     from ray_tpu_torch.util import metrics as tm
     from ray_tpu_torch.util import tracing
 
     cuda = device == "cuda"
+    own = not rt.is_initialized()
+    if own:
+        open_session(device)
     shm_before = set(shm_segments())
     colo = LLMServer(serving_config(preset, device))
     params = colo.model.state_dict()
-    child = PrefillProcess(serving_config(preset, device), params)
-    try:   # the child runs until run_pd_proc closes it
+    t_deploy = time.perf_counter()
+    handle = serve.run(engine_deployment("prefill").bind(
+        "prefill", serving_config(preset, device)), name=PD_PROC_APP)
+    try:   # the replica runs until run_pd_proc deletes its app
         prefill = PrefillServer(serving_config(preset, device), params=params)
         pd = PDServer(serving_config(preset, device), params=params, prefill=prefill)
         mc = pd.model_cfg
@@ -2141,10 +2101,16 @@ def run_pd(device="cuda", preset="llama_1b", max_tokens=16):
         if cuda:
             torch.cuda.empty_cache()
     except BaseException:
-        child.close()
+        serve.delete(PD_PROC_APP)
+        if own:
+            close_session("pd")
         raise
-    out["proc"] = run_pd_proc(child, params, list(zip(seq, wants)), pulled, out, shm_before,
-                              device, preset, max_tokens)
+    try:
+        out["proc"] = run_pd_proc(handle, t_deploy, params, list(zip(seq, wants)), pulled, out,
+                                  shm_before, device, preset, max_tokens)
+    finally:
+        if own:
+            close_session("pd")
     out["sequential"] = list(zip(seq, wants))   # run_runtime's reference ids
     del params
     gc.collect()
@@ -2160,72 +2126,81 @@ def shm_segments():
     return sorted(p.name for p in root.glob(f"{SEG_PREFIX}*")) if root.is_dir() else []
 
 
-def _split_ship(parent, child):
+def _split_ship(parent, replica):
     """A kv_ship_counters() delta across the two processes: what prefill
-    seals and serves is counted in the child, what decode pulls here."""
+    seals and serves is counted in the replica, what decode pulls here."""
     sealed = ("bytes", "pages", "segments", "requests", "saved_pages", "rpc_fallback_bytes")
-    return {k: (child if k in sealed else parent)[k] for k in parent}
+    return {k: (replica if k in sealed else parent)[k] for k in parent}
 
 
-def run_pd_proc(child, params, sequential, pulled, inproc, shm_before, device="cuda",
+def run_pd_proc(handle, t_deploy, params, sequential, pulled, inproc, shm_before, device="cuda",
                 preset="llama_1b", max_tokens=16):
-    """Path `serve_pd_proc`: `run_pd`'s checks with the PrefillServer in a
-    child process (`PrefillProcess`, started by run_pd on the same card:
-    two CUDA contexts time-slice one H100) and a fresh PDServer here whose
-    prefill replica is the child's handle. (a) The same sequential prompts:
-    ids equal the colocated server's (from run_pd), the shared prefix not
-    shipped again, every segment attached here and sealed there, no byte
-    over the RPC fetch; (b) one request over the child's KV data server
+    """Path `serve_pd_proc`: `run_pd`'s checks with the PrefillServer a
+    serve deployment of the port's runtime (run_pd's `EngineReplica`
+    "prefill", num_gpus=1, deployed at `t_deploy`: its own process on the
+    same card, two CUDA contexts time-slicing one H100) and a fresh
+    PDServer here whose prefill replica is the deployment's handle. The
+    replica built its weights from the seed: their digest equals the
+    colocated server's. (a) The same sequential prompts: ids equal the
+    colocated server's (from run_pd), the shared prefix not shipped again,
+    every segment attached here and sealed there, no byte over the RPC
+    fetch; (b) one request over the replica's KV data server
     (RAY_TPU_KV_ATTACH=0) and one over the whole-KV hand-off
     (RAY_TPU_KV_SHIP=0), ids equal; (c) the same concurrent wave as run_pd's
-    (10 prompts, 32 tokens): B1 counted in the child, once a layer per
+    (10 prompts, 32 tokens): B1 counted in the replica, once a layer per
     fresh first chunk, B4 here, once a layer per decode step, the PD server
-    prefilling nothing and the child decoding nothing; the TTFT breakdown
-    with the child's `prefill_chunk` / `kv_seal` spans merged by trace id,
-    beside the in-process wave's. Seal ms a page is a stopwatch in the
-    child, install ms a page one here, around (a) and (b). After the
-    child closes, no `rtpt-*` segment it announced, and none new, is left
-    in /dev/shm."""
+    prefilling nothing and the replica decoding nothing; the TTFT breakdown
+    with the replica's `prefill_chunk` / `kv_seal` spans merged by trace id,
+    beside the in-process wave's. Every reading of the replica's process
+    goes through the handle. Seal ms a page is a stopwatch in the replica,
+    install ms a page one here, around (a) and (b). After the replica
+    closes its shipping and its app is deleted, no `rtpt-*` segment it
+    announced, and none new, is left in /dev/shm."""
     import gc
     import torch
+    from ray_tpu_torch import serve
     from ray_tpu_torch.serve.pd import PDServer
     from ray_tpu_torch.util import metrics as tm
     from ray_tpu_torch.util import tracing
 
     cuda = device == "cuda"
     tag = "pd_proc"
+    call = lambda name, *a: getattr(handle, name).remote(*a).result(timeout_s=600)
     try:
-        t0 = time.perf_counter()
-        info = child.wait_ready()
-        ready_s = time.perf_counter() - t0
-        pd = PDServer(serving_config(preset, device), params=params, prefill=child)
+        info = call("binding")
+        ready_s = time.perf_counter() - t_deploy
+        theirs, mine = call("digest"), state_digest(params)
+        if theirs != mine:
+            raise AssertionError(f"the prefill replica's weights differ from the colocated "
+                                 f"server's: digest {theirs} != {mine}")
+        pd = PDServer(serving_config(preset, device), params=params, prefill=handle)
         mc = pd.model_cfg
         L = mc.n_layers
         page_bytes = 2 * pd.cache.k_pages[:, :, 0].numel() * pd.cache.k_pages.element_size()
         gen = lambda p, n=max_tokens: asyncio.run(pd.generate(p, max_tokens=n))["tokens"]
         gen(list(range(1, 50)), 8)                # warm-up
         install = Stopwatch(pd, "_install_pages", lambda a, out: a[2], device)
-        child.get("watch_seal")
-        k0, c0 = tm.kv_ship_counters(), child.get("ship_counters")
+        call("watch_seal")
+        k0, c0 = tm.kv_ship_counters(), call("ship_counters")
         n_wave1 = len(slice_prompts(mc.vocab_size)[0])
         equal, saved_at_hit = [], None
         for i, (p, want) in enumerate(sequential):
-            before = child.get("ship_counters")["saved_pages"]
+            before = call("ship_counters")["saved_pages"]
             equal.append(gen(p) == want)
             if i == n_wave1:
-                saved_at_hit = child.get("ship_counters")["saved_pages"] - before
-        k1, c1 = tm.kv_ship_counters(), child.get("ship_counters")
+                saved_at_hit = call("ship_counters")["saved_pages"] - before
+        k1, c1 = tm.kv_ship_counters(), call("ship_counters")
         shipped = _split_ship({k: k1[k] - k0[k] for k in k1}, {k: c1[k] - c0[k] for k in c1})
         with environ(RAY_TPU_KV_ATTACH="0"):
             before = tm.kv_ship_counters()
             pull_equal = gen(pulled["pull"][0]) == pulled["pull"][1]
             pulls = tm.kv_ship_counters()["stream_pulls"] - before["stream_pulls"]
         with environ(RAY_TPU_KV_SHIP="0"):
-            before = child.get("ship_counters")
+            before = call("ship_counters")
             whole_equal = gen(pulled["whole"][0]) == pulled["whole"][1]
-            whole_segments = child.get("ship_counters")["segments"] - before["segments"]
+            whole_segments = call("ship_counters")["segments"] - before["segments"]
         install.restore()
-        seal = child.get("seal_watched")
+        seal = call("seal_watched")
         checks = {
             f"PD ids == colocated ids for all {len(sequential)} sequential requests, prefill "
             f"in process {info['pid']}": all(equal),
@@ -2233,12 +2208,12 @@ def run_pd_proc(child, params, sequential, pulled, inproc, shm_before, device="c
             f">= 4)": (saved_at_hit or 0) >= 4,
             f"shipped bytes == pages x {page_bytes} B ({shipped['pages']:.0f} pages)":
                 shipped["bytes"] == shipped["pages"] * page_bytes and shipped["pages"] > 0,
-            f"every segment sealed in the child attached here ({shipped['attach_hits']:.0f} "
+            f"every segment sealed in the replica attached here ({shipped['attach_hits']:.0f} "
             f"hits)": shipped["attach_hits"] == shipped["segments"] > 0,
             "no byte over the RPC fetch on the attach rung": shipped["rpc_fallback_bytes"] == 0,
-            f"RAY_TPU_KV_ATTACH=0: pulled over the child's data server ({pulls:.0f} stream "
+            f"RAY_TPU_KV_ATTACH=0: pulled over the replica's data server ({pulls:.0f} stream "
             f"pulls), ids equal": pulls >= 1 and pull_equal,
-            "RAY_TPU_KV_SHIP=0: whole-KV hand-off across the pipe, no segment, ids equal":
+            "RAY_TPU_KV_SHIP=0: whole-KV hand-off through the handle, no segment, ids equal":
                 whole_equal and whole_segments == 0,
         }
         for what, ok in checks.items():
@@ -2246,36 +2221,36 @@ def run_pd_proc(child, params, sequential, pulled, inproc, shm_before, device="c
         if not all(checks.values()):
             raise AssertionError(f"{tag} checks failed: equal {equal}, shipped {shipped}, "
                                  f"saved at hit {saved_at_hit}")
-        out = dict(child_pid=info["pid"], ready_wait_s=ready_s,
+        out = dict(replica_pid=info["pid"], replica_binding=info, ready_s=ready_s,
                    sequential_requests=len(sequential), ids_equal=True,
                    saved_pages_at_hit=saved_at_hit, shipped=shipped, page_bytes=page_bytes,
-                   stream_pulls=pulls, whole_kv_equal=whole_equal, seal_in_child=seal,
+                   stream_pulls=pulls, whole_kv_equal=whole_equal, seal_in_replica=seal,
                    install=dict(calls=install.calls, pages=install.n_pages,
                                 ms_per_page=install.ms_per_page()))
 
         # (c) the wave, each process's counters and ring reset just before
         wave1, wave2 = slice_prompts(mc.vocab_size, seed=4321)
         wmax = 32
-        b_pd, b_pre = pd.stats(), child.get("stats")
+        b_pd, b_pre = pd.stats(), call("stats")
         pd.slo_snapshot()
-        k_wave, c_wave = tm.kv_ship_counters(), child.get("ship_counters")
+        k_wave, c_wave = tm.kv_ship_counters(), call("ship_counters")
         begin_s = time_begins(pd._ship_source())
         tracing.clear()
-        child.get("trace_clear")
+        call("trace_clear")
         reset_launch_counts()
-        child.get("reset_launch_counts")
+        call("reset_launch_counts")
         res, wall = [], 0.0
         for wave in (wave1, wave2):
             got, seconds = asyncio.run(wave_then_settle(pd, wave, wmax, device))
             res += got
             wall += seconds
-        here, there = launch_counts(), child.get("launch_counts")
+        here, there = launch_counts(), call("launch_counts")
         del pd._ship_source().begin
-        events = tracing.events() + child.get("trace_events")
-        k_end, c_end = tm.kv_ship_counters(), child.get("ship_counters")
+        events = tracing.events() + call("trace_events")
+        k_end, c_end = tm.kv_ship_counters(), call("ship_counters")
         wave_ship = _split_ship({k: k_end[k] - k_wave[k] for k in k_end},
                                 {k: c_end[k] - c_wave[k] for k in c_end})
-        a_pd, a_pre = pd.stats(), child.get("stats")
+        a_pd, a_pre = pd.stats(), call("stats")
         tokens, syncs, decode_s, steps = decode_delta(a_pd, b_pd)
         fresh = a_pre["prefill"]["chunk_local"] - b_pre["prefill"]["chunk_local"]
         n_req = len(wave1) + len(wave2)
@@ -2291,9 +2266,9 @@ def run_pd_proc(child, params, sequential, pulled, inproc, shm_before, device="c
             "the PD server prefilled nothing and launched no B1":
                 a_pd["prefill"]["chunks"] == b_pd["prefill"]["chunks"]
                 and here["flash_fwd"] == 0,
-            "the prefill process launched no B4":
+            "the prefill replica launched no B4":
                 there["paged_decode"] == there["paged_decode_combine"] == 0,
-            f"every fresh prompt took the chunk-local path in the child ({fresh})":
+            f"every fresh prompt took the chunk-local path in the replica ({fresh})":
                 fresh == n_req - 1,
             f"slo_snapshot() counts the wave's {n_req} PD requests":
                 pd.slo_snapshot()["ttft_count"] == n_req,
@@ -2309,15 +2284,15 @@ def run_pd_proc(child, params, sequential, pulled, inproc, shm_before, device="c
         ttft = sorted(r[1] for r in res)
         breakdown = pd_breakdown(events, n_req, wave_ship["pages"], float(np.median(ttft)),
                                  begin_s, tag=tag,
-                                 inside="the call and its reply cross the pipe; the "
-                                        "child's prefill chunks run in its own process")
+                                 inside="the call and its reply cross the handle; the "
+                                        "replica's prefill chunks run in its own process")
         out.update(requests=n_req, wave_max_tokens=wmax, ttft_p50_s=float(np.median(ttft)),
                    ttft_p99_s=float(np.percentile(ttft, 99)), ttft_max_s=ttft[-1],
                    decode_tokens=tokens, decode_host_syncs=syncs, decode_steps=steps,
                    decode_s=decode_s,
                    decode_tokens_per_s=tokens / decode_s if decode_s else None,
                    wall_s=wall, launches=launches, launches_here=here,
-                   launches_in_child=there, fresh_first_chunks=fresh,
+                   launches_in_replica=there, fresh_first_chunks=fresh,
                    paged_n_split=n_split_of(pd, device), wave_kv_ship=wave_ship,
                    ttft_breakdown=breakdown)
         log(f"[{tag}] wave across processes: {n_req} requests x {wmax} tokens in {wall:.2f} "
@@ -2325,7 +2300,7 @@ def run_pd_proc(child, params, sequential, pulled, inproc, shm_before, device="c
             f"ms, decode {out['decode_tokens_per_s']:.1f} tokens/s (in process: TTFT p50 "
             f"{inproc['ttft_p50_s'] * 1e3:.1f} ms, max {inproc['ttft_max_s'] * 1e3:.1f} ms, "
             f"decode {inproc['decode_tokens_per_s']:.1f} tokens/s); B1 {there['flash_fwd']} "
-            f"in the child, B4 {here['paged_decode']} here; seal in the child "
+            f"in the replica, B4 {here['paged_decode']} here; seal in the replica "
             f"{seal['ms_per_page']:.4f} ms a page over {seal['pages']} pages, install here "
             f"{out['install']['ms_per_page']:.4f} ms a page over {install.n_pages} pages (in "
             f"process {inproc['seal']['ms_per_page']:.4f} / "
@@ -2333,16 +2308,20 @@ def run_pd_proc(child, params, sequential, pulled, inproc, shm_before, device="c
             f"({smi_line()})")
         del pd
     finally:
-        child.close()
+        try:
+            announced = call("close_shipping")
+        finally:
+            serve.delete(PD_PROC_APP)
     gc.collect()
-    left = child.segments_left()
     new = sorted(set(shm_segments()) - shm_before)
-    ok = not left and not new and bool(child.segments)
-    log(f"[{tag}] {'ok  ' if ok else 'FAIL'} no segment left in /dev/shm after both close "
-        f"({len(child.segments)} announced, {len(left)} left, {len(new)} new rtpt-*)")
+    left = [n for n in announced if os.path.exists(f"/dev/shm/{n}")]
+    ok = not left and not new and bool(announced)
+    log(f"[{tag}] {'ok  ' if ok else 'FAIL'} no segment left in /dev/shm after the replica closed "
+        f"its shipping and its app was deleted ({len(announced)} announced, "
+        f"{len(left)} left, {len(new)} new rtpt-*)")
     if not ok:
         raise AssertionError(f"{tag}: segments left {left}, new {new}")
-    out["segments_announced"] = len(child.segments)
+    out["segments_announced"] = len(announced)
     if cuda:
         torch.cuda.empty_cache()
     return out
@@ -2351,49 +2330,6 @@ def run_pd_proc(child, params, sequential, pulled, inproc, shm_before, device="c
 # ------------------------------------------------------------------ runtime
 RUNTIME_TRIP_BYTES = 128 << 20     # the bf16 CUDA tensor's trips
 RUNTIME_PUT_BYTES = 1 << 30        # the CPU tensor timed through put -> get
-
-
-class ServeActor:
-    """The slice's paged LLMServer (`serving_config`, seed 0) in a port
-    runtime actor that holds one card: `chip_smoke.run_runtime` wraps it
-    with `ray_tpu_torch.remote(num_gpus=1)`. Besides generate it answers
-    what the driver cannot see from its own process: this process's launch
-    counts, stats() and split plan, its card binding, and a check of a
-    tensor the driver sent."""
-
-    def __init__(self, preset, device):
-        import torch
-        from ray_tpu_torch.serve.llm import LLMServer
-        torch.backends.cuda.matmul.allow_tf32 = False   # as main() sets it
-        torch.backends.cudnn.allow_tf32 = False
-        self.device = device
-        self.server = LLMServer(serving_config(preset, device))
-        self.generate([list(range(1, 50))], 8)           # warm-up, as run_pd's
-
-    def generate(self, prompts, max_tokens):
-        return [asyncio.run(self.server.generate(p, max_tokens=max_tokens))["tokens"]
-                for p in prompts]
-
-    def launch_counts(self):
-        return launch_counts()
-
-    def reset_launch_counts(self):
-        reset_launch_counts()
-
-    def stats(self):
-        return self.server.stats()
-
-    def plan(self):
-        return dict(n_layers=self.server.model_cfg.n_layers,
-                    n_split=n_split_of(self.server, self.device))
-
-    def binding(self):
-        return card_binding()
-
-    def check_tensor(self, t, seed):
-        """Where the driver's tensor landed, and whether it is bit-equal to
-        the same draw made here."""
-        return dict(device=str(t.device), equal=bool(torch_equal_draw(t, seed)))
 
 
 def card_binding():
@@ -2449,6 +2385,30 @@ class Pinger:
         return card_binding()
 
 
+def open_session(device):
+    """init() of the port's runtime for the paths that use actors: the
+    card counted as its "GPU" resource (one "GPU" number without a card).
+    Returns init's seconds."""
+    import ray_tpu_torch as rt
+    t0 = time.perf_counter()
+    rt.init(num_cpus=4, num_gpus=None if device == "cuda" else 1)
+    return time.perf_counter() - t0
+
+
+def close_session(tag):
+    """serve.shutdown(), then stop_runtime; fails if a worker outlives it.
+    Returns the number of workers the session started."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    serve.shutdown()
+    workers, left = stop_runtime(rt)
+    log(f"[{tag}] {'ok  ' if not left else 'FAIL'} every worker exited after shutdown() "
+        f"({workers} workers)")
+    if left:
+        raise AssertionError(f"{tag}: workers still running after shutdown(): {left}")
+    return workers
+
+
 def stop_runtime(rt):
     """shutdown() and wait for every worker process the session started;
     returns (workers, pids still running after 30 s)."""
@@ -2473,8 +2433,9 @@ def run_runtime(sequential, device="cuda", preset="llama_1b", max_tokens=16,
     of torch, jax or ray_tpu loaded, and a num_gpus=0 task sees no card;
     (b) a num_gpus=1 task returns a bf16 tensor of `trip_bytes` drawn on
     its card: it lands on a card here, bit-equal to the same draw made
-    here; (c) a num_gpus=1 ServeActor builds the slice's LLMServer and
-    answers the sequential prompts through .remote()/get with ids equal to
+    here; (c) a num_gpus=1 actor of EngineReplica "llm" builds the slice's
+    LLMServer and, after a warm-up, answers the sequential prompts one
+    .remote()/get each with ids equal to
     the colocated server's, its own launch counters reset just before and
     read just after (B1 once a layer a fresh first chunk, B4 once a layer a
     decode step, no backward kernel), its CUDA_VISIBLE_DEVICES equal to
@@ -2483,19 +2444,19 @@ def run_runtime(sequential, device="cuda", preset="llama_1b", max_tokens=16,
     same draw made there; (e) a second num_gpus=1 actor stays pending
     (wait with a timeout) until the first is killed, then starts and is
     bound to the freed card; (f) a CPU tensor of `put_bytes` through
-    put -> get, timed, equal after a write to the first get's copy. Every
-    worker has exited after shutdown(). Returns the readings; raises on a
-    failed check."""
+    put -> get, timed, equal after a write to the first get's copy. The
+    session is the caller's (main() opens one for run_pd, this path and
+    run_serve_app), or one opened here: then every worker has exited after
+    shutdown(). Returns the readings; raises on a failed check."""
     import torch
     import ray_tpu_torch as rt
 
     cuda = device == "cuda"
     tag = "runtime"
     out = {}
-    t0 = time.perf_counter()
-    rt.init(num_cpus=4, num_gpus=None if cuda else 1)
+    own = not rt.is_initialized()
     try:
-        out["init_s"] = time.perf_counter() - t0
+        out["init_s"] = open_session(device) if own else None
         res = rt.cluster_resources()
         n_cards = torch.cuda.device_count() if cuda else 1
         modules = rt.get(rt.remote(plain_task_modules).remote())
@@ -2525,14 +2486,15 @@ def run_runtime(sequential, device="cuda", preset="llama_1b", max_tokens=16,
 
         # (c) the slice's server in a GPU actor
         t1 = time.perf_counter()
-        first = rt.remote(num_gpus=1)(ServeActor).remote(preset, device)
+        first = rt.remote(num_gpus=1)(engine_class()).remote("llm", serving_config(preset, device))
         binding = rt.get(first.binding.remote())
         out["serve_actor_start_s"] = time.perf_counter() - t1
+        rt.get(first.generate.remote(list(range(1, 50)), 8))   # warm-up, as run_pd's
         prompts = [p for p, _ in sequential]
         before = rt.get(first.stats.remote())
         rt.get(first.reset_launch_counts.remote())
         t1 = time.perf_counter()
-        ids = rt.get(first.generate.remote(prompts, max_tokens))
+        ids = [rt.get(first.generate.remote(p, max_tokens))["tokens"] for p in prompts]
         out["sequential_s"] = time.perf_counter() - t1
         launches = rt.get(first.launch_counts.remote())
         after = rt.get(first.stats.remote())
@@ -2571,6 +2533,7 @@ def run_runtime(sequential, device="cuda", preset="llama_1b", max_tokens=16,
         checks["a second num_gpus=1 actor stays pending until the first is killed"] = pending
         checks[f"then it starts, bound to the freed card {second_binding['gpu_ids']}"] = (
             second_binding["gpu_ids"] == binding["gpu_ids"])
+        rt.kill(second)                  # the card is the next path's
 
         # (f) a CPU tensor through put -> get
         big = torch.arange(put_bytes // 4, dtype=torch.int32)
@@ -2589,8 +2552,10 @@ def run_runtime(sequential, device="cuda", preset="llama_1b", max_tokens=16,
         out["get_gb_s"] = put_bytes / out["get_ms"] / 1e6
         del big, back, again, ref
     finally:
-        workers, left = stop_runtime(rt)
-    checks[f"every worker exited after shutdown() ({workers} workers)"] = not left
+        if own:
+            workers, left = stop_runtime(rt)
+    if own:
+        checks[f"every worker exited after shutdown() ({workers} workers)"] = not left
     for what, ok in checks.items():
         log(f"[{tag}] {'ok  ' if ok else 'FAIL'} {what}")
     if not all(checks.values()):
@@ -2600,7 +2565,8 @@ def run_runtime(sequential, device="cuda", preset="llama_1b", max_tokens=16,
     out.update(resources=res, launches=launches, binding=binding,
                second_binding=second_binding, sequential_requests=len(ids),
                ids_equal=all(equal), fresh_first_chunks=fresh, decode_steps=steps)
-    log(f"[{tag}] init {out['init_s']:.2f} s; the serve actor up in "
+    log(f"[{tag}] " + (f"init {out['init_s']:.2f} s" if own else "the caller's session")
+        + f"; the serve actor up in "
         f"{out['serve_actor_start_s']:.1f} s ({preset} built in it), a Pinger actor "
         f"{out['actor_start_after_kill_s']:.2f} s after the kill; {len(ids)} sequential "
         f"requests in {out['sequential_s']:.2f} s; {trip_bytes >> 20} MiB bf16 task -> "
@@ -2609,6 +2575,239 @@ def run_runtime(sequential, device="cuda", preset="llama_1b", max_tokens=16,
         f"{out['put_ms']:.1f} ms ({out['put_gb_s']:.2f} GB/s), get {out['get_ms']:.1f} ms "
         f"({out['get_gb_s']:.2f} GB/s); launches in the actor {launches}"
         + (f" ({smi_line()})" if cuda else ""))
+    return out
+
+
+# ------------------------------------------------------------------ serve_app
+SERVE_APP = "serve_app"     # the OpenAI app's serve app name
+SERVE_MODEL = "llama_1b"    # the model id it serves
+
+
+def http_call(port, method, path, body=None, timeout=600):
+    """One request over http.client: (status, content type, bytes, seconds)."""
+    import http.client
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    conn.request(method, path, body=None if body is None else json.dumps(body),
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    data = resp.read()
+    conn.close()
+    return resp.status, resp.getheader("Content-Type"), data, time.perf_counter() - t0
+
+
+def http_stream(port, body, timeout=600):
+    """A streamed completion read event by event: (status, content type,
+    the SSE data payloads, seconds to the first `data:` event, seconds)."""
+    import http.client
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    conn.request("POST", "/v1/completions", body=json.dumps(body),
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    events, first = [], None
+    while True:
+        line = resp.readline()
+        if not line:
+            break
+        if line.startswith(b"data: "):
+            if first is None:
+                first = time.perf_counter() - t0
+            events.append(line[6:].strip().decode())
+    conn.close()
+    return resp.status, resp.getheader("Content-Type"), events, first, time.perf_counter() - t0
+
+
+def completion_checks(answer, record, prompt, tok, max_tokens):
+    """An OpenAI completion (unary: the JSON; streamed: its SSE payloads)
+    against the engine's record of the same request: the OpenAI shape, the
+    text ByteTokenizer's decode of the ids, usage's counts. Returns a list
+    of what failed."""
+    bad = []
+    if isinstance(answer, list):            # streamed
+        if not answer or answer[-1] != "[DONE]":
+            return ["no [DONE] event"]
+        chunks = [json.loads(e) for e in answer[:-1]]
+        if not chunks or any(c["object"] != "text_completion" or c["model"] != SERVE_MODEL
+                             for c in chunks):
+            bad.append("chunk shape")
+        text = "".join(c["choices"][0]["text"] for c in chunks)
+        finish = chunks[-1]["choices"][0]["finish_reason"] if chunks else None
+    else:
+        if answer.get("object") != "text_completion" or answer.get("model") != SERVE_MODEL \
+                or not str(answer.get("id", "")).startswith("cmpl-"):
+            bad.append("completion shape")
+        text = answer["choices"][0]["text"]
+        finish = answer["choices"][0]["finish_reason"]
+        usage = answer["usage"]
+        if usage != dict(prompt_tokens=len(prompt), completion_tokens=len(record["tokens"]),
+                         total_tokens=len(prompt) + len(record["tokens"])):
+            bad.append(f"usage {usage}")
+    if text != tok.decode(record["tokens"]):
+        bad.append("text != ByteTokenizer.decode(ids)")
+    if finish not in ("stop", "length") or (finish == "length") != (
+            len(record["tokens"]) == max_tokens):
+        bad.append(f"finish_reason {finish}")
+    return bad
+
+
+def run_serve_app(sequential, device="cuda", preset="llama_1b", max_tokens=16):
+    """Path `serve_app`: Serve's deployment layer on one card. The OpenAI
+    app `serve.deployment(OpenAIIngress).bind({"llama_1b": llm})`, where
+    `llm` is `EngineReplica` "llm" (the slice's llama_1b server,
+    `serving_config`, seed 0) as a num_gpus=1 deployment and the ingress a
+    CPU replica that claims no card, run with serve.run(route_prefix="/")
+    behind serve.start's HTTP proxy on an ephemeral port. `sequential` is
+    run_pd's (prompt, colocated ids) list. After a warm-up as the
+    colocated server's, the replica's and this process's launch counters
+    reset: (1) the prompts through serve.get_deployment_handle(...) ->
+    generate.remote(ids), ids equal to the colocated server's request by
+    request; (2) the prompts as POST /v1/completions over http.client one
+    at a time, then (3) as one concurrent wave, then (4) one `stream: true`
+    request alone and a concurrent wave of them: every answer 200 with the
+    OpenAI shape, its text ByteTokenizer's decode of the ids the engine
+    produced for it (its record in the replica) and usage's counts those
+    ids'; B1 and B4 counted in the replica's process (launch_checks) and
+    nothing in this one; the replica's binding the one card. Logged: the
+    replica's start (deploy to its first answer), the time to the first
+    SSE event against the engine's TTFT for the same requests, the proxy +
+    ingress + handle overhead a request (HTTP seconds less the engine's
+    own), decode tokens/s. The session is the caller's, or one opened and
+    shut down here. Returns the readings; raises on a failed check."""
+    import concurrent.futures
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve.openai_api import ByteTokenizer, OpenAIIngress
+
+    cuda = device == "cuda"
+    tag = "serve_app"
+    tok = ByteTokenizer()
+    prompts = [p for p, _ in sequential]
+    own = not rt.is_initialized()
+    if own:
+        open_session(device)
+    completion = lambda p: {"model": SERVE_MODEL, "prompt": [p], "max_tokens": max_tokens}
+    try:
+        port = serve.start(http_options={"port": 0})
+        t0 = time.perf_counter()
+        llm = engine_deployment("llm").bind("llm", serving_config(preset, device))
+        serve.run(serve.deployment(OpenAIIngress, name="openai").bind({SERVE_MODEL: llm}),
+                  name=SERVE_APP, route_prefix="/")
+        h = serve.get_deployment_handle("llm", SERVE_APP)
+        binding = h.binding.remote().result(timeout_s=600)
+        start_s = time.perf_counter() - t0
+        models = http_call(port, "GET", "/v1/models")
+        ingress_s = time.perf_counter() - t0
+        plan = h.plan.remote().result(timeout_s=60)
+        h.generate.remote(list(range(1, 50)), max_tokens=8).result(timeout_s=600)  # warm-up
+        warm = http_call(port, "POST", "/v1/completions",     # shorter than a page: not cached
+                         {"model": SERVE_MODEL, "prompt": [[1, 2, 3]], "max_tokens": 2})
+        before = h.stats.remote().result(timeout_s=60)
+        h.served.remote(True).result(timeout_s=60)
+        h.reset_launch_counts.remote().result(timeout_s=60)
+        reset_launch_counts()
+
+        t1 = time.perf_counter()
+        ids = [h.generate.remote(p, max_tokens=max_tokens).result(timeout_s=600)["tokens"]
+               for p in prompts]
+        handle_s = time.perf_counter() - t1
+        seq_http = [http_call(port, "POST", "/v1/completions", completion(p)) for p in prompts]
+        with concurrent.futures.ThreadPoolExecutor(len(prompts)) as ex:
+            wave = list(ex.map(lambda p: http_call(port, "POST", "/v1/completions",
+                                                   completion(p)), prompts))
+        one = http_stream(port, dict(completion(prompts[0]), stream=True))
+        with concurrent.futures.ThreadPoolExecutor(len(prompts)) as ex:
+            streams = list(ex.map(lambda p: http_stream(port, dict(completion(p), stream=True)),
+                                  prompts))
+        launches = h.launch_counts.remote().result(timeout_s=60)
+        here = launch_counts()
+        after = h.stats.remote().result(timeout_s=60)
+        served = h.served.remote().result(timeout_s=60)
+    finally:
+        serve.delete(SERVE_APP)
+        if own:
+            close_session(tag)
+
+    n = len(prompts)
+    by_key = lambda recs: {r["key"]: r for r in recs}
+    seq_rec, wave_rec = served[n:2 * n], by_key(served[2 * n:3 * n])
+    one_rec, stream_rec = served[3 * n], by_key(served[3 * n + 1:])
+    keys = [prompt_key(p) for p in prompts]
+    bad = {}
+    for what, answers, recs in (("sequential", seq_http, seq_rec),
+                                ("wave", wave, [wave_rec.get(k) for k in keys])):
+        for i, (a, r) in enumerate(zip(answers, recs)):
+            status, ctype, data, _ = a
+            if status != 200 or ctype != "application/json" or r is None:
+                bad[f"{what} {i}"] = [f"status {status} {ctype} {data[:200]!r}"]
+                continue
+            bad[f"{what} {i}"] = completion_checks(json.loads(data), r, prompts[i], tok, max_tokens)
+    for what, answers, recs in (("stream alone", [one], [one_rec]),
+                                ("stream wave", streams, [stream_rec.get(k) for k in keys])):
+        for i, (a, r) in enumerate(zip(answers, recs)):
+            status, ctype, events, _, _ = a
+            if status != 200 or not (ctype or "").startswith("text/event-stream") or r is None:
+                bad[f"{what} {i}"] = [f"status {status} {ctype}"]
+                continue
+            bad[f"{what} {i}"] = completion_checks(events, r, prompts[i], tok, max_tokens)
+    bad = {k: v for k, v in bad.items() if v}
+    tokens, _, decode_s, steps = decode_delta(after, before)
+    fresh = after["prefill"]["chunk_local"] - before["prefill"]["chunk_local"]
+    cut = lambda w: w[:w.index(tok.eos_id)] if tok.eos_id in w else w   # the app stops at eos
+    same_as_handle = sum(r["tokens"] == cut(w) for r, w in zip(seq_rec, ids))
+    checks = {
+        f"ids through the handle == the colocated server's for all {n} sequential requests":
+            [w for _, w in sequential] == ids,
+        f"GET /v1/models answers 200 with [{SERVE_MODEL!r}]": models[0] == 200 and [
+            m["id"] for m in json.loads(models[2])["data"]] == [SERVE_MODEL],
+        f"every completion ({4 * n + 1} + the warm-up) 200 with the OpenAI shape, its text "
+        f"ByteTokenizer's decode of its ids, usage their counts": not bad and warm[0] == 200,
+        f"this process launched no kernel on the path ({here})": not any(here.values()),
+        f"the engine served every request ({len(served)} records)": len(served) == 4 * n + 1,
+    }
+    if cuda:
+        checks[f"the replica's CUDA_VISIBLE_DEVICES {binding['cuda_visible_devices']!r} == "
+               f"get_gpu_ids() {binding['gpu_ids']}, one card seen"] = (
+            binding["cuda_visible_devices"] == ",".join(map(str, binding["gpu_ids"]))
+            and binding["device_count"] == 1)
+    for what, ok in checks.items():
+        log(f"[{tag}] {'ok  ' if ok else 'FAIL'} {what}")
+    if not all(checks.values()):
+        raise AssertionError(f"{tag} checks failed: "
+                             f"{[what for what, ok in checks.items() if not ok]}; {bad}")
+    launch_checks(tag, launches, plan["n_layers"], fresh, steps, plan["n_split"])
+    first = [s[3] for s in streams] + [one[3]]
+    engine_ttft = [stream_rec[k]["ttft_s"] for k in keys] + [one_rec["ttft_s"]]
+    overhead = [a[3] - r["total_s"] for a, r in zip(seq_http, seq_rec)]
+    pct = lambda xs, q: float(np.percentile(xs, q))
+    out = dict(replica_start_s=start_s, ingress_up_s=ingress_s, binding=binding,
+               launches=launches, launches_here=here, fresh_first_chunks=fresh,
+               decode_steps=steps, decode_tokens=tokens, decode_s=decode_s,
+               decode_tokens_per_s=tokens / decode_s if decode_s else None,
+               sequential_requests=n, ids_equal=True, handle_s=handle_s,
+               http_ids_equal_handle_ids=same_as_handle,
+               http_sequential_s=[a[3] for a in seq_http],
+               engine_total_s=[r["total_s"] for r in seq_rec],
+               overhead_ms_p50=pct(overhead, 50) * 1e3, overhead_ms_mean=float(
+                   np.mean(overhead)) * 1e3,
+               first_event_p50_s=pct(first, 50), first_event_p99_s=pct(first, 99),
+               first_event_alone_s=one[3], engine_ttft_p50_s=pct(engine_ttft, 50),
+               engine_ttft_p99_s=pct(engine_ttft, 99), engine_ttft_alone_s=one_rec["ttft_s"],
+               wave_s=max(a[3] for a in wave), stream_wave_s=max(s[4] for s in streams))
+    log(f"[{tag}] the llama_1b replica answered {start_s:.2f} s after serve.run (the ingress "
+        f"{ingress_s:.2f} s); {n} requests x {max_tokens} tokens through the handle "
+        f"{handle_s:.2f} s, ids equal; over HTTP one at a time {sum(out['http_sequential_s']):.2f}"
+        f" s, proxy + ingress + handle {out['overhead_ms_p50']:.1f} ms a request (p50; mean "
+        f"{out['overhead_ms_mean']:.1f}) over the engine's own; the unary wave "
+        f"{out['wave_s']:.2f} s; first SSE event p50 {out['first_event_p50_s'] * 1e3:.1f} ms, "
+        f"p99 {out['first_event_p99_s'] * 1e3:.1f} ms (alone "
+        f"{out['first_event_alone_s'] * 1e3:.1f}) against the engine's TTFT p50 "
+        f"{out['engine_ttft_p50_s'] * 1e3:.1f} ms, p99 {out['engine_ttft_p99_s'] * 1e3:.1f} ms "
+        f"(alone {out['engine_ttft_alone_s'] * 1e3:.1f}); decode "
+        f"{out['decode_tokens_per_s'] or 0:.1f} tokens/s; the sequential HTTP requests' ids equal "
+        f"the handle's, cut at the tokenizer's eos id, for {same_as_handle} of {n} (second "
+        f"visits of each prompt, prefilled after radix hits); launches in the "
+        f"replica {launches}" + (f" ({smi_line()})" if cuda else ""))
     return out
 
 
@@ -5798,7 +5997,7 @@ def run_rl(device="cuda"):
 
 # ------------------------------------------------------------------ cards
 CARDS_OUT = "chip_smoke_cards4.json"
-CARDS_PHASES = ("runtime", "rl_dp", "seqpipe", "tp", "fsdp")
+CARDS_PHASES = ("runtime", "serve", "rl_dp", "seqpipe", "tp", "fsdp")
 RING_SEQ_CARDS = 16384          # ring at sp=4: 4096 tokens a card
 
 
@@ -6940,6 +7139,204 @@ def _failing_follower_world(rank, world, device):
     return None, time.perf_counter() - t0
 
 
+SERVE_CARDS_APP, SERVE_CARDS_PD = "serve_cards", "serve_cards_pd"
+SERVE_CARDS_PREFIX = 256    # tokens of each of the four shared prefixes (4 pages of 64)
+
+
+def serve_cards_prompts(vocab, seed=2024, families=4, repeats=2, tail=16):
+    """Four families of a 256-token prefix: wave 1 one prompt each, wave 2
+    `repeats` more each (rounds of one a family), every tail fresh."""
+    rng = np.random.default_rng(seed)
+    prefixes = [rng.integers(1, vocab, SERVE_CARDS_PREFIX).tolist() for _ in range(families)]
+    wave1 = [p + rng.integers(1, vocab, tail).tolist() for p in prefixes]
+    rounds = [[p + rng.integers(1, vocab, tail).tolist() for p in prefixes]
+              for _ in range(repeats)]
+    return prefixes, wave1, rounds
+
+
+def _stream_ttft(handle, prompt, max_tokens, eos_id):
+    """A streamed generate through a deployment handle: (ids, seconds to
+    the first id)."""
+    t0 = time.perf_counter()
+    toks, first = [], None
+    for tok in handle.options(stream=True).generate_stream.remote(prompt, max_tokens=max_tokens,
+                                                                  eos_id=eos_id):
+        if first is None:
+            first = time.perf_counter() - t0
+        toks.append(tok)
+    return toks, first
+
+
+def run_serve_cards(n, device="cuda", preset="llama_1b", max_tokens=16):
+    """Group `serve` of `--cards n`, in this process: what exists only
+    across cards. (a) The `serve_app` app with its llama_1b deployment at
+    num_replicas=2, a card each: wave 1 (four prompts opening with four
+    256-token prefixes) through the deployment's handle at once (p2c
+    spreads them two and two), then, after the digests' refresh interval,
+    two rounds of one more prompt a family over HTTP through the OpenAI
+    ingress (whose handle routes by prefix affinity): the two replicas'
+    bindings distinct cards, both replicas answered, every repeat of a
+    family served by the replica that served its first and advertised its
+    prefix in the digest the controller held (the stats piggyback), and
+    every request's ids (from its replica's record) equal to an in-process
+    server's on the same waves in this process, the app's eos id cut
+    included. (b) PD as two deployments: `EngineReplica` "prefill" on one
+    card and "pd" bound with the prefill deployment's handle on another,
+    the same waves through the PD handle as streams (TTFT a request read
+    here): ids equal (a)'s for the same prompts, the PD replica prefilling
+    nothing and launching no B1, the prefill replica decoding nothing and
+    launching no B4. Both apps deploy at once, their four replicas starting
+    together. Returns the readings; raises on a miss."""
+    import concurrent.futures
+    import torch
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve import prefix_digest as pdg
+    from ray_tpu_torch.serve.controller import get_controller
+    from ray_tpu_torch.serve.llm import LLMServer
+    from ray_tpu_torch.serve.openai_api import ByteTokenizer, OpenAIIngress
+
+    cuda = device == "cuda"
+    tag = "cards serve"
+    tok = ByteTokenizer()
+    if cuda:
+        from ray_tpu_torch.ops import _build
+        _build.build()          # once, before four replicas would each build it
+    cfg = serving_config(preset, device)
+    t0 = time.perf_counter()
+    rt.init(num_cpus=4, num_gpus=None if cuda else n)
+    try:
+        port = serve.start(http_options={"port": 0})
+        llm = engine_deployment("llm", num_replicas=2).bind("llm", cfg)
+        serve.run(serve.deployment(OpenAIIngress, name="openai").bind({SERVE_MODEL: llm}),
+                  name=SERVE_CARDS_APP, route_prefix="/")
+        prefill = engine_deployment("prefill").bind("prefill", cfg)
+        h_pd = serve.run(engine_deployment("pd").bind("pd", cfg, prefill=prefill),
+                         name=SERVE_CARDS_PD, route_prefix="/pd")
+        # the one-replica reference, built here while the four replicas start
+        ref = LLMServer(cfg)
+        vocab = ref.model_cfg.vocab_size
+        prefixes, wave1, rounds = serve_cards_prompts(vocab)
+        gen = lambda p: ref.generate(p, max_tokens=max_tokens, eos_id=tok.eos_id)
+
+        async def ref_waves():
+            out = await asyncio.gather(*[gen(p) for p in wave1])
+            for r in rounds:
+                out += await asyncio.gather(*[gen(p) for p in r])
+            return [o["tokens"] for o in out]
+
+        want = dict(zip(map(prompt_key, wave1 + sum(rounds, [])), asyncio.run(ref_waves())))
+        reps = replicas_of(SERVE_CARDS_APP, "llm")
+        bindings = [on_replica(r, "binding") for r in reps]
+        h_pre = serve.get_deployment_handle("prefill", SERVE_CARDS_PD)
+        pd_bindings = [h_pre.binding.remote().result(timeout_s=600),
+                       h_pd.binding.remote().result(timeout_s=600)]
+        start_s = time.perf_counter() - t0
+        h_llm = serve.get_deployment_handle("llm", SERVE_CARDS_APP)
+        for r in reps:                                  # warm-up, each replica
+            on_replica(r, "generate", list(range(1, 50)), 8)
+        h_pd.generate.remote(list(range(1, 50)), max_tokens=8).result(timeout_s=600)
+        http_call(port, "POST", "/v1/completions",
+                  {"model": SERVE_MODEL, "prompt": [[1, 2, 3]], "max_tokens": 2})
+        for r in reps:
+            on_replica(r, "served", True)
+
+        # (a) wave 1 through the handle, spread by p2c; the repeats over HTTP
+        t1 = time.perf_counter()
+        resps = [h_llm.generate.remote(p, max_tokens=max_tokens, eos_id=tok.eos_id)
+                 for p in wave1]
+        for r in resps:
+            r.result(timeout_s=600)
+        time.sleep(2.0)          # past the digests' 1 s TTL and the handles' 0.5 s refresh
+        state = rt.get(get_controller().get_replica_state.remote(SERVE_CARDS_APP, "llm"))
+        answers = []
+        with concurrent.futures.ThreadPoolExecutor(len(prefixes)) as ex:
+            for r in rounds:
+                answers += list(ex.map(lambda p: http_call(port, "POST", "/v1/completions", {
+                    "model": SERVE_MODEL, "prompt": [p], "max_tokens": max_tokens}), r))
+        wall_a = time.perf_counter() - t1
+        served = [on_replica(r, "served") for r in reps]
+
+        # (b) the same waves through PD, as streams
+        t1 = time.perf_counter()
+        pd_out = {}
+        with concurrent.futures.ThreadPoolExecutor(len(prefixes)) as ex:
+            for wave in [wave1] + rounds:
+                for p, res in zip(wave, ex.map(
+                        lambda p: _stream_ttft(h_pd, p, max_tokens, tok.eos_id), wave)):
+                    pd_out[prompt_key(p)] = res
+        wall_b = time.perf_counter() - t1
+        pre_launch = h_pre.launch_counts.remote().result(timeout_s=60)
+        pd_launch = h_pd.launch_counts.remote().result(timeout_s=60)
+        pre_stats = h_pre.stats.remote().result(timeout_s=60)
+        pd_stats = h_pd.stats.remote().result(timeout_s=60)
+        llm_launch = [on_replica(r, "launch_counts") for r in reps]
+    finally:
+        serve.delete(SERVE_CARDS_APP)
+        serve.delete(SERVE_CARDS_PD)
+        serve.shutdown()
+        workers, left = stop_runtime(rt)
+
+    # which replica served what, by its actor id in the controller's state
+    idx_of = {getattr(h, "_actor_id", None): i for i, h in enumerate(state["replicas"])}
+    where = {}
+    for r, recs in zip(reps, served):
+        for rec in recs:
+            where.setdefault(rec["key"], []).append((idx_of.get(r._actor_id), rec["tokens"]))
+    fams = []
+    for i, prefix in enumerate(prefixes):
+        hashes = pdg.prompt_chain_hashes(prefix, cfg.page_size)
+        advertised = sorted(j for j, dg in state["digests"].items()
+                            if pdg.match_depth(dg, hashes) >= len(hashes))
+        first = [j for j, _ in where.get(prompt_key(wave1[i]), [])]
+        repeats = [j for r in rounds for j, _ in where.get(prompt_key(r[i]), [])]
+        fams.append(dict(first=first, advertised=advertised, repeats=repeats))
+    ids_a = {k: v[0][1] for k, v in where.items() if len(v) == 1}
+    cards = [b["gpu_ids"] for b in bindings + pd_bindings]
+    ttft = sorted(v[1] for v in pd_out.values() if v[1] is not None)   # None: eos first
+    n_req = len(want)
+    checks = {
+        f"the two llm replicas hold distinct cards {cards[:2]}, PD's prefill and decode two "
+        f"more {cards[2:]}": len({tuple(c) for c in cards}) == 4 and all(len(c) == 1 for c in cards),
+        f"both replicas answered wave 1 ({[f['first'] for f in fams]})":
+            sorted({f["first"][0] for f in fams if len(f["first"]) == 1}) == [0, 1],
+        "every HTTP answer 200": all(a[0] == 200 for a in answers),
+        "each family's repeats went to the replica that served its first and advertised its "
+        f"prefix ({fams})": all(len(f["first"]) == 1 and f["advertised"] == f["first"]
+                                and f["repeats"] == f["first"] * len(rounds) for f in fams),
+        f"every request's ids equal the one-server reference's ({len(ids_a)} of {n_req})":
+            ids_a == want,
+        "PD's ids equal (a)'s for the same prompts": {k: v[0] for k, v in pd_out.items()} == want,
+        "the PD replica prefilled nothing and launched no B1, the prefill replica decoded "
+        "nothing and launched no B4": pd_stats["prefill"]["chunks"] == 0
+        and pd_launch["flash_fwd"] == 0 and pre_stats["decode"]["tokens"] == 0
+        and pre_launch["paged_decode"] == 0,
+        f"every worker exited after shutdown() ({workers} workers)": not left,
+    }
+    if cuda:
+        checks["B1 launched in the prefill replica and both llm replicas, B4 in the PD and "
+               "both llm replicas"] = (pre_launch["flash_fwd"] > 0 and pd_launch["paged_decode"] > 0
+                                       and all(c["flash_fwd"] > 0 and c["paged_decode"] > 0
+                                               for c in llm_launch))
+        checks["each replica sees one card"] = all(b["device_count"] == 1
+                                                   for b in bindings + pd_bindings)
+    for what, ok in checks.items():
+        log(f"[{tag}] {'ok  ' if ok else 'FAIL'} {what}")
+    if not all(checks.values()):
+        raise AssertionError(f"{tag}: {[what for what, ok in checks.items() if not ok]}")
+    out = dict(replicas_start_s=start_s, bindings=bindings, pd_bindings=pd_bindings,
+               families=fams, requests=n_req, wall_a_s=wall_a, wall_b_s=wall_b,
+               pd_ttft_p50_s=float(np.median(ttft)), pd_ttft_max_s=ttft[-1],
+               launches=dict(llm=llm_launch, prefill=pre_launch, pd=pd_launch),
+               seconds=time.perf_counter() - t0)
+    log(f"[{tag}] four replicas up {start_s:.1f} s after the deploys (the reference built "
+        f"here meanwhile); (a) {n_req} requests in {wall_a:.2f} s, families {fams}; (b) PD "
+        f"across two cards: {n_req} streamed requests in {wall_b:.2f} s, TTFT p50 "
+        f"{out['pd_ttft_p50_s'] * 1e3:.1f} ms, max {out['pd_ttft_max_s'] * 1e3:.1f} ms; "
+        f"launches {out['launches']}" + (f" ({smi_line()})" if cuda else ""))
+    return out
+
+
 def run_runtime_cards(n, device="cuda"):
     """Group `runtime` of `--cards n`: the port's runtime counts the n cards
     as its "GPU" resource; n num_gpus=1 actors are bound to n distinct
@@ -6991,7 +7388,8 @@ def run_runtime_cards(n, device="cuda"):
 
 def main_cards(n, device="cuda", presets=None, max_tokens=32, phases=CARDS_PHASES):
     """`--cards n`: with "runtime", run_runtime_cards in this process; with
-    "rl_dp", rl_dp_cards in a world of its own whose
+    "serve", run_serve_cards in this process (replicas of the port's runtime
+    on the cards); with "rl_dp", rl_dp_cards in a world of its own whose
     ranks start as torchrun's do (_dp_rank); then one rank per card over
     NCCL, the phases of cards_phases; then, with "seqpipe", MPMD 1F1B in
     this process with stage i on card i
@@ -7008,6 +7406,10 @@ def main_cards(n, device="cuda", presets=None, max_tokens=32, phases=CARDS_PHASE
     prior = {}
     if "runtime" in phases:
         prior["runtime"] = run_runtime_cards(n, device)
+    if "serve" in phases:
+        prior["serve"] = run_serve_cards(n, device, presets["llama"], max_tokens=16)
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / CARDS_OUT).write_text(json.dumps(prior, indent=1, default=str))
     if "rl_dp" in phases:
         prior["rl_dp"] = spawn_ranks(_dp_rank, n, (device, _free_port()))[0]
         OUT_DIR.mkdir(exist_ok=True)
@@ -7130,8 +7532,15 @@ def main() -> int:
     torch.cuda.empty_cache()   # the llama_1b server is gone; Mixtral needs the room
     moe = run_moe(rng)
     replica = run_replica()
+    # one session of the port's runtime for the paths that use actors: PD's
+    # prefill replica, the runtime's checks, then Serve's OpenAI app
+    session_init_s = open_session("cuda")
     pd = run_pd()
-    runtime = run_runtime(pd.pop("sequential"))
+    sequential = pd.pop("sequential")
+    runtime = run_runtime(sequential)
+    runtime["init_s"] = session_init_s
+    serve_app = run_serve_app(sequential)
+    runtime["session_workers"] = close_session("session")
     tiered = run_tiered()
 
     train = dict(grads=check_train_grads(), head_bf16=check_head_bf16(), **run_train())
@@ -7152,15 +7561,16 @@ def main() -> int:
     # cases and the training shape
     paths = {"serve": summary["launches"], "serve_moe": moe["launches"],
              "serve_pd": pd["launches"], "serve_pd_proc": pd["proc"]["launches"],
-             "runtime": runtime["launches"], "serve_tiered": tiered["launches"],
+             "runtime": runtime["launches"], "serve_app": serve_app["launches"],
+             "serve_tiered": tiered["launches"],
              "ckpt_whole": trainer["ckpt_whole"]["launches"],
              "train": train["launches"], "train_resume": trainer["launches"],
              "train_fit": trainer["fit"]["launches"],
              "serve_tp": mesh["launches"], "train_mesh": train_mesh["launches"],
              "ring": seqpipe["launches"]["ring"],
              "pipeline": seqpipe["launches"]["pipeline"], **rl["launches"]}
-    serve_paths = ("serve", "serve_moe", "serve_pd", "serve_pd_proc", "runtime", "serve_tiered",
-                   "ckpt_whole", "serve_tp", "ring", "pipeline") + RL_PATHS
+    serve_paths = ("serve", "serve_moe", "serve_pd", "serve_pd_proc", "runtime", "serve_app",
+                   "serve_tiered", "ckpt_whole", "serve_tp", "ring", "pipeline") + RL_PATHS
 
     def flash_row(name, source, replaces, err):
         t = train_t[name]
@@ -7195,7 +7605,8 @@ def main() -> int:
         ptxas=registers, cases=cases, bwd_readings=bwd_readings,
         flash_timing=list(flash_t.values()), train_kernel_timing=train_t,
         paged_timing=paged_t, paged_timing_long=paged_long, paged_plans=paged_plans,
-        slice=summary, moe=moe, replica=replica, pd=pd, runtime=runtime, tiered=tiered,
+        slice=summary, moe=moe, replica=replica, pd=pd, runtime=runtime, serve_app=serve_app,
+        tiered=tiered,
         train=train,
         trainer=trainer, mesh=mesh, train_mesh=train_mesh, seqpipe=seqpipe, rl=rl,
         kernels=kernels),

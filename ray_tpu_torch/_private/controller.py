@@ -2006,6 +2006,12 @@ class Controller:
         rec.spec.runtime_env = dict(rec.spec.runtime_env or {})
         rec.spec.runtime_env["_gpu_ids"] = assigned
         if actor is not None:
+            # the actor's release reads its cards from its creation spec: an
+            # actor created from a worker (a serve controller's replica)
+            # registers one copy of the spec and submits another, so the
+            # ids go on both, or a killed replica's card never returns
+            if actor.creation_spec is not None:
+                actor.creation_spec.runtime_env = rec.spec.runtime_env
             # card visibility must be set before the new process starts
             # CUDA; a pooled worker's visibility cannot change under a live
             # CUDA context, so a task gets its ids in runtime_env only

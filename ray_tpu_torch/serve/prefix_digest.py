@@ -5,8 +5,9 @@ The port's own copy of `ray_tpu/serve/prefix_digest.py` (which is plain
 Python; the port imports no `ray_tpu` module). Publisher and scorer must
 agree on the hash, so the chain hashing, the packing and the prefix match
 are kept byte-for-byte as in the JAX package: a digest published by a port
-replica scores the same as one from a JAX replica. The router's own knobs
-and scoring stay with the deployment layer, which is not ported yet.
+replica scores the same as one from a JAX replica. The router's knobs
+(`affinity_enabled`, `spill_threshold`) and its scoring (`score_replicas`)
+are here too, read by the deployment handle (`serve/handle.py`).
 
 Wire format: a digest is {"page_size": int, "entries": {hash: hits}} where
 hash i of a prompt covers token pages 0..i (chained blake2b-64), so
@@ -35,6 +36,23 @@ def digest_max_bytes() -> int:
                                   str(DEFAULT_MAX_BYTES)))
     except ValueError:
         return DEFAULT_MAX_BYTES
+
+
+def affinity_enabled() -> bool:
+    """`RAY_TPU_PREFIX_AFFINITY=0` escape hatch: handles fall back to pure
+    p2c routing (read per pick so a bench can flip it mid-process)."""
+    return os.environ.get("RAY_TPU_PREFIX_AFFINITY", "1").lower() not in (
+        "0", "false", "off")
+
+
+def spill_threshold() -> int:
+    """Queue-depth gap (affinity target vs least-loaded replica) past which
+    the router spills a prefix hit back to p2c, so one hot prefix can't
+    hotspot a single replica."""
+    try:
+        return int(os.environ.get("RAY_TPU_PREFIX_SPILL", "4"))
+    except ValueError:
+        return 4
 
 
 def max_entries(max_bytes: int) -> int:
@@ -112,3 +130,25 @@ def match_depth(digest: Optional[Dict], chain_hashes: Sequence[int]) -> int:
             break
         depth += 1
     return depth
+
+
+def score_replicas(digests: Dict[int, Dict], prompt_ids: Sequence[int],
+                   ) -> List[tuple]:
+    """(matched_pages, replica_idx) for every replica with a digest, idx
+    ascending — the handle layers load tie-breaks on top. Prompt hashes are
+    computed once per distinct page size (one deployment normally has one)."""
+    by_ps: Dict[int, List[int]] = {}
+    out = []
+    for idx in sorted(digests):
+        dg = digests[idx]
+        if not dg:
+            continue
+        ps = int(dg.get("page_size") or 0)
+        if ps <= 0:
+            continue
+        hashes = by_ps.get(ps)
+        if hashes is None:
+            hashes = prompt_chain_hashes(prompt_ids, ps)
+            by_ps[ps] = hashes
+        out.append((match_depth(dg, hashes), idx))
+    return out

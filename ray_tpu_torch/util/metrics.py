@@ -302,6 +302,22 @@ def radix_counters() -> Dict[str, float]:
             "restored_pages": _counter_total("radix_restored_pages")}
 
 
+def serve_fleet_counters() -> Dict[str, float]:
+    """Fleet-routing tallies for the CURRENT process. Handle side:
+    affinity_hits routed to a prefix-matching replica, affinity_spills
+    bounced to p2c because the match's queue was too deep, affinity_misses
+    had no matching digest; mux_rebalances evicted a multiplex model pin off
+    an overloaded replica; died_retries re-routed a request whose replica
+    died mid-flight. Controller side: scale_events counts SLO-autoscale
+    ledger records."""
+    return {"affinity_hits": _counter_total("serve_affinity_hits_total"),
+            "affinity_misses": _counter_total("serve_affinity_misses_total"),
+            "affinity_spills": _counter_total("serve_affinity_spills_total"),
+            "mux_rebalances": _counter_total("serve_mux_rebalances_total"),
+            "died_retries": _counter_total("serve_died_retries_total"),
+            "scale_events": _counter_total("serve_scale_events_total")}
+
+
 # -- the port runtime's control-plane and data-plane read surface ----------
 # Frame/round-trip tallies live in `_private/protocol.py`; the transfer and
 # locality series are registry counters written by the runtime.

@@ -12,9 +12,10 @@ side reaches a serve `DeploymentHandle` (`ray_tpu/serve/pd.py`
   RAY_TPU_KV_DATA=0`) and the whole-KV hand-off (`RAY_TPU_KV_SHIP=0`). No
   control frame carries an array; `prefill_fetch` returns bytes and
   `prefill_kv` CPU tensors.
-- Across a process: `chip_smoke.PrefillProcess` (a `PrefillServer` in a
-  spawned child, a pipe, one asyncio loop) on the CPU: equal ids, the
-  segments attached in this process, none left in /dev/shm.
+- Across a process: chip_smoke's prefill replica (`EngineReplica`
+  "prefill", a serve deployment of the port's runtime, as `serve_pd_proc`
+  runs it) on the CPU: equal ids, the segments attached in this process,
+  none left in /dev/shm.
 - Through a real handle: a `ray_tpu.serve` deployment of the port's
   `PrefillServer` under `ray_session`, its `DeploymentHandle` given to the
   port's `PDServer`: equal ids on both hand-offs.
@@ -169,26 +170,32 @@ def test_pd_over_a_wire_handle_matches_colocated_and_jax(wired, monkeypatch, run
     assert st["active"] == 0 and st["free_slots"] == 4 and st["prefill"]["chunks"] == 0
 
 
-def test_pd_with_prefill_in_a_child_process():
-    """chip_smoke's process stand-in on the CPU: the PrefillServer in a
-    spawned child, every call and reply pickled through a pipe. The ids
-    equal the colocated server's on the attach rung, over the child's KV
-    data server and over the whole-KV hand-off; the segments are attached
-    in this process and sealed in the child; none is left after close."""
-    from chip_smoke import PrefillProcess
+def test_pd_with_prefill_in_a_child_process(time_limit):
+    """chip_smoke's prefill replica on the CPU: the PrefillServer in a
+    replica process of the port's runtime, reached through the serve
+    deployment's handle, every call and reply pickled by the runtime. The
+    ids equal the colocated server's on the attach rung, over the
+    replica's KV data server and over the whole-KV hand-off; the segments
+    are attached in this process and sealed in the replica; none is left
+    after it closes its shipping and its app is deleted."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve as tserve
+    from chip_smoke import engine_deployment, state_digest
     plain = tllm.LLMServer(_cfg(tllm))
     sd = plain.model.state_dict()
-    proc = PrefillProcess(_cfg(tllm), sd)
+    rt.init(num_cpus=2, num_gpus=1)
     try:
-        info = proc.wait_ready(120)
-        assert info["pid"] != os.getpid() and info["digest"] == proc.digest
+        proc = tserve.run(engine_deployment("prefill").bind(
+            "prefill", _cfg(tllm), params=sd), name="pd-child")
+        call = lambda name: getattr(proc, name).remote().result(timeout_s=120)
+        assert call("binding")["pid"] != os.getpid() and call("digest") == state_digest(sd)
         pd = tpd.PDServer(_cfg(tllm), params=sd, prefill=proc)
         mine = tmetrics.kv_ship_counters()
-        theirs = proc.get("ship_counters")
+        theirs = call("ship_counters")
         want = _ids(plain)
         assert _ids(pd) == want
         moved = _delta(mine)
-        sealed = {k: v - theirs[k] for k, v in proc.get("ship_counters").items()}
+        sealed = {k: v - theirs[k] for k, v in call("ship_counters").items()}
         assert moved["attach_hits"] == sealed["segments"] >= len(PROMPTS)
         assert moved["segments"] == 0 and sealed["rpc_fallback_bytes"] == 0
         with pytest.MonkeyPatch.context() as mp:
@@ -199,11 +206,14 @@ def test_pd_with_prefill_in_a_child_process():
         with pytest.MonkeyPatch.context() as mp:
             mp.setenv("RAY_TPU_KV_SHIP", "0")
             assert _ids(pd, PROMPTS[1:2]) == want[1:2]
-        assert pd.stats()["active"] == 0 and proc.get("stats")["active"] == 0
+        assert pd.stats()["active"] == 0 and call("stats")["active"] == 0
         assert pd.stats()["prefill"]["chunks"] == 0
+        announced = call("close_shipping")
+        tserve.delete("pd-child")
     finally:
-        proc.close()
-    assert proc.segments and proc.segments_left() == []
+        tserve.shutdown()
+        rt.shutdown()
+    assert announced and not [n for n in announced if os.path.exists(f"/dev/shm/{n}")]
 
 
 def test_pd_through_a_serve_deployment_handle(ray_session, time_limit):
