@@ -135,6 +135,13 @@ Phases, in order; a failing phase raises and the script exits non-zero:
              card; the replica's start, the first SSE event against the
              engine's TTFT, the proxy + ingress + handle ms a request and
              decode tokens/s logged.
+   radix_visits - the slice's prompts twice through an in-process server
+             (radix cache on, off, and on in f32): where a bf16 second
+             visit differs from the first, the top-2 logit gap of the
+             full forward in bf16 and in f32 against the bf16 row's
+             distance from f32; the first visits equal the colocated
+             ids, the second ones equal them with the cache off and in
+             f32, and every bf16 difference sits inside bf16's rounding.
 9. tiered  - radix KV demotion at llama_1b width (path `serve_tiered`): 8
              families of 1024-token prefixes round-robin on a 32-page pool
              with a 64 MiB stash, restored pages torch.equal to their
@@ -183,8 +190,18 @@ Phases, in order; a failing phase raises and the script exits non-zero:
              named by the result, forward, dQ and dK/dV 16 launches each per
              step taken (112 over 7); the fit's seconds, its ms a step
              against the bare loop's, each report() call, the saves, the
-             report's checkpoint copies and the bytes left logged; (f) path
-             `ckpt_whole`: 4 gloo ranks on CPU tensors write llama_1b's
+             report's checkpoint copies and the bytes left logged; path
+             `train_fit_actor`: the same loop through
+             TorchTrainer(use_worker_actor=True,
+             ScalingConfig(use_gpu=True)) in a session of the port's
+             runtime, a TrainWorker actor on the card whose process exits
+             (os._exit(1)) at step 3 of its first attempt and is respawned
+             on the card, resuming from step 2: the history equal (c)'s
+             run A as floats, the final params' digest equal, B1-B3 16
+             launches a step in each of the actor's processes and none in
+             this one, the card back after the actor's death (a
+             num_gpus=1 actor starts); ms a step in the actor and the
+             restart's seconds logged; (f) path `ckpt_whole`: 4 gloo ranks on CPU tensors write llama_1b's
              seeded bf16 weights and AdamW state (one optimizer step at lr
              0 on seeded gradients) sharded on {"fsdp": 4} and restore it
              onto {"fsdp": 2, "tp": 2}, every
@@ -283,7 +300,14 @@ Phases, in order; a failing phase raises and the script exits non-zero:
              RolloutActor on jax_env="cartpole" feeding IMPALA's
              _sebulba_update for 3 iterations, params torch.equal to the
              learner fed DeviceRollout directly, jit_cache_size() == 1,
-             `pipeline.act` windows at versions 0, 1, 2. No kernel may
+             `pipeline.act` windows at versions 0, 1, 2; (i) path
+             `rl_sebulba_actors`: the port's SebulbaPipeline through
+             IMPALA's `.sebulba(enabled=True, ...)` on the port's runtime,
+             a num_gpus=1 RolloutActor of DeviceRollout(TorchCartPole) and
+             a ReplayActor, the learner here: lockstep params after 3
+             iterations torch.equal to the learner fed DeviceRollout
+             directly, then 1 actor with 2 rollouts in flight for 20
+             updates (env-steps/s, gap counts, stale drops). No kernel may
              launch on any RL path. The entry
              points that make a gymnasium env (path `rl_ppo`, DQN's,
              SAC's and TQC's `train()`, `PPOConfig().multi_agent(...)`)
@@ -301,9 +325,22 @@ deployment at num_replicas=2, a card each, where a wave of four
 over HTTP go to the replica that advertised its prefix, ids equal to an
 in-process server's; and PD as two deployments, PrefillServer on a third
 card and PDServer bound with its handle on a fourth, ids equal, TTFT
-read), `rl_dp` in a world of its own, then `seqpipe`, `fsdp` and `tp` in
+read), `actors` in this process (run_actors_cards: (a) the trainer's
+worker group, four TrainWorker actors with num_gpus=1 in a placement
+group at {"fsdp": 4} (llama_1b, B=1 a card, T=2048, 4 steps, a sharded
+checkpoint at step 2), rank 2 exiting at step 3 of the first attempt and
+the whole group retried, its history equal an unkilled group's, every
+rank on its own card, B1-B3 counted on every rank; (b) build_pipeline of
+four PipelineStage actors a card each, llama_1b f32 cut by LlamaStage,
+one 1F1B step over 8 microbatches of B=1, T=1024 against whole_step and
+against run_1f1b in this process on the same cards, then ms a step and an
+activation's hop through the store; (c) create_collective_group over four
+GPU actors, a "host" group through the rendezvous actor and an "nccl"
+group whose address rank 0 publishes there, every operation equal to the
+host rule, and the bus GB/s of a 256 MiB all-reduce), `rl_dp` in a world
+of its own, then `seqpipe`, `fsdp` and `tp` in
 the same ranks (one spawned rank per card over NCCL), then MPMD in this
-process. `--phases runtime`, `--phases serve`, `--phases seqpipe`,
+process. `--phases runtime`, `--phases serve`, `--phases actors`, `--phases seqpipe`,
 `--phases tp`, `--phases rl_dp` or `--phases fsdp` runs one group alone: a
 rehearsal aid for a change that touches one of them; the check of a
 change is the default run. `fsdp`: (a) path
@@ -2811,6 +2848,107 @@ def run_serve_app(sequential, device="cuda", preset="llama_1b", max_tokens=16):
     return out
 
 
+def logit_rows(model, prompt, ids, j, device):
+    """The last row's f32 logits after prompt + ids[:j]."""
+    import torch
+    toks = torch.tensor([list(prompt) + list(ids[:j])], device=device)
+    with torch.no_grad():
+        return model(toks)[0][0, -1].float()
+
+
+def run_radix_visits(sequential, device="cuda", preset="llama_1b", max_tokens=16):
+    """Path `radix_visits`: why a prompt's second visit, prefilled after a
+    radix hit, can give other greedy ids than its first (3 of 10 in bf16 on
+    the card in `serve_app`, 0 of 10 in f32 on the CPU). The sequential
+    prompts (run_pd's) go twice, one at a time, through an in-process
+    server of `serve_app`'s settings with the radix prefix cache on, then
+    through one with it off, then through one with the cache on in f32
+    (its own seeded f32 weights). Where a bf16 second visit differs from
+    the first,
+    at the first position j that differs: the top-2 logit gap of the full
+    forward over prompt + first[:j] in the server's bf16 (`near_tie`), the
+    same in f32 on the same weights upcast, and the bf16 row's distance
+    from the f32 row (the bf16 noise), each over the row's max |logit|.
+    Held: the first visits equal the colocated server's ids; with the cache
+    off the second visits equal the first; in f32 with the cache on they
+    do too (the continuation path is exact where the arithmetic is); and
+    every differing bf16 prompt is a near-tie: its bf16 gap under
+    NEAR_TIE, or its f32 gap within twice the bf16 noise (the two
+    candidates are inside bf16's rounding of the row). Otherwise the radix
+    continuation is at fault, and this raises."""
+    import gc
+
+    import torch
+    from ray_tpu_torch.models.llama import Llama
+    from ray_tpu_torch.serve.llm import LLMServer
+
+    prompts = [p for p, _ in sequential]
+    visits, model = {}, None
+    for name, kw in (("radix", {}), ("no_cache", dict(prefix_cache=False)),
+                     ("radix_f32", dict(param_dtype="float32", dtype="float32"))):
+        server = LLMServer(serving_config(preset, device, **kw))
+        asyncio.run(server.generate(list(range(1, 50)), max_tokens=8))      # warm-up
+        visits[name] = [[asyncio.run(server.generate(p, max_tokens=max_tokens))["tokens"]
+                         for p in prompts] for _ in range(2)]
+        if name == "radix":
+            model = server.model
+        del server
+        gc.collect()
+    first, second = visits["radix"]
+    f32 = Llama(dataclasses.replace(model.cfg, dtype=torch.float32, param_dtype=torch.float32),
+                device=device)
+    f32.load_state_dict({k: v.float() for k, v in model.state_dict().items()})
+    rows = []
+    for i, (p, a, b) in enumerate(zip(prompts, first, second)):
+        if a == b:
+            continue
+        j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+        gap, tie = near_tie(model, p, a, j, device)
+        lo, hi = logit_rows(model, p, a, j, device), logit_rows(f32, p, a, j, device)
+        top = hi.topk(2)
+        gap32 = float((top.values[0] - top.values[1]) / hi.abs().max())
+        noise = float((lo - hi).abs().max() / hi.abs().max())
+        rows.append(dict(request=i, position=j, first=a[j] if j < len(a) else None,
+                         second=b[j] if j < len(b) else None, gap_bf16=gap, near_tie=tie,
+                         gap_f32=gap32, bf16_noise=noise, f32_top2=top.indices.tolist(),
+                         within_noise=gap32 < 2 * noise))
+    del f32, model
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    off1, off2 = visits["no_cache"]
+    f32_1, f32_2 = visits["radix_f32"]
+    out = dict(prompts=len(prompts), max_tokens=max_tokens,
+               differ_radix=len(rows), differ_no_cache=sum(x != y for x, y in zip(off1, off2)),
+               differ_radix_f32=sum(x != y for x, y in zip(f32_1, f32_2)),
+               first_equal_colocated=sum(a == w for a, (_, w) in zip(first, sequential)),
+               no_cache_equal_first=sum(x == a for x, a in zip(off1, first)), rows=rows)
+    checks = {
+        f"first visits equal the colocated server's ids ({out['first_equal_colocated']} of "
+        f"{len(prompts)})": out["first_equal_colocated"] == len(prompts),
+        f"with the radix cache off, second visits equal first visits "
+        f"({len(prompts) - out['differ_no_cache']} of {len(prompts)})":
+            out["differ_no_cache"] == 0,
+        f"in f32 with the radix cache on, second visits equal first visits "
+        f"({len(prompts) - out['differ_radix_f32']} of {len(prompts)})":
+            out["differ_radix_f32"] == 0,
+        f"each of the {len(rows)} second visits that differ after a radix hit is a near-tie "
+        f"(bf16 gap < {NEAR_TIE}, or f32 gap within twice the bf16 noise)":
+            all(r["near_tie"] or r["within_noise"] for r in rows),
+    }
+    for r in rows:
+        log(f"[radix_visits] request {r['request']} differs from position {r['position']} "
+            f"({r['first']} -> {r['second']}): top-2 gap {r['gap_bf16']:.3e} of max |logit| in "
+            f"bf16, {r['gap_f32']:.3e} in f32 (top-2 {r['f32_top2']}), the bf16 row "
+            f"{r['bf16_noise']:.3e} from the f32 row")
+    for what, ok in checks.items():
+        log(f"[radix_visits] {'ok  ' if ok else 'FAIL'} {what}")
+    if not all(checks.values()):
+        raise AssertionError(f"radix_visits checks failed: "
+                             f"{[what for what, ok in checks.items() if not ok]}: {rows}")
+    return out
+
+
 # ------------------------------------------------------------------ tiered
 TIER_FAMILIES, TIER_PREFIX, TIER_TAIL, TIER_NEW = 8, 1024, 16, 2
 
@@ -3717,6 +3855,180 @@ def run_train_fit(run_a, device="cuda", preset="llama_1b", batch=4, seq=2048, st
         f"{out['bytes_left']}; launches {launches} ({smi})")
     if not all(checks.values()):
         raise AssertionError(f"train_fit checks failed: {checks}")
+    return out
+
+
+def fit_actor_loop(config):
+    """run_train_fit's loop for a TrainWorker actor (`train_fit_actor`):
+    the same build, batches and checkpoints, in the actor's own process on
+    its one card. The first attempt's process exits (os._exit(1)) after
+    step FIT_FAIL_AT's step and before its report, writing the time and
+    its launch counts to `config["flag"]` first; the respawn resumes from
+    get_checkpoint(). Every report carries the step's loss, this process's
+    pid, its launch counts since the loop began, and the host times around
+    the step; the last one also the params' digest."""
+    import torch
+    from ray_tpu_torch import train
+    from ray_tpu_torch.train.llm_step import build_llama_trainer
+    loop_start = time.time()
+    reset_launch_counts()
+    model, opt, step, _, dev = build_llama_trainer(config["preset"], config["batch"],
+                                                   config["seq"], device=config["device"])
+    start = 0
+    ckpt = train.get_checkpoint()
+    if ckpt is not None:
+        state = ckpt.to_state(target={"model": model.state_dict(), "optim": opt.state_dict()})
+        model.load_state_dict(state["model"])
+        opt.load_state_dict(state["optim"])
+        start = state["step"]
+        del state
+    shard = train.get_dataset_shard("train")
+    feed = train.iter_device_batches(shard[start:config["steps"]], device=dev, prefetch=2)
+    for n, tokens in zip(range(start + 1, config["steps"] + 1), feed):
+        t0 = time.time()
+        loss = step(tokens)
+        value = loss.item()
+        t1 = time.time()
+        if n == FIT_FAIL_AT and not os.path.exists(config["flag"]):
+            with open(config["flag"], "w") as f:
+                json.dump({"t": time.time(), "pid": os.getpid(), "launches": launch_counts()}, f)
+            os._exit(1)
+        metrics = {"loss": value, "step": n, "pid": os.getpid(), "start": start,
+                   "loop_start": loop_start, "t0": t0, "t1": t1, "launches": launch_counts(),
+                   "binding": card_binding()}
+        if n == config["steps"]:
+            metrics["digest"] = state_digest(model.state_dict())
+        ckpt = None
+        if n in FIT_SAVE_AT:
+            ckpt = train.Checkpoint.from_state(
+                {"model": model.state_dict(), "optim": opt.state_dict(), "step": n},
+                path=os.path.join(config["scratch"], f"step{n}"))
+        train.report(metrics, checkpoint=ckpt)
+        if ckpt is not None:
+            shutil.rmtree(ckpt.path)        # the run directory holds its copy
+
+
+def run_train_fit_actor(run_a, device="cuda", preset="llama_1b", batch=4, seq=2048, steps=6):
+    """(f) Path `train_fit_actor`: TorchTrainer(use_worker_actor=True,
+    ScalingConfig(use_gpu=True), RunConfig(FailureConfig(max_failures=1),
+    CheckpointConfig(num_to_keep=1))).fit() in a session of the port's
+    runtime: run_train_fit's loop (fit_actor_loop) in a TrainWorker actor
+    that claims the card. Its process exits at step FIT_FAIL_AT on the
+    first attempt; the actor is respawned on the card and resumes from the
+    checkpoint of step FIT_SAVE_AT[0]. Held: no error; the history's steps
+    1-6 and losses equal run A's (run_train_fit's reference, bit for bit as
+    floats) and the final params' digest run A's; two processes, the
+    second resumed from step 2; B1-B3 launched 16 x the steps each process
+    took, there, and 0 times in this process; the actor's
+    CUDA_VISIBLE_DEVICES its get_gpu_ids(); the card returned after the
+    actor's death (a num_gpus=1 actor made afterwards starts). Timed: ms a
+    step in the actor (its last two steps, each with its report) against
+    run A's bare loop, the restart (the crash to the respawned loop's
+    start, and to its first step), the fit."""
+    import tempfile
+
+    import torch
+    import chip_smoke
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.train.llm_step import host_batches
+
+    cuda = torch.device(device).type == "cuda"
+    smi = smi_line()
+    root = tempfile.mkdtemp(prefix="chip_smoke_fit_actor_")
+    batches = host_batches(getattr(LlamaConfig, preset)().vocab_size, batch, seq)[:steps]
+    config = dict(preset=preset, batch=batch, seq=seq, steps=steps, device=device,
+                  scratch=os.path.join(root, "scratch"), flag=os.path.join(root, "died"))
+    out = dict(device=smi, preset=preset, batch=batch, seq=seq, steps=steps,
+               save_at=list(FIT_SAVE_AT), fail_at=FIT_FAIL_AT)
+    own = not rt.is_initialized()
+    try:
+        if own:
+            out["init_s"] = open_session(device)
+        if cuda:
+            torch.cuda.empty_cache()    # the card's memory is the actor's now
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        result = train.TorchTrainer(
+            chip_smoke.fit_actor_loop, train_loop_config=config, datasets={"train": batches},
+            scaling_config=train.ScalingConfig(use_gpu=cuda), use_worker_actor=True,
+            run_config=train.RunConfig(
+                name="fit_actor", storage_path=root,
+                checkpoint_config=train.CheckpointConfig(num_to_keep=1),
+                failure_config=train.FailureConfig(max_failures=1))).fit()
+        out["fit_s"] = time.perf_counter() - t0
+        here = launch_counts()
+        # the card is back: a num_gpus=1 actor starts (gpu "number" 0 on the CPU)
+        t0 = time.perf_counter()
+        after = rt.get(rt.remote(num_gpus=1)(Pinger).remote().binding.remote(), timeout=300)
+        out["card_back_s"] = time.perf_counter() - t0
+        crash = json.load(open(config["flag"])) if os.path.exists(config["flag"]) else None
+    finally:
+        if own:
+            out["session_workers"] = close_session("train_fit_actor")
+        shutil.rmtree(root, ignore_errors=True)
+    history = result.metrics_history
+    want = [x.item() for x in run_a["losses"]]
+    pids = [m["pid"] for m in history]
+    procs = sorted(set(pids), key=pids.index)
+    second = [m for m in history if m["pid"] == procs[-1]]
+    layers = getattr(LlamaConfig, preset)().n_layers
+    per = layers if cuda else 0                        # CPU tensors launch none
+    # every process's launches: the crashed one's at its exit, the respawn's
+    # at its last report
+    taken = [FIT_FAIL_AT, steps - second[0]["start"]]
+    counts = [crash["launches"] if crash else None, second[-1]["launches"]]
+    launches = {k: sum(c[k] for c in counts if c) for k in counts[-1]}
+    last, prev = second[-1], second[-2]
+    ms_actor = (last["t1"] - prev["t0"]) / 2 * 1e3
+    out.update(
+        error=repr(result.error), history_steps=[m["step"] for m in history],
+        losses=[m["loss"] for m in history], losses_run_a=want, pids=procs,
+        resumed_from=second[0]["start"], launches=launches, launches_by_process=counts,
+        launches_here=here, binding=second[0]["binding"], card_after=after,
+        ms_per_step_actor=ms_actor, ms_per_step_bare=run_a["ms_per_step"],
+        restart_s=second[0]["loop_start"] - crash["t"] if crash else None,
+        restart_to_step_s=second[0]["t0"] - crash["t"] if crash else None,
+        removed=not os.path.exists(root))
+    b = out["binding"]
+    checks = {
+        "fit() returned no error": result.error is None,
+        f"history steps 1-{steps}, losses equal run A's as floats":
+            out["history_steps"] == list(range(1, steps + 1)) and out["losses"] == want,
+        "final params' digest equal run A's": last.get("digest") == state_digest(run_a["final"]),
+        f"two processes, the respawn resumed from step {FIT_SAVE_AT[0]} "
+        f"({len(procs)}, {out['resumed_from']})":
+            len(procs) == 2 and crash is not None and out["resumed_from"] == FIT_SAVE_AT[0],
+        f"B1-B3 launched {layers} x the steps each process took {taken}, there, and B4 "
+        f"none" + ("" if cuda else " (0 on the CPU)"): all(
+            c is not None and all(c[f] == per * k for f in FLASH_NAMES)
+            and c["paged_decode"] == c["paged_decode_combine"] == 0
+            for c, k in zip(counts, taken)),
+        f"this process launched no kernel ({here})": not any(here.values()),
+        "the card returned after the actor's death: a num_gpus=1 actor started" + (
+            " on it" if cuda else ""): after["gpu_ids"] == b["gpu_ids"] if cuda else bool(after),
+        "run directory removed": out["removed"],
+    }
+    if cuda:
+        checks[f"the actor's CUDA_VISIBLE_DEVICES {b['cuda_visible_devices']!r} == get_gpu_ids() "
+               f"{b['gpu_ids']}, one card seen"] = (
+            b["cuda_visible_devices"] == ",".join(map(str, b["gpu_ids"]))
+            and b["device_count"] == 1)
+    for what, ok in checks.items():
+        log(f"[train_fit_actor] {'ok  ' if ok else 'FAIL'} {what}")
+    if result.error is not None:
+        log(f"[train_fit_actor] the fit's error: {str(result.error)[-4000:]}")
+    log(f"[train_fit_actor] {preset} B={batch} T={seq} in a TrainWorker actor: fit "
+        f"{out['fit_s']:.2f} s; ms/step over steps {steps - 1}-{steps} in the actor "
+        f"{ms_actor:.1f} against the bare loop's {run_a['ms_per_step']:.1f}; the restart "
+        f"{out['restart_s'] or 0:.2f} s from the crash to the respawned loop, "
+        f"{out['restart_to_step_s'] or 0:.2f} s to its first step; resumed at step "
+        f"{out['resumed_from'] + 1}; launches {launches} in the actor's processes {counts}, "
+        f"{here} here; a num_gpus=1 actor started {out['card_back_s']:.2f} s after ({smi})")
+    if not all(checks.values()):
+        raise AssertionError(f"train_fit_actor checks failed: "
+                             f"{[what for what, ok in checks.items() if not ok]}")
     return out
 
 
@@ -5887,6 +6199,24 @@ def check_dp_raises(device="cuda"):
     return msg
 
 
+def device_impala():
+    """The port's IMPALA on CartPole's module spec, built without its
+    inline EnvRunner (gymnasium is not on the chip machine): the learner
+    alone, fed by DeviceRollout(TorchCartPole)."""
+    from ray_tpu_torch.rllib import TorchCartPole
+    from ray_tpu_torch.rllib.algorithms.impala import IMPALA, IMPALALearner
+    from ray_tpu_torch.rllib.learner import make_learner_group
+    from ray_tpu_torch.rllib.rl_module import RLModule
+
+    class DeviceIMPALA(IMPALA):
+        def setup(self, config):
+            self.learner_group = make_learner_group(
+                IMPALALearner, RLModule(TorchCartPole.spec()), config, seed=config.seed)
+            self.learner = self.learner_group.learner
+
+    return DeviceIMPALA
+
+
 def run_rl_sebulba(device="cuda", iters=3):
     """(h) Path `rl_sebulba`: the sebulba pipeline's lockstep schedule, in
     process, as ray_tpu's SebulbaPipeline drives it over actors: the port's
@@ -5901,19 +6231,13 @@ def run_rl_sebulba(device="cuda", iters=3):
     0..iters-1, and no kernel may launch."""
     import torch
     from ray_tpu_torch.rllib import DeviceRollout, IMPALAConfig, TorchCartPole
-    from ray_tpu_torch.rllib.algorithms.impala import IMPALA, IMPALALearner
-    from ray_tpu_torch.rllib.learner import make_learner_group
+    from ray_tpu_torch.rllib.algorithms.impala import IMPALALearner
     from ray_tpu_torch.rllib.rl_module import RLModule
     from ray_tpu_torch.rllib.sample_batch import SampleBatch
     from ray_tpu_torch.rllib.sebulba import RolloutActor
     from ray_tpu_torch.util import tracing
 
-    class DeviceIMPALA(IMPALA):
-        def setup(self, config):
-            self.learner_group = make_learner_group(
-                IMPALALearner, RLModule(TorchCartPole.spec()), config, seed=config.seed)
-            self.learner = self.learner_group.learner
-
+    DeviceIMPALA = device_impala()
     sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
     cfg = IMPALAConfig().resources(device=device).sebulba(enabled=False, lockstep=True,
                                                           jax_env="cartpole")
@@ -5963,16 +6287,118 @@ def run_rl_sebulba(device="cuda", iters=3):
                 launches=launches)
 
 
+def run_rl_sebulba_actors(device="cuda", iters=3, async_updates=20):
+    """(i) Path `rl_sebulba_actors`: the port's own SebulbaPipeline on the
+    port's runtime, through `.sebulba(enabled=True, ...)` of IMPALA at its
+    defaults (1 env x 50 steps, seed 0; train_batch_size one rollout):
+    one RolloutActor of DeviceRollout(TorchCartPole) on `device`, which
+    claims the card (num_gpus=1), and one ReplayActor; the learner here.
+    Lockstep (fifo replay, blocking broadcasts): after `iters` train()
+    iterations the params must be torch.equal to the same learner fed
+    DeviceRollout directly, the gap 0 on every update and the signature
+    cache 1. Async: 1 rollout actor with 2 rollouts in flight until
+    `async_updates` updates: env-steps/s, the off-policy gap counts and
+    the stale drops read. No kernel may launch here."""
+    import torch
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rllib import DeviceRollout, IMPALAConfig, TorchCartPole
+    from ray_tpu_torch.rllib.algorithms.impala import IMPALALearner
+    from ray_tpu_torch.rllib.rl_module import RLModule
+
+    cuda = torch.device(device).type == "cuda"
+    DeviceIMPALA = device_impala()
+
+    def config():
+        base = IMPALAConfig().resources(device=device)
+        return base.training(train_batch_size=base.num_envs_per_env_runner
+                             * base.rollout_fragment_length)
+
+    out = {}
+    own = not rt.is_initialized()
+    try:
+        if own:
+            out["init_s"] = open_session(device)
+        reset_launch_counts()
+        cfg = config().sebulba(enabled=True, lockstep=True, jax_env="cartpole")
+        t0 = time.perf_counter()
+        algo = DeviceIMPALA(cfg)
+        out["pipeline_up_s"] = time.perf_counter() - t0
+        try:
+            binding = rt.get(algo._sebulba.actors[0].node_info.remote(), timeout=120)
+            t0 = time.perf_counter()
+            results = [algo.train() for _ in range(iters)]
+            out["lockstep_s"] = time.perf_counter() - t0
+            got = algo.get_weights()
+        finally:
+            algo.stop()
+        stats = results[-1]["sebulba"]
+        ref = IMPALALearner(RLModule(TorchCartPole.spec()), cfg, seed=cfg.seed)
+        roll = DeviceRollout(TorchCartPole, device=device, num_envs=cfg.num_envs_per_env_runner,
+                             rollout_len=cfg.rollout_fragment_length, seed=cfg.seed)
+        for version in range(stats["updates"]):
+            roll.set_weights(ref.get_weights(), version)
+            ref.update(roll.sample())
+        want = ref.get_weights()
+        equal = got.keys() == want.keys() and all(torch.equal(got[k], want[k]) for k in want)
+
+        acfg = config().sebulba(enabled=True, num_rollout_actors=1, inflight_rollouts=2,
+                                jax_env="cartpole")
+        algo = DeviceIMPALA(acfg)
+        try:
+            t0 = time.perf_counter()
+            while algo._sebulba.updates < async_updates:
+                last = algo.train()
+            async_s = time.perf_counter() - t0
+            replay = rt.get(algo._sebulba.replay.stats.remote(), timeout=120)
+        finally:
+            algo.stop()
+        launches = no_launches("rl_sebulba_actors", device)
+    finally:
+        if own:
+            out["session_workers"] = close_session("rl_sebulba_actors")
+    s = last["sebulba"]
+    out.update(iterations=iters, params_equal=equal, lockstep=dict(
+        updates=stats["updates"], gap_counts=stats["gap_counts"],
+        jit_cache_size=stats["jit_cache_size"], broadcasts=stats["broadcasts"]),
+        rollout_actor=binding, launches=launches, async_=dict(
+            updates=s["updates"], env_steps=s["env_steps"], seconds=async_s,
+            env_steps_per_s=s["env_steps"] / async_s, gap_counts=s["gap_counts"],
+            stale_dropped=s["stale_dropped"], broadcasts_async=s["broadcasts_async"],
+            replay=replay))
+    checks = {
+        f"lockstep params torch.equal to the learner fed DeviceRollout directly after {iters} "
+        f"iterations ({stats['updates']} updates)": equal and stats["updates"] == iters,
+        f"lockstep gap 0 on every update ({stats['gap_counts']}), signature cache 1 "
+        f"({stats['jit_cache_size']})": stats["gap_counts"] == {0: iters}
+        and stats["jit_cache_size"] == 1,
+        f"the rollout actor ran in its own process ({binding['pid']})":
+            binding["pid"] != os.getpid(),
+        f"async: {s['updates']} updates >= {async_updates}": s["updates"] >= async_updates,
+    }
+    for what, ok in checks.items():
+        log(f"[rl] rl_sebulba_actors {'ok  ' if ok else 'FAIL'} {what}")
+    log(f"[rl] rl_sebulba_actors on {device}: pipeline up {out['pipeline_up_s']:.2f} s; "
+        f"lockstep {iters} iterations {out['lockstep_s']:.2f} s; async (1 actor, 2 in flight) "
+        f"{s['updates']} updates, {s['env_steps']} env steps in {async_s:.2f} s = "
+        f"{s['env_steps'] / async_s:.1f} env-steps/s, gap counts {s['gap_counts']}, stale "
+        f"drops {s['stale_dropped']}, async broadcasts {s['broadcasts_async']}"
+        + (f" ({smi_line()})" if cuda else ""))
+    if not all(checks.values()):
+        raise AssertionError(f"rl_sebulba_actors checks failed: "
+                             f"{[what for what, ok in checks.items() if not ok]}")
+    return out
+
+
 RL_PATHS = ("rl_device", "rl_cnn", "rl_offline", "rl_offpolicy", "rl_multi_agent",
-            "rl_dreamer", "rl_sebulba")
+            "rl_dreamer", "rl_sebulba", "rl_sebulba_actors")
 
 
 def run_rl(device="cuda"):
     """The `rl` phase: (a) cuda-against-cpu parity of every learner's update,
     (b) path `rl_device`, (c) path `rl_cnn`, (d) path `rl_offline`, (e) path
     `rl_offpolicy`, (f) path `rl_multi_agent`, (g) path `rl_dreamer`, (h)
-    path `rl_sebulba`, and
-    the dp learner group's ValueError on one card. Path `rl_ppo`
+    path `rl_sebulba`, (i) path `rl_sebulba_actors`, and the dp learner
+    group's ValueError on one card. Path `rl_ppo`
     (PPOConfig().environment("CartPole-v1")...build().train()), the online
     off-policy Algorithms' `train()` and `PPOConfig().multi_agent(...)`
     need gymnasium, which the chip machine does not have: they are held by
@@ -5983,6 +6409,7 @@ def run_rl(device="cuda"):
                      ("rl_offline", run_rl_offline), ("rl_offpolicy", run_rl_offpolicy),
                      ("rl_multi_agent", run_rl_multi_agent), ("rl_dreamer", run_rl_dreamer),
                      ("rl_sebulba", run_rl_sebulba),
+                     ("rl_sebulba_actors", run_rl_sebulba_actors),
                      ("dp_raises", check_dp_raises)):
         t0 = time.perf_counter()
         out[name] = fn(device)
@@ -5997,7 +6424,7 @@ def run_rl(device="cuda"):
 
 # ------------------------------------------------------------------ cards
 CARDS_OUT = "chip_smoke_cards4.json"
-CARDS_PHASES = ("runtime", "serve", "rl_dp", "seqpipe", "tp", "fsdp")
+CARDS_PHASES = ("runtime", "serve", "actors", "rl_dp", "seqpipe", "tp", "fsdp")
 RING_SEQ_CARDS = 16384          # ring at sp=4: 4096 tokens a card
 
 
@@ -7386,10 +7813,473 @@ def run_runtime_cards(n, device="cuda"):
     return dict(resources=res, singles=singles, pair=pair, seconds=seconds)
 
 
+# ------------------------------------------------------------- actors
+ACTORS_STEPS, ACTORS_SAVE_AT, ACTORS_FAIL_AT, ACTORS_FAIL_RANK = 4, 2, 3, 2
+ALLREDUCE_BYTES = 256 << 20      # the NCCL group's timed all-reduce
+
+
+def group_fit_loop(config):
+    """(a)'s loop in every TrainWorker of the group: the preset at
+    {"fsdp": world} (B=1 a card), build_llama_trainer's batches, a sharded
+    checkpoint after step ACTORS_SAVE_AT. Rank `die_rank` exits
+    (os._exit(1)) at the start of step `die_at` when `flag` does not exist
+    yet, writing the time to it. Each step's record (pid, card, launches,
+    host times) overwrites this process's file in `config["records"]`;
+    rank 0 reports the loss and the times."""
+    import torch
+    from ray_tpu_torch import train
+    from ray_tpu_torch.parallel.mesh import make_mesh
+    from ray_tpu_torch.parallel.sharding import data_sharding
+    from ray_tpu_torch.train.llm_step import build_llama_trainer, train_state
+    loop_start = time.time()
+    reset_launch_counts()
+    ctx = train.get_context()
+    rank, world = ctx.get_world_rank(), ctx.get_world_size()
+    device = config["device"]
+    mesh = make_mesh({"fsdp": world}, device=device)
+    model, opt, step, batches, _ = build_llama_trainer(config["preset"], world, config["seq"],
+                                                       device=device, mesh=mesh)
+    start = 0
+    ckpt = train.get_checkpoint()
+    if ckpt is not None:
+        got = ckpt.to_state(target=train_state(model, opt)[0], mesh=mesh)
+        model.load_state_dict(got["model"])
+        opt.load_state_dict(got["optim"])
+        start = got["step"]
+        del got
+    binding = card_binding()
+    feed = train.iter_device_batches(batches[start:config["steps"]], sharding=data_sharding(mesh))
+    for n, tokens in zip(range(start + 1, config["steps"] + 1), feed):
+        flag = config.get("flag")
+        if flag and rank == ACTORS_FAIL_RANK and n == ACTORS_FAIL_AT and not os.path.exists(flag):
+            # die once step ACTORS_SAVE_AT's checkpoint is in the run
+            # directory (rank 0 copies it in its report), so that the
+            # group resumes from it
+            kept = os.path.join(ctx.get_trial_dir(), "checkpoint_000000")
+            for _ in range(600):
+                if os.path.isdir(kept):
+                    break
+                time.sleep(0.1)
+            with open(flag, "w") as f:
+                json.dump({"t": time.time(), "pid": os.getpid()}, f)
+            os._exit(1)
+        t0 = time.time()
+        loss = step(tokens)
+        value = loss.item()
+        t1 = time.time()
+        ckpt = None
+        if n == ACTORS_SAVE_AT:
+            state, specs = train_state(model, opt, step=n)
+            ckpt = train.Checkpoint.from_state(
+                state, path=os.path.join(config["scratch"], f"step{n}"), mesh=mesh, specs=specs)
+        record = dict(rank=rank, pid=os.getpid(), step=n, start=start, loop_start=loop_start,
+                      binding=binding, launches=launch_counts())
+        with open(os.path.join(config["records"], f"rank{rank}-{os.getpid()}.json"), "w") as f:
+            json.dump(record, f)
+        train.report({"loss": value, "step": n, "start": start, "loop_start": loop_start,
+                      "t0": t0, "t1": t1}, checkpoint=ckpt)
+
+
+def worker_group_cards(n, device, preset, seq):
+    """(a) The worker group: TorchTrainer(use_worker_actor=True,
+    ScalingConfig(num_workers=n, use_gpu=True)) places n TrainWorker actors
+    with num_gpus=1 each in a placement group; group_fit_loop at
+    {"fsdp": n}. The killed run's rank ACTORS_FAIL_RANK exits at step
+    ACTORS_FAIL_AT of the first attempt; the whole group is torn down and
+    retried (FailureConfig(max_failures=1)), resuming from the checkpoint of
+    step ACTORS_SAVE_AT. Held against an unkilled run of the same group:
+    no error, the same steps and losses; every rank of an attempt on its
+    own card; B1-B3 launched 16 x the steps each rank's process took, on
+    every rank, and none here."""
+    import tempfile
+
+    import torch
+    import chip_smoke
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models.llama import LlamaConfig
+    cuda = device == "cuda"
+    root = tempfile.mkdtemp(prefix="chip_smoke_group_")
+    runs, records = {}, {}
+    try:
+        for name, killed in (("killed", True), ("whole", False)):
+            rec = os.path.join(root, f"records_{name}")
+            os.makedirs(rec)
+            config = dict(preset=preset, seq=seq, steps=ACTORS_STEPS, device=device,
+                          scratch=os.path.join(root, f"scratch_{name}"), records=rec,
+                          flag=os.path.join(root, "died") if killed else None)
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            runs[name] = train.TorchTrainer(
+                chip_smoke.group_fit_loop, train_loop_config=config, use_worker_actor=True,
+                scaling_config=train.ScalingConfig(num_workers=n, use_gpu=cuda),
+                run_config=train.RunConfig(
+                    name=name, storage_path=root,
+                    failure_config=train.FailureConfig(max_failures=1 if killed else 0))).fit()
+            runs[name + "_s"] = time.perf_counter() - t0
+            runs[name + "_here"] = launch_counts()
+            records[name] = [json.load(open(os.path.join(rec, f))) for f in sorted(os.listdir(rec))]
+        crash = json.load(open(os.path.join(root, "died")))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    killed, whole = runs["killed"], runs["whole"]
+    layers = getattr(LlamaConfig, preset)().n_layers
+    per = layers if cuda else 0
+    hist = lambda r: [(m["step"], m["loss"]) for m in r.metrics_history]
+    # the killed run's attempts: the processes that started at step 0, then
+    # those resumed from the checkpoint
+    attempts = {name: [[r for r in recs if r["start"] == s] for s in sorted({r["start"]
+                       for r in recs})] for name, recs in records.items()}
+    taken = lambda r: r["step"] - r["start"]
+    cards = lambda group: {r["binding"]["uuids"][0] if cuda else r["binding"]["pid"]
+                           for r in group}
+    second = [m for m in killed.metrics_history if m["start"] == ACTORS_SAVE_AT]
+    last = whole.metrics_history
+    ms_step = (last[-1]["t1"] - last[-2]["t0"]) / 2 * 1e3
+    out = dict(preset=preset, world=n, seq=seq, batch_per_card=1, steps=ACTORS_STEPS,
+               errors=[repr(killed.error), repr(whole.error)], history=hist(whole),
+               killed_history=hist(killed), fit_s=[runs["killed_s"], runs["whole_s"]],
+               ms_per_step=ms_step,
+               group_restart_s=second[0]["loop_start"] - crash["t"] if second else None,
+               group_restart_to_step_s=second[0]["t0"] - crash["t"] if second else None,
+               launches={k: [r["launches"] for r in v] for k, v in records.items()},
+               launches_here=[runs["killed_here"], runs["whole_here"]],
+               cards=[sorted(cards(a)) for a in attempts["killed"] + attempts["whole"]])
+    checks = {
+        "no error in either run": killed.error is None and whole.error is None,
+        f"steps 1-{ACTORS_STEPS} and losses of the restarted group equal the unkilled "
+        f"group's": hist(killed) == hist(whole)
+        and [s for s, _ in hist(whole)] == list(range(1, ACTORS_STEPS + 1)),
+        f"the killed run: two attempts, the second resumed from step {ACTORS_SAVE_AT}, "
+        f"{n} ranks each": [len(a) for a in attempts["killed"]] == [n, n]
+        and attempts["killed"][1][0]["start"] == ACTORS_SAVE_AT,
+        f"every rank of an attempt on a card of its own": all(
+            len(cards(a)) == len(a) for a in attempts["killed"] + attempts["whole"]),
+        f"B1-B3 launched {layers} x the steps each rank's process took, on every rank"
+        + ("" if cuda else " (0 on the CPU)"): all(
+            r["launches"][f] == per * taken(r) for recs in records.values() for r in recs
+            for f in FLASH_NAMES),
+        "no kernel launched here": not any(v for h in out["launches_here"]
+                                           for v in h.values()),
+    }
+    for what, ok in checks.items():
+        log(f"[cards actors] group {'ok  ' if ok else 'FAIL'} {what}")
+    for r in (killed, whole):
+        if r.error is not None:
+            log(f"[cards actors] group: a run's error: {str(r.error)[-4000:]}")
+    log(f"[cards actors] group: {preset} at {{'fsdp': {n}}} B=1 a card T={seq} in {n} "
+        f"TrainWorker actors: {ms_step:.1f} ms a step (unkilled run, steps "
+        f"{ACTORS_STEPS - 1}-{ACTORS_STEPS}); rank {ACTORS_FAIL_RANK} died at step "
+        f"{ACTORS_FAIL_AT}, the group restarted {out['group_restart_s'] or 0:.2f} s later "
+        f"(first step {out['group_restart_to_step_s'] or 0:.2f} s), resumed at step "
+        f"{ACTORS_SAVE_AT + 1}; fits {out['fit_s'][0]:.1f} s and {out['fit_s'][1]:.1f} s")
+    if not all(checks.values()):
+        raise AssertionError(f"actors group checks failed: "
+                             f"{[what for what, ok in checks.items() if not ok]}")
+    return out
+
+
+class StageFn:
+    """A pipeline stage's function for a stage actor: LlamaStage over a
+    Llama of the stage's blocks alone, built on the meta device at the
+    first call (the weights are the stage's params), so that the function
+    ships without weights."""
+
+    def __init__(self, preset, overrides, n_blocks, first, last):
+        self.args = (preset, dict(overrides), n_blocks, first, last)
+        self._stage = None
+
+    def __getstate__(self):
+        return {"args": self.args, "_stage": None}
+
+    def __call__(self, params, x):
+        if self._stage is None:
+            from ray_tpu_torch.models.llama import Llama, LlamaConfig
+            preset, overrides, n_blocks, first, last = self.args
+            cfg = getattr(LlamaConfig, preset)(**dict(overrides, n_layers=n_blocks))
+            self._stage = LlamaStage(Llama(cfg, device="meta"), 0, n_blocks, first, last)
+        return self._stage.fn(params, x)
+
+
+class HopProbe:
+    """One end of an activation's hop: receives a tensor through the
+    object store onto its card."""
+
+    def touch(self, x):
+        return [str(x.device), float(x.float().sum())]
+
+
+def pipeline_cards(n, device, preset, t, overrides=None, n_micro=8, lr=0.1):
+    """(b) build_pipeline: n PipelineStage actors with num_gpus=1 (stage i
+    on a card of its own), the preset in f32 cut into n stages by
+    LlamaStage (StageFn), one 1F1B train_step over n_micro microbatches of
+    B=1, T=t, sgd(lr). Held: the mean loss and every parameter after the
+    step against whole_step within PIPE_TOL (check_1f1b's tolerance), and
+    against run_1f1b in this process on the same cards; at most S + 1
+    live refs. Timed: a second step (ms), and the activation's hop
+    through the store (put of a CUDA activation here, get onto a card in
+    a num_gpus=1 actor)."""
+    import torch
+    import chip_smoke
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.models.convert import init_params
+    from ray_tpu_torch.models.llama import Llama, LlamaConfig
+    from ray_tpu_torch.train.mpmd import PipelineStage, build_pipeline, sgd
+    cuda = device == "cuda"
+    ov = dict(overrides or {}, dtype=torch.float32, param_dtype=torch.float32)
+    cfg = getattr(LlamaConfig, preset)(**ov)
+    devices = [torch.device("cuda", i) if cuda else torch.device("cpu") for i in range(n)]
+    model = init_params(Llama(cfg, device=devices[0]),
+                        torch.Generator(device=devices[0]).manual_seed(0))
+    split = llama_stages(model, n)
+    first = [s.params("cpu") for s in split]
+    per = cfg.n_layers // n
+    fns = [chip_smoke.StageFn(preset, ov, per, i == 0, i == n - 1) for i in range(n)]
+    mbs, tgts = pipeline_batch(cfg.vocab_size, n_micro, 1, t, [torch.device("cpu")])
+    t0 = time.perf_counter()
+    pipe = build_pipeline(fns, first, loss_fn=chip_smoke.ce_mean, optimizer=sgd(lr),
+                          actor_options={"num_gpus": 1}, device=device)
+    up_s = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        got = pipe.train_step(mbs, tgts)
+        first_s = time.perf_counter() - t0
+        params = [{k: v.to("cpu") for k, v in p.items()} for p in pipe.get_params()]
+        t0 = time.perf_counter()
+        second = pipe.train_step(mbs, tgts)
+        step_s = time.perf_counter() - t0
+        stage_pids = [rt.get(h.ping.remote(), timeout=60) for h in pipe.stages]
+    finally:
+        pipe.shutdown()
+    stages = [PipelineStage(i, n, s.fn, {k: v.to(dev) for k, v in p.items()},
+                            loss_fn=ce_mean if i == n - 1 else None, optimizer=sgd(lr),
+                            device=dev)
+              for i, (s, p, dev) in enumerate(zip(split, first, devices))]
+    losses, _ = run_1f1b(stages, [x.to(devices[0]) for x in mbs],
+                         [y.to(devices[-1]) for y in tgts])
+    inproc = [{k: v.to("cpu") for k, v in st.get_params().items()} for st in stages]
+    inproc_loss = float(sum(float(x) for x in losses)) / n_micro
+    del stages
+    want_losses = whole_step(model, [x.to(devices[0]) for x in mbs],
+                             [y.to(devices[0]) for y in tgts], lr)
+    want = float(sum(float(x) for x in want_losses)) / n_micro
+    ref = {k: v.detach().to("cpu") for k, v in model.named_parameters()}
+    param_err = max(rel_err(p[k], ref[s.names[k]]) for s, p in zip(split, params) for k in p)
+    inproc_err = max(rel_err(p[k], q[k]) for p, q in zip(params, inproc) for k in p)
+    bit_equal = all(torch.equal(p[k], q[k]) for p, q in zip(params, inproc) for k in p)
+    loss_err = abs(got["loss"] - want) / abs(want)
+    # an activation's hop: [1, t, d] f32 from this process's card to a stage's
+    act = torch.randn(1, t, cfg.d_model, generator=torch.Generator(device=devices[0])
+                      .manual_seed(1), device=devices[0])
+    probe = rt.remote(num_gpus=1)(HopProbe).remote()
+    rt.get(probe.touch.remote(rt.put(act)), timeout=120)          # the actor's start
+    hops = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        where, total = rt.get(probe.touch.remote(rt.put(act)), timeout=120)
+        hops.append((time.perf_counter() - t0) * 1e3)
+    rt.kill(probe)
+    del model
+    out = dict(preset=preset, stages=n, microbatches=n_micro, batch=1, seq=t, dtype="float32",
+               loss=got["loss"], whole_loss=want, inproc_loss=inproc_loss,
+               loss_rel_err=loss_err, params_rel_err=param_err, inproc_rel_err=inproc_err,
+               inproc_bit_equal=bit_equal, tol=PIPE_TOL, pipeline_up_s=up_s,
+               first_step_s=first_s, ms_per_step=step_s * 1e3,
+               peak_live_refs=got["stats"]["peak_live_refs"],
+               stash_depths=[x["stash_depth"] for x in second["stats"]["stages"]],
+               hop_bytes=act.numel() * 4, hop_ms=hops, hop_landed=where, stage_pings=stage_pids)
+    checks = {
+        f"loss against whole_step within {PIPE_TOL} ({loss_err:.2e})": loss_err <= PIPE_TOL,
+        f"params after the step against whole_step within {PIPE_TOL} ({param_err:.2e})":
+            param_err <= PIPE_TOL,
+        f"params against run_1f1b in this process on the same cards within {PIPE_TOL} "
+        f"({inproc_err:.2e}, bit-equal {bit_equal})": inproc_err <= PIPE_TOL,
+        f"peak live refs {out['peak_live_refs']} <= {n + 1}": out["peak_live_refs"] <= n + 1,
+        "every stash drained": out["stash_depths"] == [0] * n,
+    }
+    for what, ok in checks.items():
+        log(f"[cards actors] pipeline {'ok  ' if ok else 'FAIL'} {what}")
+    log(f"[cards actors] pipeline: {preset} f32 in {n} PipelineStage actors (num_gpus=1 each), "
+        f"1F1B over M={n_micro} of B=1 T={t}: up {up_s:.2f} s, first step {first_s:.2f} s, "
+        f"then {out['ms_per_step']:.1f} ms a step; peak live refs {out['peak_live_refs']}; an "
+        f"activation's hop ({out['hop_bytes']} bytes) {float(np.median(hops)):.2f} ms (median "
+        f"of 5, landed on {where})")
+    if not all(checks.values()):
+        raise AssertionError(f"actors pipeline checks failed: "
+                             f"{[what for what, ok in checks.items() if not ok]}")
+    return out
+
+
+def collective_inputs(world, seed=7):
+    """Rank r's blocks: integer floats (every summation order gives the
+    same sums) and positive ones for PRODUCT."""
+    rng = np.random.default_rng(seed + world)
+    return (rng.integers(-8, 9, (world, 2 * world, 3)).astype(np.float32),
+            rng.integers(1, 4, (world, 2 * world, 3)).astype(np.float32))
+
+
+class CollectiveMember:
+    """A member of (c)'s groups: joins through JAX's `_init_collective`
+    signature and runs every operation of a group."""
+
+    def _init_collective(self, world_size, rank, backend, group_name):
+        from ray_tpu_torch.parallel import collective as col
+        col.init_collective_group(world_size, rank, backend, group_name)
+        self.rank, self.world = rank, world_size
+        return True
+
+    def binding(self):
+        return card_binding()
+
+    def run(self, group, tensors):
+        """Every operation on this rank's blocks, results as numpy; the host
+        group takes numpy, the nccl group CUDA tensors."""
+        import torch
+        from ray_tpu_torch.parallel import collective as col
+        r, w = self.rank, self.world
+        x, pos = collective_inputs(w)
+        to = (lambda a: torch.from_numpy(a).cuda()) if tensors else np.asarray
+        back = lambda t: t.cpu().numpy() if tensors else np.asarray(t)
+        cat = lambda xs: back(xs) if tensors else np.concatenate([np.asarray(a) for a in xs])
+        out = {f"allreduce_{op}": back(col.allreduce(to(x[r]), group, op))
+               for op in ("sum", "max", "min")}
+        if not tensors:
+            out["allreduce_product"] = back(col.allreduce(pos[r], group, "product"))
+        out["allgather"] = cat(col.allgather(to(x[r]), group))
+        out["reducescatter"] = back(col.reducescatter(to(x[r]), group))
+        out["broadcast"] = back(col.broadcast(to(x[r]), 0, group))
+        out["reduce"] = back(col.reduce(to(x[r]), 1, group))
+        col.barrier(group)
+        out["alltoall"] = cat(col.alltoall(to(x[r]) if tensors else np.split(x[r], w), group))
+        like = to(x[r])
+        if r % 2 == 0:
+            col.send(to(x[r]), (r + 1) % w, group)
+            out["recv"] = back(col.recv(like, (r - 1) % w, group))
+        else:
+            out["recv"] = back(col.recv(like, (r - 1) % w, group))
+            col.send(to(x[r]), (r + 1) % w, group)
+        return out
+
+    def allreduce_ms(self, group, nbytes, iters=5):
+        """Host ms of an all-reduce of nbytes of f32 on the nccl group,
+        after two warm ones, each ended by a synchronize."""
+        import torch
+        from ray_tpu_torch.parallel import collective as col
+        t = torch.ones(nbytes // 4, device="cuda")
+        for _ in range(2):
+            col.allreduce(t, group)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(iters):
+            col.barrier(group)
+            t0 = time.perf_counter()
+            col.allreduce(t, group)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return times
+
+
+def collective_expected(world):
+    """The host rule (numpy over the ranks' blocks in rank order) for every
+    operation of CollectiveMember.run, rank by rank."""
+    x, pos = collective_inputs(world)
+    total = x.sum(0)
+    out = []
+    for r in range(world):
+        want = {"allreduce_sum": total, "allreduce_max": x.max(0), "allreduce_min": x.min(0),
+                "allreduce_product": pos.prod(0), "allgather": np.concatenate(list(x)),
+                "reducescatter": np.split(total, world)[r], "broadcast": x[0],
+                "reduce": total if r == 1 else x[r],
+                "alltoall": np.concatenate([np.split(x[j], world)[r] for j in range(world)]),
+                "recv": x[(r - 1) % world]}
+        out.append(want)
+    return out
+
+
+def collective_cards(n, device):
+    """(c) create_collective_group: n actors with num_gpus=1 join a "host"
+    group (the rendezvous actor's; made first, while no process group is
+    up in them) and then, on the card, an "nccl" group (rank 0's address
+    published through the group's rendezvous actor) through their
+    `_init_collective` methods. Every operation's result equals the host
+    rule on the same seeded blocks, rank by rank. Timed: the bus GB/s of
+    a 256 MiB all-reduce on the nccl group."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.parallel.collective import create_collective_group
+    cuda = device == "cuda"
+    members = [rt.remote(num_gpus=1)(CollectiveMember).remote() for _ in range(n)]
+    try:
+        bindings = rt.get([m.binding.remote() for m in members], timeout=300)
+        t0 = time.perf_counter()
+        create_collective_group(members, n, list(range(n)), backend="host", group_name="host_g")
+        host_up = time.perf_counter() - t0
+        got = {"host": rt.get([m.run.remote("host_g", False) for m in members], timeout=300)}
+        if cuda:
+            t0 = time.perf_counter()
+            create_collective_group(members, n, list(range(n)), backend="nccl",
+                                    group_name="nccl_g")
+            nccl_up = time.perf_counter() - t0
+            got["nccl"] = rt.get([m.run.remote("nccl_g", True) for m in members], timeout=300)
+            times = rt.get([m.allreduce_ms.remote("nccl_g", ALLREDUCE_BYTES)
+                            for m in members], timeout=300)
+    finally:
+        for m in members:
+            rt.kill(m)
+    want = collective_expected(n)
+    bad = [f"{g} rank {r} {k}" for g, outs in got.items() for r, o in enumerate(outs)
+           for k, v in o.items() if not np.array_equal(v, want[r][k])]
+    out = dict(host_up_s=host_up, bindings=bindings, groups=sorted(got), mismatches=bad)
+    if cuda:
+        ms = float(np.median([max(col) for col in zip(*times)]))
+        out.update(nccl_up_s=nccl_up, allreduce_ms=times, allreduce_bytes=ALLREDUCE_BYTES,
+                   allreduce_bus_gb_s=2 * (n - 1) / n * ALLREDUCE_BYTES / (ms / 1e3) / 1e9)
+    checks = {
+        f"every operation of the {'host and nccl groups' if cuda else 'host group'} equals the "
+        f"host rule on every rank ({len(bad)} mismatches)": not bad,
+        f"{n} members on {n} cards" if cuda else f"{n} members":
+            (len({b["uuids"][0] for b in bindings}) == n) if cuda else len(bindings) == n,
+    }
+    for what, ok in checks.items():
+        log(f"[cards actors] collective {'ok  ' if ok else 'FAIL'} {what}")
+    log(f"[cards actors] collective: host group up {host_up:.2f} s" + (
+        f", nccl group up {out['nccl_up_s']:.2f} s; a 256 MiB all-reduce {ms:.2f} ms = "
+        f"{out['allreduce_bus_gb_s']:.1f} GB/s bus (median of 5, slowest rank)" if cuda
+        else "; no nccl on the CPU"))
+    if not all(checks.values()):
+        raise AssertionError(f"actors collective checks failed: {bad}")
+    return out
+
+
+def run_actors_cards(n, device="cuda", presets=None):
+    """Group `actors` of `--cards n`: in one session of the port's runtime
+    that counts the n cards, (a) worker_group_cards, (b) pipeline_cards and
+    (c) collective_cards."""
+    import ray_tpu_torch as rt
+    presets = presets or {}
+    preset = presets.get("llama", "llama_1b")
+    t0 = time.perf_counter()
+    rt.init(num_cpus=4 * n, num_gpus=None if device == "cuda" else n)
+    try:
+        res = dict(group=worker_group_cards(n, device, preset, presets.get("group_seq", 2048)),
+                   pipeline=pipeline_cards(n, device, preset,
+                                           presets.get("pipe_seq", PIPE_SEQ),
+                                           presets.get("seqpipe_overrides")),
+                   collective=collective_cards(n, device))
+    finally:
+        workers, left = stop_runtime(rt)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[cards actors] {'ok  ' if not left else 'FAIL'} every worker exited after "
+        f"shutdown() ({workers} workers); the group took {res['seconds']:.1f} s")
+    if left:
+        raise AssertionError(f"actors: workers still running after shutdown(): {left}")
+    return res
+
+
 def main_cards(n, device="cuda", presets=None, max_tokens=32, phases=CARDS_PHASES):
     """`--cards n`: with "runtime", run_runtime_cards in this process; with
     "serve", run_serve_cards in this process (replicas of the port's runtime
-    on the cards); with "rl_dp", rl_dp_cards in a world of its own whose
+    on the cards); with "actors", run_actors_cards in this process (the
+    trainer's worker group, build_pipeline and create_collective_group over
+    GPU actors); with "rl_dp", rl_dp_cards in a world of its own whose
     ranks start as torchrun's do (_dp_rank); then one rank per card over
     NCCL, the phases of cards_phases; then, with "seqpipe", MPMD 1F1B in
     this process with stage i on card i
@@ -7403,11 +8293,18 @@ def main_cards(n, device="cuda", presets=None, max_tokens=32, phases=CARDS_PHASE
         raise RuntimeError(f"--cards {n} needs {n} visible cards, have "
                            f"{torch.cuda.device_count()}")
     t0 = time.perf_counter()
+    if device == "cuda" and {"actors", "seqpipe", "tp", "fsdp"} & set(phases):
+        from ray_tpu_torch.ops import _build
+        _build.build()      # once, before actors or ranks load it (rl_dp launches none)
     prior = {}
     if "runtime" in phases:
         prior["runtime"] = run_runtime_cards(n, device)
     if "serve" in phases:
         prior["serve"] = run_serve_cards(n, device, presets["llama"], max_tokens=16)
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / CARDS_OUT).write_text(json.dumps(prior, indent=1, default=str))
+    if "actors" in phases:
+        prior["actors"] = run_actors_cards(n, device, presets)
         OUT_DIR.mkdir(exist_ok=True)
         (OUT_DIR / CARDS_OUT).write_text(json.dumps(prior, indent=1, default=str))
     if "rl_dp" in phases:
@@ -7416,9 +8313,6 @@ def main_cards(n, device="cuda", presets=None, max_tokens=32, phases=CARDS_PHASE
         (OUT_DIR / CARDS_OUT).write_text(json.dumps(prior, indent=1, default=str))
     res = dict(prior, world=n)
     if {"seqpipe", "tp", "fsdp"} & set(phases):
-        if device == "cuda":
-            from ray_tpu_torch.ops import _build
-            _build.build()         # once, before the ranks load it (rl_dp launches none)
         ranks = spawn_ranks(_cards_rank, n, (device, presets, max_tokens, tuple(phases), prior))
         res = ranks[0]
     if "tp" in phases:
@@ -7541,6 +8435,7 @@ def main() -> int:
     runtime["init_s"] = session_init_s
     serve_app = run_serve_app(sequential)
     runtime["session_workers"] = close_session("session")
+    radix_visits = run_radix_visits(sequential)
     tiered = run_tiered()
 
     train = dict(grads=check_train_grads(), head_bf16=check_head_bf16(), **run_train())
@@ -7548,6 +8443,7 @@ def main() -> int:
     run_a = {}
     trainer = dict(run_trainer(keep=run_a), topology=topology, nccl=nccl)
     trainer["fit"] = run_train_fit(run_a)
+    trainer["fit_actor"] = run_train_fit_actor(run_a)
     del run_a
     trainer["ckpt_whole"] = run_ckpt_whole()
     mesh = run_mesh()
@@ -7566,6 +8462,7 @@ def main() -> int:
              "ckpt_whole": trainer["ckpt_whole"]["launches"],
              "train": train["launches"], "train_resume": trainer["launches"],
              "train_fit": trainer["fit"]["launches"],
+             "train_fit_actor": trainer["fit_actor"]["launches"],
              "serve_tp": mesh["launches"], "train_mesh": train_mesh["launches"],
              "ring": seqpipe["launches"]["ring"],
              "pipeline": seqpipe["launches"]["pipeline"], **rl["launches"]}
@@ -7606,6 +8503,7 @@ def main() -> int:
         flash_timing=list(flash_t.values()), train_kernel_timing=train_t,
         paged_timing=paged_t, paged_timing_long=paged_long, paged_plans=paged_plans,
         slice=summary, moe=moe, replica=replica, pd=pd, runtime=runtime, serve_app=serve_app,
+        radix_visits=radix_visits,
         tiered=tiered,
         train=train,
         trainer=trainer, mesh=mesh, train_mesh=train_mesh, seqpipe=seqpipe, rl=rl,

@@ -2128,7 +2128,11 @@ class Controller:
                 actor.state = A_ALIVE
                 actor.worker_id = w.worker_id
         self._release_task_resources(rec)
-        self._unpin(rec)
+        if not (spec.is_actor_creation and actor is not None and actor.state != A_DEAD
+                and actor.options is not None and actor.options.max_restarts != 0):
+            # a restartable actor's creation arguments stay pinned: a restart
+            # runs the creation spec again (released at its final death)
+            self._unpin(rec)
         self._schedule()
         if actor is not None and actor.pending_gc:
             self._maybe_gc_actor(actor)
@@ -3509,6 +3513,8 @@ class Controller:
             crec = self.tasks.get(actor.creation_spec.task_id)
             if crec is not None and crec.state not in (DONE, FAILED, CANCELLED):
                 self._fail_task(crec, err)
+            elif crec is not None:
+                self._unpin(crec)       # the arguments kept for restarts
             # final death: the creation record (exempt from normal GC while the
             # actor lived — restart paths index it) can now be pruned
             self._done_task_ids.append(actor.creation_spec.task_id)

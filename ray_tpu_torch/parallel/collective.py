@@ -1,10 +1,10 @@
-"""Collective communication over `torch.distributed`: the port's counterpart
-of `ray_tpu/parallel/collective.py` (reference: ray.util.collective).
+"""Collective communication over `torch.distributed` or the port's
+runtime: the port's counterpart of `ray_tpu/parallel/collective.py`
+(reference: ray.util.collective).
 
 - backend="host": numpy in, numpy out, per rank, with `HostGroup`'s
   semantics (every reduction, PRODUCT included, is numpy's over the ranks'
-  arrays in rank order). It runs over a gloo group in place of the
-  rendezvous actor.
+  arrays in rank order).
 - backend="nccl": the GPU path over the whole world. CUDA tensors in,
   CUDA tensors out, per rank, with the operations and block conventions
   of `XlaGroup`: allreduce SUM, MAX and MIN; reducescatter SUM over the
@@ -19,17 +19,29 @@ of `ray_tpu/parallel/collective.py` (reference: ray.util.collective).
   index on the axis. Results are JAX's per rank: reduce gives every rank
   the reduced tensor, as JAX's does, and send/recv raise JAX's error.
 
-Groups are made with `torch.distributed.new_group`, which every rank of
-the default process group must call, in the same order: a group spans the
-whole default world, and `rank` is the process's rank in it. With no
-default process group, `init_collective_group` starts one: in memory for
-a group of one, else from `MASTER_ADDR`/`MASTER_PORT`
-(`parallel.distributed.initialize_multihost`).
+Which path `init_collective_group` takes for "host" and "nccl":
+1. A default process group is up (torchrun, `spawn_ranks`, a
+   `TrainWorker` that joined its world): the group is made with
+   `torch.distributed.new_group` over that world, gloo for "host"
+   (`GlooHostGroup`) and NCCL for "nccl" (`TensorGroup`). Every rank of
+   the world must call it, in the same order, and `rank` is the process's
+   rank in the world.
+2. Else, in a process of the port's runtime (a driver after `init`, or a
+   worker): "host" is JAX's rendezvous group (`HostGroup`), a keyed
+   barrier in the named async actor `_rtpt_collective_<group_name>`
+   (`_RendezvousActor`) with the payloads of the routing operations
+   through the object store. "nccl" uses the same named actor once: rank
+   0 publishes a free `tcp://host:port` there, every rank starts the
+   default NCCL world from it, and the group is case 1's over that world.
+   This is what `create_collective_group` reaches through each actor's
+   `_init_collective(world_size, rank, backend, group_name)`, JAX's
+   signature, which carries no address.
+3. Else: the module starts the default world itself, in memory for a
+   group of one, else from `MASTER_ADDR`/`MASTER_PORT`
+   (`parallel.distributed.initialize_multihost`), and goes on as case 1.
 
 A send to this rank itself is kept in the group's mailbox and returned by
 the next recv from this rank, as the reference's rendezvous mailbox does.
-`create_collective_group` tells actors to join a group, so it stays with
-`ray_tpu`'s runtime.
 """
 
 import collections
@@ -40,23 +52,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ray_tpu_torch._private.rendezvous import _NUMPY_REDUCE, ReduceOp, _RendezvousActor
 from ray_tpu_torch.device import resolve_device
-from ray_tpu_torch.parallel.distributed import backend_for, initialize_multihost
-
-
-class ReduceOp:
-    SUM = "sum"
-    PRODUCT = "product"
-    MAX = "max"
-    MIN = "min"
-
-
-_NUMPY_REDUCE = {
-    ReduceOp.SUM: lambda xs: np.sum(xs, axis=0),
-    ReduceOp.PRODUCT: lambda xs: np.prod(xs, axis=0),
-    ReduceOp.MAX: lambda xs: np.max(xs, axis=0),
-    ReduceOp.MIN: lambda xs: np.min(xs, axis=0),
-}
+from ray_tpu_torch.parallel.distributed import (backend_for, coordinator_endpoint,
+                                                initialize_multihost)
 
 _TORCH_REDUCE = {ReduceOp.SUM: dist.ReduceOp.SUM, ReduceOp.MAX: dist.ReduceOp.MAX,
                  ReduceOp.MIN: dist.ReduceOp.MIN}
@@ -77,7 +76,7 @@ class BaseGroup:
         self._mailbox = collections.deque()   # sends to this rank itself
 
 
-class HostGroup(BaseGroup):
+class GlooHostGroup(BaseGroup):
     """numpy arrays over a gloo group, with HostGroup's per-rank results."""
 
     def _gather(self, obj) -> List:
@@ -125,6 +124,118 @@ class HostGroup(BaseGroup):
         box = [None]
         dist.recv_object_list(box, src=src_rank, group=self.pg)
         return box[0]
+
+
+# ---------------------------------------------------------------------------
+# host backend in the port's runtime: the rendezvous actor (JAX's)
+# ---------------------------------------------------------------------------
+
+def _rendezvous_name(group_name: str) -> str:
+    return f"_rtpt_collective_{group_name}"
+
+
+def _rendezvous(world_size: int, group_name: str):
+    """The group's named rendezvous actor: found, or made by the first
+    rank to get here (a rank that loses the name race finds the winner's)."""
+    import ray_tpu_torch as rt
+    name = _rendezvous_name(group_name)
+    try:
+        return rt.get_actor(name)
+    except ValueError:
+        # the actor's process imports numpy only (`_private/rendezvous.py`)
+        Actor = rt.remote(_RendezvousActor)
+        try:
+            return Actor.options(name=name, max_concurrency=max(world_size * 4, 8)).remote(
+                world_size)
+        except Exception:  # noqa: BLE001 - lost the name race to a peer
+            return rt.get_actor(name)
+
+
+class HostGroup(BaseGroup):
+    """JAX's host group in the port's runtime: each collective is a keyed
+    barrier in the group's `_RendezvousActor`. Reductions go through the
+    actor; allgather, broadcast, alltoall and send/recv pass it only an
+    object-store ref, and each rank fetches the payload itself."""
+
+    def __init__(self, world_size, rank, group_name):
+        super().__init__(world_size, rank, group_name, None)
+        self.rdv = _rendezvous(world_size, group_name)
+        # Collective seq must advance in lockstep on every rank, so p2p
+        # send/recv keeps its own per-pair counters: a rank that only
+        # takes part in sends must not desync the collective keys.
+        self.seq = 0
+        self._p2p_seq: Dict[tuple, int] = {}
+
+    def _key(self, kind):
+        self.seq += 1
+        return f"{kind}:{self.seq}"
+
+    def _p2p_key(self, src, dst):
+        n = self._p2p_seq.get((src, dst), 0) + 1
+        self._p2p_seq[(src, dst)] = n
+        return (src, dst, n)
+
+    def _run(self, kind, data, op=ReduceOp.SUM):
+        import ray_tpu_torch as rt
+        return rt.get(self.rdv.collective.remote(self._key(kind), self.rank, data, op, kind))
+
+    @staticmethod
+    def _pack(x):
+        import ray_tpu_torch as rt
+        return {"__rtpt_ref__": rt.put(x)}
+
+    @staticmethod
+    def _is_packed(x) -> bool:
+        return isinstance(x, dict) and "__rtpt_ref__" in x
+
+    @classmethod
+    def _unpack(cls, x):
+        import ray_tpu_torch as rt
+        return rt.get(x["__rtpt_ref__"]) if cls._is_packed(x) else x
+
+    @classmethod
+    def _unpack_all(cls, xs):
+        """One get for every envelope, so the pulls overlap."""
+        import ray_tpu_torch as rt
+        refs = [x["__rtpt_ref__"] for x in xs if cls._is_packed(x)]
+        fetched = iter(rt.get(refs)) if refs else iter(())
+        return [next(fetched) if cls._is_packed(x) else x for x in xs]
+
+    def allreduce(self, t, op=ReduceOp.SUM):
+        return self._run("allreduce", np.asarray(t), op)
+
+    def allgather(self, t):
+        return self._unpack_all(self._run("allgather", self._pack(np.asarray(t))))
+
+    def reducescatter(self, t, op=ReduceOp.SUM):
+        return self._run("reducescatter", np.asarray(t), op)
+
+    def broadcast(self, t, src_rank=0):
+        data = self._pack(np.asarray(t)) if self.rank == src_rank else None
+        return self._unpack(self._run("broadcast", data))
+
+    def reduce(self, t, dst_rank=0, op=ReduceOp.SUM):
+        out = self._run("reduce", np.asarray(t), op)
+        return out if self.rank == dst_rank else t
+
+    def barrier(self):
+        self._run("barrier", 0)
+
+    def alltoall(self, chunks: List):
+        # each chunk is put separately, so every destination pulls only its
+        # own chunk from the source's store
+        return self._unpack_all(self._run("alltoall",
+                                          [self._pack(np.asarray(c)) for c in chunks]))
+
+    def send(self, t, dst_rank: int):
+        import ray_tpu_torch as rt
+        key = self._p2p_key(self.rank, dst_rank)
+        rt.get(self.rdv.send.remote(key, self._pack(np.asarray(t))))
+
+    def recv(self, src_rank: int, like=None):
+        import ray_tpu_torch as rt
+        key = self._p2p_key(src_rank, self.rank)
+        return self._unpack(rt.get(self.rdv.recv.remote(key)))
 
 
 class TensorGroup(BaseGroup):
@@ -270,13 +381,35 @@ def _process_group(world_size: int, rank: int, backend: str):
     return dist.new_group(ranks=list(range(world_size)), backend=backend)
 
 
+def _in_runtime() -> bool:
+    """This process is a driver or a worker of the port's runtime."""
+    from ray_tpu_torch._private import state
+    return state.global_client_or_none() is not None
+
+
+def _nccl_world_through_rendezvous(world_size: int, rank: int, group_name: str):
+    """Start the default NCCL world of a group of runtime actors: rank 0
+    publishes a free address through the group's rendezvous actor and every
+    rank joins the world there."""
+    global _owned_world
+    import ray_tpu_torch as rt
+    resolve_device("cuda")            # raises when no card is visible
+    rdv = _rendezvous(world_size, group_name)
+    addr = coordinator_endpoint() if rank == 0 else None
+    addr = rt.get(rdv.collective.remote("nccl_address", rank, addr, ReduceOp.SUM,
+                                        "broadcast"))
+    dist.init_process_group("nccl", init_method=f"tcp://{addr}", world_size=world_size,
+                            rank=rank)
+    _owned_world = True
+
+
 def init_collective_group(world_size: int, rank: int, backend: str = "host",
                           group_name: str = "default", mesh=None, axis: str = "dp"):
-    """Join group `group_name` as `rank` of `world_size`. backend="xla"
-    makes the group axis `axis` of `mesh` (`make_mesh({axis: world_size})`
-    over the default world when mesh is None); the other backends span the
-    whole default world, and ignore `mesh` and `axis`, as JAX's host
-    backend does."""
+    """Join group `group_name` as `rank` of `world_size` (the module note
+    says which path each backend takes). backend="xla" makes the group
+    axis `axis` of `mesh` (`make_mesh({axis: world_size})` over the
+    default world when mesh is None); the other backends ignore `mesh`
+    and `axis`, as JAX's host backend does."""
     if backend not in ("host", "nccl", "xla"):
         raise ValueError(f"unknown backend '{backend}' (host|nccl|xla)")
     with _lock:
@@ -287,16 +420,31 @@ def init_collective_group(world_size: int, rank: int, backend: str = "host",
                 from ray_tpu_torch.parallel.mesh import make_mesh
                 mesh = make_mesh({axis: world_size})
             g = XlaGroup(mesh, axis, group_name)
-            _groups[group_name] = g
-            return g
-        pg = _process_group(world_size, rank, "gloo" if backend == "host" else "nccl")
-        if backend == "host":
-            g = HostGroup(world_size, rank, group_name, pg)
+        elif backend == "host" and not dist.is_initialized() and _in_runtime():
+            g = HostGroup(world_size, rank, group_name)
         else:
-            g = TensorGroup(world_size, rank, group_name, pg,
-                            torch.device("cuda", torch.cuda.current_device()))
+            if backend == "nccl" and not dist.is_initialized() and _in_runtime():
+                _nccl_world_through_rendezvous(world_size, rank, group_name)
+            pg = _process_group(world_size, rank, "gloo" if backend == "host" else "nccl")
+            if backend == "host":
+                g = GlooHostGroup(world_size, rank, group_name, pg)
+            else:
+                g = TensorGroup(world_size, rank, group_name, pg,
+                                torch.device("cuda", torch.cuda.current_device()))
         _groups[group_name] = g
         return g
+
+
+def create_collective_group(actors, world_size: int, ranks: List[int],
+                            backend: str = "host", group_name: str = "default"):
+    """Driver-side declaration (ref: collective.py:create_collective_group):
+    tells each actor of the port's runtime to init its member view of the
+    group through its `_init_collective(world_size, rank, backend,
+    group_name)` method, and waits until every member has joined."""
+    import ray_tpu_torch as rt
+    refs = [a._init_collective.remote(world_size, r, backend, group_name)
+            for a, r in zip(actors, ranks)]
+    rt.get(refs)
 
 
 def is_group_initialized(group_name: str = "default") -> bool:
@@ -311,8 +459,8 @@ def destroy_collective_group(group_name: str = "default"):
         g = _groups.pop(group_name, None)
         if g is None:
             return
-        if isinstance(g, XlaGroup):
-            return                      # the axis's process group is the mesh's
+        if isinstance(g, (XlaGroup, HostGroup)):
+            return      # the mesh's process group, or none (the rendezvous actor's group)
         dist.destroy_process_group(g.pg)
         if _owned_world and not _groups:
             dist.destroy_process_group()

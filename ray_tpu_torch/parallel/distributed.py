@@ -12,6 +12,8 @@ Usage on every process of the job:
 """
 
 import os
+import socket
+import sys
 from typing import Optional
 
 import torch
@@ -63,6 +65,31 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
                             world_size=num_processes, rank=process_id)
     _initialized = True
     return True
+
+
+def coordinator_endpoint() -> str:
+    """Where rank 0's process-group store will listen, as `host:port`.
+    Host: `RAY_TPU_COORD_HOST`, else this host's name if it resolves, else
+    127.0.0.1 (correct on one machine only, so it says so). Port: a free
+    port the kernel picks."""
+    host = os.environ.get("RAY_TPU_COORD_HOST")
+    if not host:
+        host = socket.gethostname()
+        try:
+            socket.getaddrinfo(host, None)
+        except OSError:
+            print(f"[distributed] hostname {host!r} does not resolve; advertising "
+                  f"127.0.0.1 as the process-group coordinator. Multi-node "
+                  f"runs need resolvable hostnames or RAY_TPU_COORD_HOST.",
+                  file=sys.stderr)
+            host = "127.0.0.1"
+    # bind-close-reuse is a benign race: the store binds the port again
+    # within milliseconds, and a collision fails the group's start loudly
+    s = socket.socket()
+    s.bind(("", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return f"{host}:{port}"
 
 
 def process_index() -> int:

@@ -6,25 +6,28 @@ unrolls CartPole on the card; the learners run each update on their
 device ("cuda" by default). Ported: PPO (with its multi-agent mode),
 IMPALA, APPO, DQN, SAC, TQC, BC, MARWIL, CQL, IQL and DreamerV3, the
 replay buffers, and the data-parallel learner group (`num_learners > 1`:
-one rank a learner, `learner.py`). Sebulba's actors are not (ROADMAP.md
-§A). gymnasium is imported only where an env is made.
+one rank a learner, `learner.py`), and the sebulba pipeline on the
+port's runtime (`SebulbaPipeline`, `RolloutActor`, `ReplayActor`). Remote
+env runners and evaluation actors are not yet (ROADMAP.md §A, item 5).
+gymnasium is imported only where an env is made.
 """
 
 from .algorithm import Algorithm, AlgorithmConfig
 from .algorithms import (APPO, APPOConfig, BC, BCConfig, CQL, CQLConfig, DQN, DQNConfig,
                          DreamerV3, DreamerV3Config, IMPALA, IMPALAConfig, IQL, IQLConfig,
                          MARWIL, MARWILConfig, PPO, PPOConfig, SAC, SACConfig, TQC, TQCConfig)
-from .buffers import PrioritizedReplayBuffer, ReplayBuffer
+from .buffers import PrioritizedReplayBuffer, ReplayActor, ReplayBuffer
 from .env_runner import EnvRunner
 from .learner import LearnerGroup, TorchLearner, make_learner_group
 from .rl_module import ModuleSpec, PolicyValueNet, RLModule
 from .sample_batch import SampleBatch
-from .sebulba import DeviceRollout, TorchCartPole
+from .sebulba import DeviceRollout, RolloutActor, SebulbaPipeline, TorchCartPole
 
 __all__ = [
     "Algorithm", "AlgorithmConfig", "EnvRunner", "TorchLearner", "LearnerGroup",
     "make_learner_group", "ModuleSpec", "PolicyValueNet", "RLModule", "SampleBatch",
-    "ReplayBuffer", "PrioritizedReplayBuffer", "DeviceRollout", "TorchCartPole",
+    "ReplayBuffer", "PrioritizedReplayBuffer", "ReplayActor", "SebulbaPipeline",
+    "RolloutActor", "DeviceRollout", "TorchCartPole",
     "PPO", "PPOConfig", "APPO", "APPOConfig", "DQN", "DQNConfig", "IMPALA", "IMPALAConfig",
     "SAC", "SACConfig", "BC", "BCConfig", "MARWIL", "MARWILConfig", "CQL", "CQLConfig",
     "IQL", "IQLConfig", "TQC", "TQCConfig", "DreamerV3", "DreamerV3Config",

@@ -8,16 +8,14 @@ on the learner's device, `config.resources(device=...)`, "cuda" by
 default. JAX's `.resources(**_)` accepts that keyword and ignores it, so
 one builder chain configures both packages.
 
-Remote env runners (`num_env_runners > 0`), evaluation actors and the
-sebulba pipeline schedule actors: they are not ported onto the port's
-runtime yet (ROADMAP queue A, items 4 and 5), so they raise
-`NotImplementedError` here. The port's `EnvRunner` and `RolloutActor` are
-plain objects that a runtime's `remote` makes actors. The pipeline is composed instead: build
-the algorithm with `.sebulba(enabled=False, ...)` and its `sebulba_*`
-fields set, and hand it to `ray_tpu.rllib.sebulba.SebulbaPipeline`,
-which reads the hooks JAX's reads (`_supports_sebulba`,
-`_make_runner_kwargs`, `_sebulba_update`, `get_weights`,
-`learner.jit_cache_size`).
+`.sebulba(enabled=True)` runs the iterations through
+`sebulba.SebulbaPipeline` on the port's runtime (rollout actors and a
+replay actor, the learner here), as JAX's does; it reads the hooks JAX's
+reads (`_supports_sebulba`, `_make_runner_kwargs`, `_sebulba_update`,
+`get_weights`, `learner.jit_cache_size`). Remote env runners
+(`num_env_runners > 0`) and evaluation actors are not ported onto the
+port's runtime yet (ROADMAP queue A, item 5), so they raise
+`NotImplementedError` here.
 """
 
 import copy
@@ -31,7 +29,7 @@ from .env_runner import EnvRunner, host_env_runner, resolve_env_creator
 from .sample_batch import SampleBatch
 
 _RUNTIME = ("runs actors: it is not ported onto ray_tpu_torch's runtime yet (ROADMAP "
-            "queue A, items 4 and 5)")
+            "queue A, item 5)")
 
 
 class AlgorithmConfig:
@@ -71,7 +69,7 @@ class AlgorithmConfig:
         self.evaluation_duration = 5
         self.evaluation_num_env_runners = 0
         self.evaluation_parallel_to_training = False
-        # sebulba pipeline (composed, not built; see the module note)
+        # sebulba pipeline
         self.sebulba_enabled = False
         self.sebulba_num_rollout_actors = 2
         self.sebulba_inflight_rollouts = 2
@@ -222,8 +220,6 @@ class Algorithm:
     """Iteration driver: `train()` = collect -> learn -> metrics."""
 
     def __init__(self, config: AlgorithmConfig):
-        if config.sebulba_enabled:
-            raise NotImplementedError(f"the sebulba pipeline {_RUNTIME}")
         if config.num_env_runners > 0:
             raise NotImplementedError(f"num_env_runners > 0 {_RUNTIME}")
         if config.evaluation_interval and config.evaluation_num_env_runners > 0:
@@ -235,6 +231,10 @@ class Algorithm:
         self._local_runner: Optional[EnvRunner] = None
         self._local_eval_runner: Optional[EnvRunner] = None
         self.setup(config)
+        self._sebulba = None
+        if config.sebulba_enabled:
+            from .sebulba import SebulbaPipeline
+            self._sebulba = SebulbaPipeline(self, config)
 
     # -- runner --------------------------------------------------------------
     def _make_runner_kwargs(self) -> Dict[str, Any]:
@@ -242,7 +242,12 @@ class Algorithm:
         `device`, where a device-resident rollout (`sebulba.RolloutActor`
         on a device env) runs."""
         cfg = self.config
-        return dict(env_creator=resolve_env_creator(cfg.env, cfg.env_config),
+        env = cfg.env
+        if isinstance(env, str):
+            # resolve a registered name here, in the driver: a remote
+            # runner's process has its own registry
+            env = resolve_env_creator(env, cfg.env_config)
+        return dict(env_creator=env,
                     num_envs=cfg.num_envs_per_env_runner,
                     rollout_len=cfg.rollout_fragment_length,
                     explore=cfg.explore, seed=cfg.seed, gamma=cfg.gamma,
@@ -276,7 +281,8 @@ class Algorithm:
     def train(self) -> Dict[str, Any]:
         t0 = time.perf_counter()
         self._env_steps_iter = 0
-        result = self.training_step()
+        result = (self._sebulba.training_step() if self._sebulba is not None
+                  else self.training_step())
         self.iteration += 1
         result.setdefault("training_iteration", self.iteration)
         # env-step accounting (ref: num_env_steps_sampled_* in result dicts)
@@ -334,6 +340,9 @@ class Algorithm:
         self.set_state(ckpt.to_state())
 
     def stop(self):
+        if self._sebulba is not None:
+            self._sebulba.shutdown()
+            self._sebulba = None
         for runner in (self._local_runner, self._local_eval_runner):
             if runner is not None:
                 runner.close()

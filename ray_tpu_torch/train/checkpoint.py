@@ -129,12 +129,15 @@ def _mesh_layout(mesh) -> Dict[str, int]:
 
 def _mesh_barrier(mesh) -> None:
     """Every rank of the mesh has reached this point (an all-reduce over
-    each axis, on the mesh's device)."""
+    each axis, on the mesh's device), waited for on the host: NCCL returns
+    from the call once the reduction is queued, and rank 0 must not copy
+    a checkpoint directory while another rank is still writing its shard."""
     import torch.distributed as dist
     dev = "cpu" if mesh.device_type == "cpu" else torch.cuda.current_device()
     flag = torch.ones((), device=dev)
     for axis in mesh.mesh_dim_names:
         dist.all_reduce(flag, group=mesh.get_group(axis))
+    flag.item()
 
 
 def _spec_json(tree):

@@ -1,5 +1,6 @@
-"""One stage of an MPMD pipeline: the port's counterpart of
-`ray_tpu/train/mpmd.py`'s `PipelineStage`, `sgd` and the 1F1B plan.
+"""MPMD pipeline-parallel training over the port's actors: the
+counterpart of `ray_tpu/train/mpmd.py`'s `PipelineStage`, `sgd`, the 1F1B
+plan, `MPMDPipeline` and `build_pipeline`.
 
 A `PipelineStage` owns its stage's parameters on its device, a forward
 and a backward program and its optimizer state. A runner sends it each
@@ -16,12 +17,15 @@ parameters and the input. A loss-owning last stage differentiates its
 loss, with no gradient from upstream. The gradients accumulate over the
 microbatches and `apply_grads` divides them by M.
 
+`build_pipeline` makes one `PipelineStage` actor of the port's runtime a
+stage and `MPMDPipeline` drives them: activations and gradients travel
+as object refs through the store, and each op carries the previous op of
+its stage as an `after` token, so the scheduler runs every stage's ops in
+1F1B order.
+
 Where the port differs from JAX's module:
-- `MPMDPipeline` and `build_pipeline` schedule `ray_tpu` actors: they are
-  runtime code, which the port does not import. A runner that composes
-  `ray_tpu.train.mpmd.MPMDPipeline` with actors of this class gets JAX's
-  schedule (the tests do so).
-- A stage takes an explicit `device` ("cuda" by default); its ops run
+- A stage takes an explicit `device` ("cuda" by default, and
+  `build_pipeline(device=...)` passes it on); its ops run
   under that device, and `forward` and `backward` move their inputs to
   it. They do not wait for the device. Driven from one host thread, four
   llama_1b stages on four cards at B=1 barely overlapped: each card was
@@ -44,7 +48,8 @@ Where the port differs from JAX's module:
 import contextlib
 import os
 import time
-from typing import Any, Callable, Dict, List, Optional
+from collections import deque
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 from torch.utils import _pytree as pytree
@@ -52,7 +57,7 @@ from torch.utils import _pytree as pytree
 from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.util import tracing
 
-__all__ = ["PipelineStage", "sgd"]
+__all__ = ["PipelineStage", "sgd", "MPMDPipeline", "build_pipeline"]
 
 
 class _SGD:
@@ -246,3 +251,193 @@ def _one_f_one_b_plan(stage_index: int, num_stages: int,
         ops.append(("B", k))
     ops.extend(("B", m) for m in range(M - w, M))
     return ops
+
+
+class MPMDPipeline:
+    """Driver-side runner over S `PipelineStage` actors.
+
+    Build with ``build_pipeline``. ``train_step`` runs one 1F1B
+    step; ``run_forward`` is the inference/parity path (same math as
+    SPMD ``pipeline_apply``)."""
+
+    def __init__(self, stages: Sequence, num_microbatches: Optional[int],
+                 node_ids: Sequence[Optional[str]]):
+        import ray_tpu_torch
+        self._rt = ray_tpu_torch
+        self.stages = list(stages)
+        self.num_stages = len(self.stages)
+        self.num_microbatches = num_microbatches
+        self.node_ids = list(node_ids)
+        self.last_stats: Dict[str, Any] = {}
+
+    # ------------------------------------------------------------- forward
+    def run_forward(self, microbatches) -> list:
+        """Chain every microbatch through all stages (GPipe forward
+        order); returns last-stage outputs. Intermediate refs are
+        released as soon as their consumer is submitted."""
+        rt = self._rt
+        outs = []
+        for m, x in enumerate(microbatches):
+            ref = rt.put(x)
+            for h in self.stages:
+                nxt = h.forward.remote(m, ref, stash=False)
+                del ref  # consumer pin keeps it alive until used
+                ref = nxt
+            outs.append(ref)
+        vals = rt.get(outs)
+        del outs
+        return vals
+
+    # ---------------------------------------------------------------- train
+    def train_step(self, microbatches, targets) -> dict:
+        """One 1F1B training step over M microbatches.
+
+        Submission: repeatedly scan the stages round-robin, submitting
+        each stage's next planned op once its input ref exists (the
+        activation for a forward, the upstream grad for a backward).
+        Execution order per actor is dep-readiness order, not submission
+        order (a dep-free task would jump a dep-waiting one), so every
+        op also carries the previous same-stage op's output ref as an
+        ``after`` token: readiness itself then serializes each stage in
+        exactly the 1F1B order, deadlock-free by construction, and
+        ``apply_grads`` (gated on the last backward's ref) cannot
+        overtake the drain. Activation and grad refs are dropped the
+        moment their consumer is submitted, bounding live microbatch
+        objects to ~S.
+        """
+        rt = self._rt
+        S = self.num_stages
+        M = len(microbatches)
+        if targets is None:
+            raise ValueError("train_step needs targets (and the pipeline a "
+                             "loss_fn); use run_forward for inference")
+        if len(targets) != M:
+            raise ValueError(
+                f"got {M} microbatches but {len(targets)} targets")
+        plans = [deque(_one_f_one_b_plan(i, S, M)) for i in range(S)]
+        acts: Dict[tuple, Any] = {}    # (stage, mb) -> activation-out ref
+        grads: Dict[tuple, Any] = {}   # (stage, mb) -> input-grad ref
+        tokens: List[Any] = [None] * S  # last submitted op's ref per stage
+        losses: List[Any] = []
+        peak_live = 0
+        submitted = 0
+        while any(plans):
+            progressed = False
+            for i, plan in enumerate(plans):
+                if not plan:
+                    continue
+                h = self.stages[i]
+                kind, m = plan[0]
+                if kind == "F":
+                    if i == 0:
+                        src = rt.put(microbatches[m])
+                    else:
+                        src = acts.pop((i - 1, m), None)
+                        if src is None:
+                            continue  # producer not submitted yet
+                    if i == S - 1:
+                        tref = rt.put(targets[m])
+                        ref = h.forward.remote(m, src, tref, after=tokens[i])
+                        del tref
+                    else:
+                        ref = h.forward.remote(m, src, after=tokens[i])
+                    del src  # the submitted task's pin owns it now
+                    if i == S - 1:
+                        losses.append(ref)
+                    else:
+                        acts[(i, m)] = ref
+                else:  # "B"
+                    if i == S - 1:
+                        ref = h.backward.remote(m, after=tokens[i])
+                    else:
+                        g = grads.pop((i + 1, m), None)
+                        if g is None:
+                            continue
+                        ref = h.backward.remote(m, g, after=tokens[i])
+                        del g
+                    if i != 0:  # dx at stage 0 is None; only the token holds it
+                        grads[(i, m)] = ref
+                tokens[i] = ref
+                del ref
+                plan.popleft()
+                submitted += 1
+                progressed = True
+                peak_live = max(peak_live, len(acts) + len(grads))
+            if not progressed:
+                raise RuntimeError(
+                    "1F1B schedule deadlock (bug): "
+                    + repr([list(p)[:3] for p in plans]))
+        # each apply_grads is gated on its stage's last backward via the
+        # token; the get is the step barrier.
+        apply_refs = [h.apply_grads.remote(M, after=tokens[i])
+                      for i, h in enumerate(self.stages)]
+        del tokens[:]
+        stage_stats = rt.get(apply_refs)
+        del apply_refs
+        loss_vals = rt.get(losses)
+        del losses
+        mean_loss = float(sum(float(v) for v in loss_vals) / max(M, 1))
+        self.last_stats = {
+            "peak_live_refs": peak_live, "ops_submitted": submitted,
+            "stages": stage_stats,
+            "warmup_depths": [min(S - 1 - i, M) for i in range(S)]}
+        return {"loss": mean_loss,
+                "per_microbatch_loss": [float(v) for v in loss_vals],
+                "stats": self.last_stats}
+
+    # ------------------------------------------------------------- plumbing
+    def stage_stats(self) -> list:
+        return self._rt.get([h.stats.remote() for h in self.stages])
+
+    def get_params(self) -> list:
+        return self._rt.get([h.get_params.remote() for h in self.stages])
+
+    def shutdown(self) -> None:
+        """Release the actor handles; actor GC tears the stages down."""
+        stages, self.stages = self.stages, []
+        del stages
+
+
+def build_pipeline(stage_fns: Sequence[Callable], stage_params: Sequence,
+                   *, loss_fn: Optional[Callable] = None, optimizer=None,
+                   node_ids: Optional[Sequence[str]] = None,
+                   actor_options: Optional[dict] = None,
+                   device="cuda") -> MPMDPipeline:
+    """Create one `PipelineStage` actor of the port's runtime per stage and
+    wire the runner.
+
+    Placement: stage i gets ``NodeAffinitySchedulingStrategy(node_ids[i],
+    soft=True)``; when ``node_ids`` is omitted, stages round-robin over
+    the alive nodes. ``actor_options`` go to every stage's actor:
+    ``{"num_gpus": 1}`` gives each stage a card of its own, which it sees
+    as its only CUDA device. ``device`` is each stage's ("cuda" unless the
+    caller asks for "cpu").
+    """
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.util.scheduling_strategies import NodeAffinitySchedulingStrategy
+    S = len(stage_fns)
+    if len(stage_params) != S:
+        raise ValueError(
+            f"{S} stage_fns but {len(stage_params)} stage_params")
+    if node_ids is None:
+        rows = [n for n in rt.nodes() if n.get("alive", True)]
+        node_ids = [rows[i % len(rows)]["node_id"] for i in range(S)] \
+            if rows else [None] * S
+    elif len(node_ids) != S:
+        raise ValueError(f"{S} stages but {len(node_ids)} node_ids")
+    if optimizer is None and loss_fn is not None:
+        optimizer = sgd()
+    cls = rt.remote(PipelineStage)
+    stages = []
+    for i in range(S):
+        opts = dict(actor_options or {})
+        if node_ids[i] is not None:
+            opts["scheduling_strategy"] = NodeAffinitySchedulingStrategy(
+                node_id=node_ids[i], soft=True)
+        handle = cls.options(**opts).remote(
+            i, S, stage_fns[i], stage_params[i],
+            loss_fn=loss_fn if i == S - 1 else None,
+            optimizer=optimizer, device=device)
+        stages.append(handle)
+    rt.get([h.ping.remote() for h in stages])
+    return MPMDPipeline(stages, None, node_ids)

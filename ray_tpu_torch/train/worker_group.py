@@ -5,11 +5,12 @@ python/ray/train/v2/_internal/execution/worker_group/worker_group.py).
 `run_training` runs the user's train loop under a
 session (`session.py`) with report and checkpoint plumbing, a checkpoint
 book rebuilt from the experiment dir, and FailureConfig retries that
-resume from the newest checkpoint. `TrainWorker` hosts it as a plain
-class; `ray_tpu.remote(...)(TrainWorker)` makes it a restartable actor
-(a crashed process is respawned, `run()` re-executes, and run_training
-resumes from the newest on-disk checkpoint), as the port's `EnvRunner`
-and `PipelineStage` are composed.
+resume from the newest checkpoint. `TrainWorker` hosts it in an actor
+of the port's runtime: `TorchTrainer` makes it a restartable actor (a
+crashed process is respawned, `run()` re-executes, and run_training
+resumes from the newest on-disk checkpoint) or a worker group with
+group restart, splitting the datasets once with `presplit_datasets` and
+building a killed run's Result with `result_after_worker_death`.
 
 Multi-worker (`num_workers > 1`) is the process world of
 `torch.distributed`, one rank a card: every rank runs the same `fit()`,
@@ -24,13 +25,11 @@ import json
 import os
 import re
 import shutil
-import socket
-import sys
 import traceback
 from typing import Any, Callable, Dict, Optional, Tuple
 
-from ray_tpu_torch.parallel.distributed import (initialize_multihost, process_count,
-                                                process_index)
+from ray_tpu_torch.parallel.distributed import (coordinator_endpoint, initialize_multihost,
+                                                process_count, process_index)
 from ray_tpu_torch.train import session as _session
 from ray_tpu_torch.train.checkpoint import Checkpoint, _CheckpointBook
 from ray_tpu_torch.train.config import CheckpointConfig, DataConfig, FailureConfig, RunConfig
@@ -209,15 +208,23 @@ def run_training(train_loop: Callable, train_loop_config: Dict,
         if ckpt is not None and world_rank == 0:
             dst = os.path.join(exp_dir, f"checkpoint_{ckpt_counter[0]:06d}")
             ckpt_counter[0] += 1
+            meta = {"iteration": metrics["training_iteration"], "metrics": _jsonable(metrics)}
             if os.path.abspath(ckpt.path) != os.path.abspath(dst):
                 if os.path.exists(dst):
                     shutil.rmtree(dst)
                 # a sharded checkpoint is whole here (from_state returns
-                # after every rank wrote); its shards/ dir and layout go along
-                shutil.copytree(ckpt.path, dst)
+                # after every rank wrote); its shards/ dir and layout go
+                # along. The copy lands under its name whole or not at all:
+                # a worker killed mid-copy (a group's peer died) leaves a
+                # partial directory that the book never reads
+                partial = f"{dst}.partial"
+                shutil.rmtree(partial, ignore_errors=True)
+                shutil.copytree(ckpt.path, partial)
+                Checkpoint(partial).update_metadata(meta)
+                os.replace(partial, dst)
                 ckpt = Checkpoint(dst)
-            ckpt.update_metadata({"iteration": metrics["training_iteration"],
-                                  "metrics": _jsonable(metrics)})
+            else:
+                ckpt.update_metadata(meta)
             book.register(ckpt, metrics)
         sess = _session._get_session()
         sess.checkpoint = book.latest or sess.checkpoint
@@ -328,31 +335,6 @@ def _world_info(scaling) -> Tuple[int, int]:
     return count, index
 
 
-def coordinator_endpoint() -> str:
-    """Where rank 0's process-group store will listen, as `host:port`.
-    Host: `RAY_TPU_COORD_HOST`, else this host's name if it resolves, else
-    127.0.0.1 (correct on one machine only, so it says so). Port: a free
-    port the kernel picks."""
-    host = os.environ.get("RAY_TPU_COORD_HOST")
-    if not host:
-        host = socket.gethostname()
-        try:
-            socket.getaddrinfo(host, None)
-        except OSError:
-            print(f"[train] hostname {host!r} does not resolve; advertising "
-                  f"127.0.0.1 as the process-group coordinator. Multi-node "
-                  f"runs need resolvable hostnames or RAY_TPU_COORD_HOST.",
-                  file=sys.stderr)
-            host = "127.0.0.1"
-    # bind-close-reuse is a benign race: the store binds the port again
-    # within milliseconds, and a collision fails the group's start loudly
-    s = socket.socket()
-    s.bind(("", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return f"{host}:{port}"
-
-
 def _join_world(coordinator: str, world_size: int, world_rank: int, device="cuda"):
     """Join the job's process group before any collective runs."""
     initialize_multihost(coordinator_address=coordinator, num_processes=world_size,
@@ -361,7 +343,7 @@ def _join_world(coordinator: str, world_size: int, world_rank: int, device="cuda
 
 class TrainWorker:
     """The worker hosting the train loop (reference: worker_group's
-    RayTrainWorker), a plain class: `ray_tpu.remote(num_cpus=1,
+    RayTrainWorker), a plain class: `ray_tpu_torch.remote(num_cpus=1,
     max_restarts=N, max_task_retries=N)(TrainWorker)` makes it a
     restartable actor, whose `run()` resumes from the newest checkpoint on
     disk after a crash. In a group, every rank's worker is given the same

@@ -360,6 +360,36 @@ def transfer_counters() -> Dict[str, float]:
             "seconds": seconds}
 
 
+def rllib_sebulba_counters() -> Dict[str, float]:
+    """Sebulba RL pipeline tallies (per process: rollout actors each count
+    their own env steps; the driver/learner process counts updates and
+    broadcasts). env_steps tallies environment transitions produced by
+    rollout actors; learner_steps counts updates applied; broadcasts
+    counts versioned param publications; stale_dropped counts sampled
+    batches discarded for exceeding the configured max_staleness;
+    param_version is the highest version this process has seen (learner:
+    published; rollout: received)."""
+    version = 0.0
+    with _registry_lock:
+        m = _registry.get("rllib_param_version")
+    if isinstance(m, Gauge):
+        vals = m.snapshot()["values"]
+        if vals:
+            version = max(vals.values())
+    return {"env_steps": _counter_total("rllib_env_steps"),
+            "learner_steps": _counter_total("rllib_learner_steps"),
+            "broadcasts": _counter_total("rllib_broadcasts"),
+            "stale_dropped": _counter_total("rllib_stale_dropped"),
+            "param_version": version}
+
+
+def rllib_offpolicy_gap_summary() -> Optional[Dict[str, float]]:
+    """Quantiles of the learner's observed off-policy gap (learner param
+    version minus the version stamped on each trajectory it consumed), the
+    staleness V-trace corrects for. None before any update."""
+    return histogram_summary("rllib_offpolicy_gap")
+
+
 def sched_locality_counters() -> Dict[str, float]:
     """Locality-aware placement tallies (head process): hits = tasks placed
     on the node already holding the most arg bytes, misses = arg bytes

@@ -178,3 +178,91 @@ def test_one_rank_host_group_in_process():
     finally:
         tcol.destroy_collective_group("solo")
     assert not dist.is_initialized()
+
+
+# ------------------------------------------------------------ actor groups
+@pytest.fixture(scope="module")
+def port_session():
+    import ray_tpu_torch as rt
+    rt.init(num_cpus=4, num_gpus=0)
+    yield rt
+    rt.shutdown()
+
+
+def _member_class(pkg):
+    """tests/test_parallel.py's member actor, for either package's
+    collective module: `_init_collective` is JAX's signature, and `run`
+    issues every host-backend operation through the module's API. Defined
+    in a function so that cloudpickle sends it by value."""
+
+    class Member:
+        def _init_collective(self, world_size, rank, backend, group_name):
+            import importlib
+            col = importlib.import_module(f"{pkg}.parallel.collective")
+            col.init_collective_group(world_size, rank, backend, group_name)
+            self.rank, self.world, self.group = rank, world_size, group_name
+            return True
+
+        def run(self, x, pos):
+            import importlib
+            col = importlib.import_module(f"{pkg}.parallel.collective")
+            g, r, w = self.group, self.rank, self.world
+            out = {f"allreduce_{op}": np.asarray(col.allreduce(pos if op == "product" else x,
+                                                               group_name=g, op=op))
+                   for op in ("sum", "product", "max", "min")}
+            out["allgather"] = [np.asarray(a) for a in col.allgather(x, group_name=g)]
+            out["reducescatter"] = np.asarray(col.reducescatter(x, group_name=g))
+            out["broadcast"] = np.asarray(col.broadcast(x, src_rank=0, group_name=g))
+            out["reduce"] = np.asarray(col.reduce(x, dst_rank=1, group_name=g))
+            col.barrier(group_name=g)
+            out["alltoall"] = [np.asarray(a)
+                               for a in col.alltoall(np.split(x, w), group_name=g)]
+            col.send(x, (r + 1) % w, group_name=g)
+            out["recv"] = np.asarray(col.recv(None, (r - 1) % w, group_name=g))
+            out["rank"] = (col.get_rank(g), col.get_collective_group_size(g))
+            return out
+
+    return Member
+
+
+def _actor_group(runtime, pkg, world, group):
+    """`world` members of `runtime` joined as `group` through the
+    package's create_collective_group; each member's results and the
+    rendezvous actor's payload accounting."""
+    import importlib
+    col = importlib.import_module(f"{pkg}.parallel.collective")
+    members = [runtime.remote(num_cpus=0)(_member_class(pkg)).remote() for _ in range(world)]
+    try:
+        col.create_collective_group(members, world, list(range(world)), backend="host",
+                                    group_name=group)
+        x, pos = _blocks(world)
+        outs = runtime.get([m.run.remote(x[r], pos[r]) for r, m in enumerate(members)],
+                           timeout=120)
+        prefix = "_rtpu_collective_" if pkg == "ray_tpu" else "_rtpt_collective_"
+        seen = runtime.get(runtime.get_actor(prefix + group).stats.remote(), timeout=60)
+        # the name is taken in each member: JAX's error on a second init
+        with pytest.raises(Exception, match=f"group '{group}' already initialized"):
+            col.create_collective_group(members, world, list(range(world)), backend="host",
+                                        group_name=group)
+    finally:
+        for m in members:
+            runtime.kill(m)
+    return outs, seen
+
+
+@pytest.mark.parametrize("world", [2, 3])
+def test_create_collective_group_over_actors_matches_jax(ray_session, port_session, world):
+    """create_collective_group over `world` actors of the port's runtime
+    (the named `_RendezvousActor`) against JAX's over ray_tpu actors, on
+    the same numpy blocks: every operation's result equal, rank by rank,
+    and the rendezvous actors' payload accounting equal (the routing
+    operations pass it only ref envelopes)."""
+    want, jseen = _actor_group(ray_session, "ray_tpu", world, f"ja{world}")
+    got, tseen = _actor_group(port_session, "ray_tpu_torch", world, f"ta{world}")
+    for rank, (g, w) in enumerate(zip(got, want)):
+        assert g.keys() == w.keys()
+        for key in w:
+            np.testing.assert_array_equal(np.asarray(g[key]), np.asarray(w[key]),
+                                          err_msg=f"rank {rank} {key}")
+        assert g["rank"] == (rank, world)
+    assert tseen == jseen and tseen["p2p"] < 1024, (tseen, jseen)

@@ -10,7 +10,14 @@ as numpy):
   port's stage (device="cpu"): `run_forward` equals JAX's pipeline's,
   and `train_step`'s loss and params equal test_mpmd's
   `_reference_step` (rtol 1e-5), with at most S + 1 live refs; also with
-  fewer microbatches than stages."""
+  fewer microbatches than stages;
+- the port's own `build_pipeline` and `MPMDPipeline` on the port's
+  runtime (`ray_tpu_torch.init`): the same checks, JAX's errors for
+  missing or mismatched targets and mismatched lengths, and no
+  microbatch-sized object left after a step."""
+
+import re
+import time
 
 import numpy as np
 import pytest
@@ -223,3 +230,102 @@ def test_stage_windows_match_jax_in_1f1b_order():
     finally:
         ttracing.clear()
         ttracing.refresh()
+
+
+# ----------------------------------------------- the port's own runtime
+@pytest.fixture(scope="module")
+def port_session():
+    import ray_tpu_torch as rt
+    rt.init(num_cpus=4, num_gpus=0)
+    yield rt
+    rt.shutdown()
+
+
+def _port_pipeline(S, params, lr=0.1, loss=True):
+    """The port's build_pipeline over actors of the port's runtime, on the
+    CPU (device="cpu")."""
+    tfn, tloss = _torch_stage_fns()
+    return tmpmd.build_pipeline([tfn] * S, [_np(p) for p in params],
+                                loss_fn=tloss if loss else None, optimizer=tmpmd.sgd(lr),
+                                device="cpu")
+
+
+def _sequential(jfn, params, mbs):
+    """JAX's stage function applied stage after stage, in process."""
+    outs = []
+    for x in mbs:
+        for p in params:
+            x = jfn(p, x)
+        outs.append(np.asarray(x))
+    return outs
+
+
+def test_port_pipeline_run_forward_and_errors_match_jax(port_session):
+    """run_forward on the port's runtime equals JAX's stages applied in
+    order; a train_step without targets or with too few raises JAX's
+    errors (JAX's runner raises them before it touches a stage); and
+    no microbatch-sized object outlives the step."""
+    from ray_tpu.train.mpmd import MPMDPipeline as JPipeline
+    from ray_tpu_torch._private import state
+    from ray_tpu_torch._private.health import LeakDetector
+    S, d, M = 2, 8, 4
+    params, jfn = _tanh_stages(S, d)
+    mbs, tgts = _inputs(M, 4, d)
+    pipe = _port_pipeline(S, params)
+    jpipe = JPipeline([None] * S, None, [None] * S)
+    try:
+        got = pipe.run_forward([np.array(x) for x in mbs])
+        np.testing.assert_allclose(np.stack([g.numpy() for g in got]),
+                                   np.stack(_sequential(jfn, params, mbs)), rtol=1e-6, atol=1e-7)
+        for bad in (None, tgts[:3]):
+            with pytest.raises(ValueError) as want:
+                jpipe.train_step(mbs, bad)
+            with pytest.raises(ValueError, match=re.escape(str(want.value))):
+                pipe.train_step([np.array(x) for x in mbs], bad)
+        pipe.train_step([np.array(x) for x in mbs], [np.array(t) for t in tgts])
+        assert [s["stash_depth"] for s in pipe.stage_stats()] == [0] * S
+    finally:
+        pipe.shutdown()
+    time.sleep(0.5)
+    det = LeakDetector(age_s=0.0, clock=lambda: time.time() + 3600.0)
+    big = [f for f in det.scan(state.global_client().controller.objects)
+           if (f.get("size") or 0) >= 4 * d * 4]
+    assert not big, big
+
+
+@pytest.mark.parametrize("S,M", [(2, 6), (3, 2)], ids=["S2-M6", "fewer-microbatches"])
+def test_port_pipeline_train_step_matches_reference(port_session, S, M):
+    """The port's build_pipeline and MPMDPipeline on the port's runtime:
+    one 1F1B step's loss and params equal test_mpmd's JAX reference step
+    (rtol 1e-5), with at most S + 1 live refs, as
+    test_actor_pipeline_train_step_matches_reference holds ray_tpu's
+    runner over the port's stages."""
+    d, lr = 8, 0.1
+    params, jfn = _tanh_stages(S, d)
+    mbs, tgts = _inputs(M, 4, d)
+    pipe = _port_pipeline(S, params, lr)
+    try:
+        out = pipe.train_step([np.array(x) for x in mbs], [np.array(t) for t in tgts])
+        got_params = pipe.get_params()
+    finally:
+        pipe.shutdown()
+    ref_loss, ref_params = _reference_step(jfn, params, mbs, tgts, lr)
+    assert out["loss"] == pytest.approx(ref_loss, rel=1e-5)
+    for got, want in zip(got_params, ref_params):
+        for k in ("w", "b"):
+            np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=1e-5)
+    assert out["stats"]["peak_live_refs"] <= S + 1, out["stats"]
+    assert out["stats"]["warmup_depths"] == [min(S - 1 - i, M) for i in range(S)]
+    assert all(s["stash_depth"] == 0 for s in out["stats"]["stages"])
+
+
+def test_build_pipeline_validates_lengths_as_jax():
+    from ray_tpu.train.mpmd import build_pipeline as jbuild
+    params, jfn = _tanh_stages(2)
+    tfn, _ = _torch_stage_fns()
+    for kw, match in (({"stage_params": params[:1]}, "stage_params"),
+                      ({"stage_params": params, "node_ids": ["x"]}, "node_ids")):
+        with pytest.raises(ValueError, match=match) as want:
+            jbuild([jfn] * 2, **kw)
+        with pytest.raises(ValueError, match=re.escape(str(want.value))):
+            tmpmd.build_pipeline([tfn] * 2, **kw, device="cpu")

@@ -5,7 +5,8 @@ metrics and learner metrics must match JAX's, and whose weights after the
 update must too; inline evaluation; the checkpoint round trip of
 tests/test_rllib.py; multi-agent PPO's build and first iteration; every
 ported config's defaults against JAX's; the `NotImplementedError`s of
-what the port leaves to the runtime; and a two-learner group on a world of
+the remote runners the port's runtime does not run yet; PPO's ValueError
+for the sebulba pipeline; and a two-learner group on a world of
 one rank raising JAX's ValueError.
 
 Tolerances (f32): learner metrics within 1e-4 of max(1, |value|); weights
@@ -114,10 +115,13 @@ def _cpu_ppo():
 
 
 @pytest.mark.parametrize("change,error,match", [
-    (lambda c: c.env_runners(num_env_runners=2), NotImplementedError, "num_env_runners"),
+    (lambda c: c.env_runners(num_env_runners=2), NotImplementedError,
+     r"num_env_runners > 0 .*queue A, item 5"),
     (lambda c: c.evaluation(evaluation_interval=1, evaluation_num_env_runners=1),
-     NotImplementedError, "evaluation_num_env_runners"),
-    (lambda c: c.sebulba(), NotImplementedError, "sebulba"),
+     NotImplementedError, r"evaluation_num_env_runners > 0 .*queue A, item 5"),
+    # the pipeline runs on the port's runtime now; PPO has no V-trace, so
+    # building it raises JAX's ValueError before any runtime starts
+    (lambda c: c.sebulba(), ValueError, "PPO does not support the sebulba pipeline"),
     # a group of two learners needs a world of two ranks (JAX's error, with
     # the port's world named)
     (lambda c: c.learners(num_learners=2), ValueError, "num_learners=2 but only 1 ranks"),

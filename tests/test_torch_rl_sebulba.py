@@ -8,6 +8,12 @@ IMPALA under `ray_session`, with ray_tpu's `RolloutActor` replaced by the
 port's, at tests/test_rllib_sebulba.py's lockstep settings (CartPole-v1,
 2 envs x 8 steps, train_batch_size 16, seed 3).
 
+The port's own `SebulbaPipeline` (`.sebulba(enabled=True)`) runs on the
+port's runtime (a module session of `ray_tpu_torch.init`): the
+`ReplayActor` against JAX's, lockstep `train()` against the sync IMPALA
+and against JAX's own lockstep, JAX's async gap-and-guard case, and the
+ValueError of PPO.
+
 Lockstep mode is the synchronous schedule, so its params after two
 iterations are `torch.equal` to the port's sync IMPALA's. Against JAX's
 lockstep (greedy, from JAX's initial weights) they are held as in
@@ -22,6 +28,7 @@ import pytest
 import torch
 
 from ray_tpu.rllib import IMPALAConfig as JIMPALAConfig
+from ray_tpu.rllib import PPOConfig as JPPOConfig
 from ray_tpu.rllib import sebulba as jsebulba
 from ray_tpu_torch.models.convert import flax_rl_module_to_state_dict
 from ray_tpu_torch.rllib import IMPALAConfig, PPOConfig
@@ -251,3 +258,141 @@ def test_greedy_lockstep_matches_jax_lockstep(ray_session, monkeypatch, time_lim
     check_params(got, jw, start, LR, 2)
     time.sleep(0.5)
     assert not _leaked_big()
+
+
+# -------------------------------------------- the port's own pipeline
+@pytest.fixture(scope="module")
+def port_session():
+    import ray_tpu_torch as rt
+    rt.init(num_cpus=4, num_gpus=0)
+    yield rt
+    rt.shutdown()
+
+
+def _port_leaked_big(min_bytes=1 << 16):
+    """test_rllib_sebulba's leak scan, over the port's object table."""
+    from ray_tpu_torch._private import state
+    from ray_tpu_torch._private.health import LeakDetector
+    ctl = state.global_client().controller
+    det = LeakDetector(age_s=0.0, clock=lambda: time.time() + 3600.0)
+    return [f for f in det.scan(ctl.objects) if (f.get("size") or 0) >= min_bytes]
+
+
+def _replay_program(cls):
+    """tests/test_rllib_sebulba.py's three ReplayActor cases on `cls`,
+    returning everything they read."""
+    out = []
+    buf = cls(capacity=3, seed=0, mode="fifo")
+    out += [buf.add_refs(["r0", "r1"], [0, 0]), buf.size(), buf.sample_refs(1),
+            buf.sample_refs(5), buf.sample_refs(1)]
+    buf.add_refs(["r2", "r3", "r4"], 1)      # a scalar version for every ref
+    out += [buf.stats(), buf.sample_refs(2), buf.clear(), buf.size(), buf.sample_refs(1)]
+    buf = cls(capacity=8, seed=123, mode="uniform")
+    buf.add_refs([f"r{i}" for i in range(8)], list(range(8)))
+    out += [buf._sample_indices(4), buf._sample_indices(4), buf.sample_refs(3), buf.stats()]
+    buf2 = cls(capacity=8, seed=123, mode="uniform")
+    buf2.add_refs([f"r{i}" for i in range(8)], 0)
+    out.append(buf2._sample_indices(8))
+    with pytest.raises(ValueError, match="unknown replay mode") as err:
+        cls(capacity=4, mode="priority")
+    out.append(str(err.value))
+    return out
+
+
+def test_replay_actor_matches_jax():
+    """The port's ReplayActor against JAX's, in process: the fifo ring,
+    its eviction and clear, the seeded uniform draws (pinned by JAX's
+    test) and the unknown-mode error read the same."""
+    from ray_tpu.rllib import ReplayActor as JReplayActor
+    from ray_tpu_torch.rllib import ReplayActor
+    got, want = _replay_program(ReplayActor), _replay_program(JReplayActor)
+    assert got == want
+    assert got[2:5] == [[("r0", 0)], [("r1", 0)], []] and got[10] == [0, 5, 4, 0]
+
+
+def test_port_lockstep_train_equals_sync_impala(port_session, time_limit):
+    """`.sebulba(enabled=True, lockstep=True).build().train()` on the port's
+    runtime (one RolloutActor and one ReplayActor; the learner here):
+    after two iterations the params are torch.equal to the sync IMPALA's,
+    the gap is 0 and the update's signature cache holds one entry; the
+    replay's refs are released at stop()."""
+    sync = _chain(IMPALAConfig()).build()
+    for _ in range(2):
+        sync.train()
+    want = sync.get_weights()
+    sync.stop()
+    algo = _chain(IMPALAConfig()).sebulba(lockstep=True).build()
+    try:
+        for _ in range(2):
+            result = algo.train()
+        got = algo.get_weights()
+    finally:
+        algo.stop()
+    _assert_lockstep_stats(result["sebulba"])
+    assert result["num_env_steps_sampled_this_iter"] == ENVS * STEPS
+    assert result["training_iteration"] == 2
+    assert all(torch.equal(got[k], want[k]) for k in want) and got.keys() == want.keys()
+    time.sleep(0.5)
+    assert not _port_leaked_big()
+
+
+def test_port_greedy_lockstep_matches_jax_lockstep(ray_session, port_session, time_limit):
+    """Greedy lockstep train() of both packages' own pipelines, the port's
+    from JAX's initial weights (re-broadcast as version 0): the episode
+    and step counts equal JAX's, the params within the Adam bound."""
+    jalgo = _chain(JIMPALAConfig(), explore=False).sebulba(lockstep=True).build()
+    start = flax_rl_module_to_state_dict(jalgo.get_weights())
+    for _ in range(2):
+        want = jalgo.train()
+    jw = flax_rl_module_to_state_dict(jalgo.get_weights())
+    jalgo.stop()
+    algo = _chain(IMPALAConfig(), explore=False).sebulba(lockstep=True).build()
+    try:
+        algo.set_weights(start)
+        algo._sebulba._broadcast(block=True)      # the actor acts from JAX's weights
+        for _ in range(2):
+            result = algo.train()
+        got = algo.get_weights()
+    finally:
+        algo.stop()
+    _assert_lockstep_stats(result["sebulba"])
+    _assert_lockstep_stats(want["sebulba"])
+    for k in ("episodes_this_iter", "num_env_steps_sampled_this_iter"):
+        assert result[k] == want[k], k
+    check_params(got, jw, start, LR, 2)
+
+
+def test_port_async_offpolicy_gap_and_guard(port_session, time_limit):
+    """test_rllib_sebulba's async case on the port: two rollout actors of
+    DeviceRollout(TorchCartPole) on the CPU with two rollouts in flight
+    each; the learner sees a gap >= 1, its signature cache holds one
+    entry, broadcasts go out, and stop() leaves no trajectory pinned."""
+    algo = _chain(IMPALAConfig()).debugging(seed=7).sebulba(
+        num_rollout_actors=2, inflight_rollouts=2, replay_capacity=8,
+        jax_env="cartpole").build()
+    try:
+        for _ in range(4):
+            stats = algo.train()["sebulba"]
+            if any(g >= 1 for g in stats["gap_counts"]):
+                break
+        replay = port_session.get(algo._sebulba.replay.stats.remote())
+    finally:
+        algo.stop()
+    assert stats["updates"] >= 1 and stats["num_rollout_actors"] == 2
+    assert any(g >= 1 for g in stats["gap_counts"]), stats["gap_counts"]
+    assert stats["jit_cache_size"] == 1, "the update saw a second signature"
+    assert stats["counters"]["broadcasts"] >= 1 and stats["broadcasts_async"] >= 1
+    assert replay["admitted"] > 0 and replay["mode"] == "uniform"
+    time.sleep(0.5)
+    assert not _port_leaked_big()
+
+
+def test_ppo_sebulba_build_raises_as_jax():
+    """PPO has no V-trace: building it with the pipeline raises JAX's
+    ValueError in both packages, before any runtime starts."""
+    for cfg in (JPPOConfig(), PPOConfig()):
+        chained = (cfg.environment("CartPole-v1").resources(device="cpu")
+                   .env_runners(num_envs_per_env_runner=1, rollout_fragment_length=4)
+                   .training(train_batch_size=8, minibatch_size=4).sebulba())
+        with pytest.raises(ValueError, match="PPO does not support the sebulba pipeline"):
+            chained.build()

@@ -229,9 +229,25 @@ def test_configs_match_jax():
                 == jtrain.DataConfig(cfg).split_names(names))
 
 
-def test_worker_actor_is_not_in_process():
-    with pytest.raises(NotImplementedError, match=r"ray_tpu_torch\.remote\(...\)\(TrainWorker\)"):
-        ttrain.TorchTrainer(lambda: None, use_worker_actor=True).fit()
+def test_worker_actor_is_not_in_process(tmp_path):
+    """use_worker_actor=True runs the loop in a TrainWorker actor of the
+    port's runtime (another process), and reports back through its Result."""
+    import ray_tpu_torch as rt
+
+    def loop():
+        import os
+        from ray_tpu_torch import train
+        train.report({"pid": os.getpid()})
+
+    rt.init(num_cpus=1, num_gpus=0)
+    try:
+        result = ttrain.TorchTrainer(
+            loop, use_worker_actor=True,
+            run_config=ttrain.RunConfig(name="actor", storage_path=str(tmp_path))).fit()
+    finally:
+        rt.shutdown()
+    assert result.error is None and len(result.metrics_history) == 1
+    assert result.metrics["pid"] != os.getpid()
 
 
 def test_retry_starts_without_the_failed_attempts_state(tmp_path):
@@ -276,7 +292,8 @@ def test_port_imports_with_jax_and_ray_tpu_blocked():
     assert {"TorchTrainer", "Result", "ScalingConfig", "RunConfig", "CheckpointConfig",
             "FailureConfig", "DataConfig", "report", "get_checkpoint", "get_context",
             "get_dataset_shard", "TrainContext", "TrainingStopped"} <= names
-    assert set(jtrain.__all__) - names == {"JaxTrainer", "MPMDPipeline", "build_pipeline"}
+    # every name of JAX's but its trainer's (the port's is TorchTrainer)
+    assert set(jtrain.__all__) - names == {"JaxTrainer"}
 
 
 # ---------------------------------------------------------------- datasets
