@@ -134,7 +134,25 @@ Phases, in order; a failing phase raises and the script exits non-zero:
              process (this process's counts 0), the replica bound to the
              card; the replica's start, the first SSE event against the
              engine's TTFT, the proxy + ingress + handle ms a request and
-             decode tokens/s logged.
+             decode tokens/s logged. Path `cluster` (`run_cluster`), in a
+             session of its own after that one closes: the port's runtime
+             across nodes. This process is a head owning no card; a
+             SubprocessNodeProvider bound to the card launches one node
+             agent for sdk.request_resources(bundles=[{"GPU": 1}]):
+             cluster_resources()["GPU"] 0 before it registers, 1 after; a
+             num_gpus=1 actor lands on it (its parent the agent) on the
+             card of this process's card-0 UUID; llama_1b's seeded bf16
+             weights, put at the head, reach that actor's card as a
+             method's argument (bytes, seconds and GB/s logged), then a
+             num_gpus=1
+             EngineReplica "llm" built from them on the node (its weights'
+             digest equal) answers the sequential prompts with the
+             colocated server's ids, B1 and B4 counted in its process as
+             `runtime`'s are and 0 here; the agent's process group is
+             SIGKILLed: nodes() drops to 1 within the heartbeat limit, the
+             next call raises ActorDiedError, the reconciler launches a
+             replacement node bound to the same card, and a replica there
+             answers with the same ids (kill to its first answer logged).
    radix_visits - the slice's prompts twice through an in-process server
              (radix cache on, off, and on in f32): where a bf16 second
              visit differs from the first, the top-2 logit gap of the
@@ -311,7 +329,11 @@ Phases, in order; a failing phase raises and the script exits non-zero:
              launch on any RL path. The entry
              points that make a gymnasium env (path `rl_ppo`, DQN's,
              SAC's and TQC's `train()`, `PPOConfig().multi_agent(...)`)
-             are not driven: the chip machine has no gymnasium.
+             are not driven: the chip machine has no gymnasium. Nor are
+             the remote env runners and evaluation actors
+             (`num_env_runners`, `evaluation_num_env_runners`), whose
+             actors make gymnasium envs: tests/test_torch_rl_remote.py
+             holds them to JAX's on the CPU.
 
     python3 chip_smoke.py --cards 4
 
@@ -337,10 +359,23 @@ against run_1f1b in this process on the same cards, then ms a step and an
 activation's hop through the store; (c) create_collective_group over four
 GPU actors, a "host" group through the rendezvous actor and an "nccl"
 group whose address rank 0 publishes there, every operation equal to the
-host rule, and the bus GB/s of a 256 MiB all-reduce), `rl_dp` in a world
+host rule, and the bus GB/s of a 256 MiB all-reduce), `cluster` in this
+process (run_cluster_cards: a head owning no card and four node agents
+launched by GcpGpuNodeProvider("a3-highgpu-1g") on FakeGpuApi, node k
+bound to card k; (a) four num_gpus=1 actors with SPREAD on four agents,
+their UUIDs this process's four; (b) the trainer's worker group of
+`actors` (a) across the agents, one TrainWorker an agent through a
+node-only resource, rank 2 SIGKILLing its agent at step 3 of the first
+attempt, the reconciler replacing that node on the same card and the
+group restarting from step 2's checkpoint: the history and every rank's
+blocks' digest equal `actors` (a)'s unkilled single-node run (run first
+when `actors` is not in the run), B1-B3 counted on every rank; ms a step
+against the single node's and the seconds from the kill to the resumed
+step), `rl_dp` in a world
 of its own, then `seqpipe`, `fsdp` and `tp` in
 the same ranks (one spawned rank per card over NCCL), then MPMD in this
-process. `--phases runtime`, `--phases serve`, `--phases actors`, `--phases seqpipe`,
+process. `--phases runtime`, `--phases serve`, `--phases actors`, `--phases cluster`,
+`--phases seqpipe`,
 `--phases tp`, `--phases rl_dp` or `--phases fsdp` runs one group alone: a
 rehearsal aid for a change that touches one of them; the check of a
 change is the default run. `fsdp`: (a) path
@@ -1880,6 +1915,9 @@ class EngineReplica:
     def binding(self):
         return card_binding()
 
+    def started(self):
+        return process_start_time()
+
     def check_tensor(self, t, seed):
         """Where the driver's tensor landed, and whether it is bit-equal to
         the same draw made here."""
@@ -2373,7 +2411,7 @@ def card_binding():
     """This process's card binding as the runtime gave it."""
     import torch
     import ray_tpu_torch as rt
-    out = dict(pid=os.getpid(), gpu_ids=rt.get_gpu_ids(),
+    out = dict(pid=os.getpid(), ppid=os.getppid(), gpu_ids=rt.get_gpu_ids(),
                cuda_visible_devices=os.environ.get("CUDA_VISIBLE_DEVICES"),
                device_count=torch.cuda.device_count())
     if out["device_count"]:
@@ -2613,6 +2651,234 @@ def run_runtime(sequential, device="cuda", preset="llama_1b", max_tokens=16,
         f"({out['get_gb_s']:.2f} GB/s); launches in the actor {launches}"
         + (f" ({smi_line()})" if cuda else ""))
     return out
+
+
+# -------------------------------------------------------------------- cluster
+CLUSTER_NODE_RESOURCE = "gpu_node"      # a node-only resource of the provider's nodes
+
+
+def seeded_state(config):
+    """The state_dict LLMServer(config) draws from its seed (no mesh),
+    made without building a server."""
+    import torch
+    from ray_tpu_torch.models.convert import init_params
+    from ray_tpu_torch.models.llama import Llama, LlamaConfig
+    overrides = dict(max_seq_len=config.max_seq_len,
+                     param_dtype=getattr(torch, config.param_dtype))
+    if config.dtype is not None:
+        overrides["dtype"] = getattr(torch, config.dtype)
+    model = Llama(getattr(LlamaConfig, config.preset)(**overrides), device=config.device)
+    init_params(model, torch.Generator(device=config.device).manual_seed(config.seed))
+    return model.state_dict()
+
+
+def state_bytes(sd):
+    return sum(t.numel() * t.element_size() for t in sd.values())
+
+
+def process_start_time():
+    """When this process started, on time.time()'s clock (from /proc, to
+    the clock tick)."""
+    with open("/proc/self/stat") as f:
+        start_ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/uptime") as f:
+        uptime = float(f.read().split()[0])
+    return time.time() - uptime + start_ticks / os.sysconf("SC_CLK_TCK")
+
+
+def provider_cards(n, device):
+    """The cards a provider binds its nodes to: this process's first n on
+    the card, n card names without one."""
+    from ray_tpu_torch.autoscaler.node_provider import visible_cards
+    return visible_cards()[:n] if device == "cuda" else [str(i) for i in range(n)]
+
+
+def wait_until(pred, timeout, what):
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > timeout:
+            raise TimeoutError(f"timed out after {timeout} s waiting for {what}")
+        time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+def replica_wave(actor, sequential, max_tokens, timeout=600):
+    """The sequential prompts through a replica actor (warmed up), one
+    .remote()/get each, its launch counters reset just before and read
+    just after: (ids, launches, fresh first chunks, decode steps, plan)."""
+    import ray_tpu_torch as rt
+    before = rt.get(actor.stats.remote(), timeout=timeout)
+    rt.get(actor.reset_launch_counts.remote(), timeout=timeout)
+    ids = [rt.get(actor.generate.remote(p, max_tokens), timeout=timeout)["tokens"]
+           for p, _ in sequential]
+    launches = rt.get(actor.launch_counts.remote(), timeout=timeout)
+    after = rt.get(actor.stats.remote(), timeout=timeout)
+    _, _, _, steps = decode_delta(after, before)
+    fresh = after["prefill"]["chunk_local"] - before["prefill"]["chunk_local"]
+    return ids, launches, fresh, steps, rt.get(actor.plan.remote(), timeout=timeout)
+
+
+def run_cluster(sequential, device="cuda", preset="llama_1b", max_tokens=16):
+    """Path `cluster`: the port's runtime across nodes on one card. This
+    process is a cluster head owning no card (rt.init(num_gpus=0,
+    cluster_port=0)) in a session of its own; a SubprocessNodeProvider
+    (gpus_per_node=1, bound to this process's card 0) installed with
+    sdk.set_node_provider launches one node agent for
+    sdk.request_resources(bundles=[{"GPU": 1}]). (a) cluster_resources()
+    counts "GPU" 0 before the node registers and 1 after; a num_gpus=1
+    actor lands on the node (its parent pid the agent's) bound to the
+    card whose UUID is this process's card 0. (b) The slice's llama_1b
+    weights (seeded bf16, drawn on the card here) are put at the head and
+    passed as the creation argument of a num_gpus=1 EngineReplica "llm"
+    on the node: the node takes them in with the creation and then starts
+    the replica's process, so the seconds from create() to that process's
+    start are their trip (bytes, seconds and GB/s logged beside the
+    transfer deadline). Built from them (its weights' digest equal to
+    theirs), it answers `sequential` (run_pd's prompts and colocated ids)
+    one .remote()/get each with the colocated server's ids, B1 and B4
+    counted in its process as path `runtime`'s are and 0 here. (c) The
+    node agent's process group is SIGKILLed: nodes() drops to 1 within
+    the heartbeat limit, the next call on the replica raises
+    ActorDiedError, the head's reconciler launches a replacement node
+    bound to the same card, and a new replica there, drawing the same
+    weights from the seed on its card (its digest equal), answers with the
+    same ids (its counts checked as the first's); the seconds from the
+    kill to its first answer are logged. Every
+    worker and agent is gone after shutdown. Returns the readings; raises
+    on a failed check."""
+    import signal
+
+    import torch
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private.cluster import node_death_timeout_s
+    from ray_tpu_torch._private.node_agent import transfer_deadline_s
+    from ray_tpu_torch.autoscaler import SubprocessNodeProvider, sdk
+    from ray_tpu_torch.exceptions import ActorDiedError
+
+    cuda = device == "cuda"
+    tag = "cluster"
+    out, checks = {}, {}
+    t_path = time.perf_counter()
+    reset_launch_counts()
+    rt.init(num_cpus=2, num_gpus=0, cluster_port=0)
+    provider = SubprocessNodeProvider(cpus_per_node=2.0, gpus_per_node=1,
+                                      cards=provider_cards(1, device),
+                                      extra_resources={CLUSTER_NODE_RESOURCE: 1})
+    agents = []
+    try:
+        # (a) registration and a card-bound actor on the node
+        gpus_before = rt.cluster_resources().get("GPU", 0.0)
+        sdk.set_node_provider(provider, max_nodes=1)
+        launched = sdk.request_resources(bundles=[{"GPU": 1}])["launched_nodes"]
+        handle = launched[0] if launched else None
+        agents.append(provider.pid_of(handle) if handle else None)
+        out["register_s"] = wait_until(lambda: rt.cluster_resources().get("GPU", 0) == 1, 60,
+                                       "the GPU node's registration")
+        pinger = rt.remote(num_gpus=1)(Pinger).remote()
+        first_binding = rt.get(pinger.binding.remote(), timeout=300)
+        rt.kill(pinger)
+        want_uuid = str(torch.cuda.get_device_properties(0).uuid) if cuda else None
+        checks[f"cluster_resources()['GPU'] {gpus_before} before the node, 1 after; one node "
+               f"launched by request_resources ({launched})"] = (
+            gpus_before == 0 and len(launched) == 1)
+        checks[f"a num_gpus=1 actor lands on the node (parent pid {first_binding['ppid']} == "
+               f"the agent's {agents[0]}), card {provider.cards_of(handle)}"] = (
+            first_binding["ppid"] == agents[0] and first_binding["gpu_ids"] == [0])
+        if cuda:
+            checks[f"its card's UUID == this process's card 0 ({want_uuid})"] = (
+                first_binding.get("uuids") == [want_uuid])
+
+        # (b) the weights across the data plane, then a replica on the node
+        config = serving_config(preset, device)
+        sd = seeded_state(config)
+        want_digest = state_digest(sd)
+        nbytes = state_bytes(sd)
+        t1 = time.perf_counter()
+        sd_ref = rt.put(sd)
+        out["put_s"] = time.perf_counter() - t1
+        del sd
+
+        def replica_on_node(name, params=None):
+            t1, t_create = time.perf_counter(), time.time()
+            actor = rt.remote(num_gpus=1)(engine_class()).remote("llm", config, params=params)
+            rt.get(actor.generate.remote(list(range(1, 50)), 8), timeout=600)   # warm-up
+            t_first = time.perf_counter()
+            if params is not None:
+                trip = rt.get(actor.started.remote(), timeout=600) - t_create
+                checks["the replica's process started after its creation was sent"] = trip > 0
+                out["weights"] = dict(bytes=nbytes, seconds=trip,
+                                      gb_s=nbytes / max(trip, 1e-3) / 1e9,
+                                      deadline_s=transfer_deadline_s())
+            binding = rt.get(actor.binding.remote(), timeout=600)
+            digest = rt.get(actor.digest.remote(), timeout=600)
+            ids, launches, fresh, steps, plan = replica_wave(actor, sequential, max_tokens)
+            checks[f"{name}: on the node (parent pid {binding['ppid']}), its weights' digest == "
+                   f"the head's ({'shipped' if params is not None else 'drawn from the seed'})"
+                   ] = binding["ppid"] == agents[-1] and digest == want_digest
+            checks[f"{name}: ids == the colocated server's for all {len(sequential)} "
+                   f"sequential requests"] = ids == [w for _, w in sequential]
+            if cuda:
+                checks[f"{name}: bound to the card of UUID {want_uuid}"] = (
+                    binding.get("uuids") == [want_uuid])
+            launch_checks(f"{tag} {name}", launches, plan["n_layers"], fresh, steps,
+                          plan["n_split"])
+            return actor, dict(first_answer_s=t_first - t1, t_first=t_first, binding=binding,
+                               launches=launches, fresh_first_chunks=fresh, decode_steps=steps)
+
+        replica, out["replica"] = replica_on_node("replica", sd_ref)
+
+        # (c) node death and replacement
+        t_kill = time.perf_counter()
+        os.killpg(agents[0], signal.SIGKILL)
+        out["death_seen_s"] = wait_until(lambda: len(rt.nodes()) == 1,
+                                         node_death_timeout_s() + 5, "the node's death")
+        try:
+            rt.get(replica.stats.remote(), timeout=60)
+            died = False
+        except ActorDiedError:
+            died = True
+        checks[f"nodes() drops to 1 within the heartbeat limit ({out['death_seen_s']:.2f} s <= "
+               f"{node_death_timeout_s():g} s)"] = out["death_seen_s"] <= node_death_timeout_s()
+        checks["the next call on the dead node's replica raises ActorDiedError"] = died
+        wait_until(lambda: [h for h in provider.non_terminated_nodes() if h != handle], 30,
+                   "the reconciler's replacement launch")
+        new = [h for h in provider.non_terminated_nodes() if h != handle][0]
+        agents.append(provider.pid_of(new))
+        wait_until(lambda: rt.cluster_resources().get("GPU", 0) == 1, 60,
+                   "the replacement's registration")
+        out["kill_to_registered_s"] = time.perf_counter() - t_kill
+        checks[f"the replacement node is bound to the dead node's card "
+               f"({provider.cards_of(new)})"] = provider.cards_of(new) == provider_cards(1, device)
+        _, out["replacement"] = replica_on_node("replacement replica")   # weights from the seed
+        out["kill_to_first_answer_s"] = out["replacement"]["t_first"] - t_kill
+        out["launches_here"] = launch_counts()
+        checks["no kernel launched here"] = not any(out["launches_here"].values())
+        out["reconciler"] = [dict(action=e["action"], handle=e["handle"])
+                             for e in rt.api._runtime.controller.reconciler.events]
+    finally:
+        provider.shutdown()
+        workers, left = stop_runtime(rt)
+    checks[f"every worker exited after shutdown() ({workers} workers)"] = not left
+    out["seconds"] = time.perf_counter() - t_path
+    for what, ok in checks.items():
+        log(f"[{tag}] {'ok  ' if ok else 'FAIL'} {what}")
+    w = out.get("weights", {})
+    log(f"[{tag}] node registered {out.get('register_s', 0):.2f} s after the request; "
+        f"weights {w.get('bytes', 0)} bytes head -> the node (create() to the replica's process) in {w.get('seconds', 0):.2f} s "
+        f"({w.get('gb_s', 0):.3f} GB/s; the transfer deadline is {w.get('deadline_s')} s); "
+        f"replica's first answer {out.get('replica', {}).get('first_answer_s', 0):.1f} s "
+        f"after its creation; death seen "
+        f"{out.get('death_seen_s', 0):.2f} s after the kill, the replacement registered at "
+        f"{out.get('kill_to_registered_s', 0):.1f} s, kill -> first answer on the "
+        f"replacement {out.get('kill_to_first_answer_s', 0):.1f} s; path {out['seconds']:.1f} s"
+        + (f" ({smi_line()})" if cuda else ""))
+    if not all(checks.values()):
+        raise AssertionError(f"{tag} checks failed: "
+                             f"{[what for what, ok in checks.items() if not ok]}")
+    out["launches"] = {k: out["replica"]["launches"][k] + out["replacement"]["launches"][k]
+                       for k in out["replica"]["launches"]}
+    return out
+
 
 
 # ------------------------------------------------------------------ serve_app
@@ -6424,7 +6690,7 @@ def run_rl(device="cuda"):
 
 # ------------------------------------------------------------------ cards
 CARDS_OUT = "chip_smoke_cards4.json"
-CARDS_PHASES = ("runtime", "serve", "actors", "rl_dp", "seqpipe", "tp", "fsdp")
+CARDS_PHASES = ("runtime", "serve", "actors", "cluster", "rl_dp", "seqpipe", "tp", "fsdp")
 RING_SEQ_CARDS = 16384          # ring at sp=4: 4096 tokens a card
 
 
@@ -7821,11 +8087,14 @@ ALLREDUCE_BYTES = 256 << 20      # the NCCL group's timed all-reduce
 def group_fit_loop(config):
     """(a)'s loop in every TrainWorker of the group: the preset at
     {"fsdp": world} (B=1 a card), build_llama_trainer's batches, a sharded
-    checkpoint after step ACTORS_SAVE_AT. Rank `die_rank` exits
-    (os._exit(1)) at the start of step `die_at` when `flag` does not exist
-    yet, writing the time to it. Each step's record (pid, card, launches,
-    host times) overwrites this process's file in `config["records"]`;
-    rank 0 reports the loss and the times."""
+    checkpoint after step ACTORS_SAVE_AT. Rank ACTORS_FAIL_RANK exits
+    (os._exit(1)) at the start of step ACTORS_FAIL_AT when `flag` does not
+    exist yet, writing the time and its card to it; with
+    `config["kill_node"]` it SIGKILLs its node agent's process group
+    instead (itself with it). Each step's record (pid, card, launches,
+    host times; at the last step a digest of this rank's blocks)
+    overwrites this process's file in `config["records"]`; rank 0 reports
+    the loss and the times."""
     import torch
     from ray_tpu_torch import train
     from ray_tpu_torch.parallel.mesh import make_mesh
@@ -7861,7 +8130,11 @@ def group_fit_loop(config):
                     break
                 time.sleep(0.1)
             with open(flag, "w") as f:
-                json.dump({"t": time.time(), "pid": os.getpid()}, f)
+                json.dump({"t": time.time(), "pid": os.getpid(), "ppid": os.getppid(),
+                           "binding": binding}, f)
+            if config.get("kill_node"):
+                import signal
+                os.killpg(os.getpgid(0), signal.SIGKILL)
             os._exit(1)
         t0 = time.time()
         loss = step(tokens)
@@ -7874,10 +8147,17 @@ def group_fit_loop(config):
                 state, path=os.path.join(config["scratch"], f"step{n}"), mesh=mesh, specs=specs)
         record = dict(rank=rank, pid=os.getpid(), step=n, start=start, loop_start=loop_start,
                       binding=binding, launches=launch_counts())
+        if n == config["steps"]:
+            record["digest"] = state_digest(model.state_dict())
         with open(os.path.join(config["records"], f"rank{rank}-{os.getpid()}.json"), "w") as f:
             json.dump(record, f)
         train.report({"loss": value, "step": n, "start": start, "loop_start": loop_start,
                       "t0": t0, "t1": t1}, checkpoint=ckpt)
+
+
+def final_digests(recs):
+    """Each rank's digest of its blocks after the last step, by rank."""
+    return {r["rank"]: r["digest"] for r in recs if "digest" in r}
 
 
 def worker_group_cards(n, device, preset, seq):
@@ -7938,12 +8218,13 @@ def worker_group_cards(n, device, preset, seq):
     out = dict(preset=preset, world=n, seq=seq, batch_per_card=1, steps=ACTORS_STEPS,
                errors=[repr(killed.error), repr(whole.error)], history=hist(whole),
                killed_history=hist(killed), fit_s=[runs["killed_s"], runs["whole_s"]],
-               ms_per_step=ms_step,
+               ms_per_step=ms_step, ms_last_step=(last[-1]["t1"] - last[-1]["t0"]) * 1e3,
                group_restart_s=second[0]["loop_start"] - crash["t"] if second else None,
                group_restart_to_step_s=second[0]["t0"] - crash["t"] if second else None,
                launches={k: [r["launches"] for r in v] for k, v in records.items()},
                launches_here=[runs["killed_here"], runs["whole_here"]],
-               cards=[sorted(cards(a)) for a in attempts["killed"] + attempts["whole"]])
+               cards=[sorted(cards(a)) for a in attempts["killed"] + attempts["whole"]],
+               digests=final_digests(records["whole"]))
     checks = {
         "no error in either run": killed.error is None and whole.error is None,
         f"steps 1-{ACTORS_STEPS} and losses of the restarted group equal the unkilled "
@@ -8274,12 +8555,185 @@ def run_actors_cards(n, device="cuda", presets=None):
     return res
 
 
+CLUSTER_MACHINE = "a3-highgpu-1g"   # the cluster group's node shape: one H100 a host
+
+
+def run_cluster_cards(n, device="cuda", presets=None, whole=None):
+    """Group `cluster` of `--cards n`: the port's runtime across n node
+    agents, one a card. This process is a head owning no card
+    (rt.init(num_gpus=0, cluster_port=0)); GcpGpuNodeProvider(CLUSTER_MACHINE)
+    on FakeGpuApi over this process's n cards, installed with
+    sdk.set_node_provider, launches the nodes one request_resources at a
+    time, so node k registers k-th, bound to card k. (a) n num_gpus=1
+    actors with SPREAD: n node agents, their cards' UUIDs this process's
+    n. (b) The trainer's worker group across the agents:
+    TorchTrainer(group_fit_loop, use_worker_actor=True,
+    ScalingConfig(num_workers=n, use_gpu=True,
+    resources_per_worker={<the machine's marker>: 1})) places one
+    TrainWorker an agent ({"fsdp": n}, llama_1b, B=1 a card, T=2048, 4
+    steps, a sharded checkpoint at step 2); rank ACTORS_FAIL_RANK SIGKILLs
+    its agent's process group at step 3 of the first attempt, the head's
+    reconciler launches a replacement bound to that card, and the group
+    restarts (FailureConfig(max_failures=1)) from step 2's checkpoint. Held
+    to `whole`, the unkilled run of group `actors` (a) on a single-node
+    session of this invocation (run here when that group did not run):
+    the loss history equal, every rank's blocks' digest equal, every rank
+    of an attempt on its own card and agent, B1-B3 counted on every rank,
+    none here. Logs the last step's ms (the resumed attempt's second,
+    NCCL up) against the single node's and the seconds from the kill to
+    the resumed step."""
+    import tempfile
+
+    import torch
+    import chip_smoke
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train
+    from ray_tpu_torch.autoscaler import FakeGpuApi, GcpGpuNodeProvider, sdk
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    presets = presets or {}
+    preset, seq = presets.get("llama", "llama_1b"), presets.get("group_seq", 2048)
+    cuda = device == "cuda"
+    tag = "cards cluster"
+    t_group = time.perf_counter()
+    if whole is None:
+        rt.init(num_cpus=4 * n, num_gpus=None if cuda else n)
+        try:
+            whole = worker_group_cards(n, device, preset, seq)
+        finally:
+            stop_runtime(rt)
+    out, checks = dict(preset=preset, world=n, seq=seq, machine=CLUSTER_MACHINE), {}
+    reset_launch_counts()
+    rt.init(num_cpus=4, num_gpus=0, cluster_port=0)
+    cards = provider_cards(n, device)
+    api = FakeGpuApi(cards=cards)
+    provider = GcpGpuNodeProvider(machine_type=CLUSTER_MACHINE, api=api)
+    marker = provider.registration_marker
+    root = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+    try:
+        sdk.set_node_provider(provider, max_nodes=n)
+        t1 = time.perf_counter()
+        handles = []
+        for k in range(n):
+            handles += sdk.request_resources(bundles=[{"GPU": 1}] * (k + 1))["launched_nodes"]
+            wait_until(lambda: rt.cluster_resources().get("GPU", 0) == k + 1, 60,
+                       f"node {k}'s registration")
+        out["register_s"] = time.perf_counter() - t1
+        agents = [provider.pid_of(h) for h in handles]
+        card_of_agent = {provider.pid_of(h): api.cards_of(h)[0] for h in handles}
+        checks[f"{n} nodes launched one request at a time, node k bound to card k "
+               f"({[api.cards_of(h) for h in handles]})"] = (
+            [api.cards_of(h) for h in handles] == [[c] for c in cards])
+        want_uuids = ([str(torch.cuda.get_device_properties(i).uuid) for i in range(n)]
+                      if cuda else None)
+
+        # (a) placement
+        pingers = [rt.remote(num_gpus=1, scheduling_strategy="SPREAD")(Pinger).remote()
+                   for _ in range(n)]
+        bindings = rt.get([p.binding.remote() for p in pingers], timeout=120)
+        for p in pingers:
+            rt.kill(p)
+        out["placement"] = bindings
+        checks[f"{n} num_gpus=1 actors with SPREAD on {n} node agents"] = (
+            sorted(b["ppid"] for b in bindings) == sorted(agents))
+        if cuda:
+            checks[f"their cards' UUIDs are this process's {n}"] = (
+                sorted(b["uuids"][0] for b in bindings) == sorted(want_uuids))
+
+        # (b) the worker group across the agents, a node killed mid-run
+        rec = os.path.join(root, "records")
+        os.makedirs(rec)
+        config = dict(preset=preset, seq=seq, steps=ACTORS_STEPS, device=device,
+                      scratch=os.path.join(root, "scratch"), records=rec,
+                      flag=os.path.join(root, "died"), kill_node=True)
+        t1 = time.perf_counter()
+        result = train.TorchTrainer(
+            chip_smoke.group_fit_loop, train_loop_config=config, use_worker_actor=True,
+            scaling_config=train.ScalingConfig(num_workers=n, use_gpu=cuda,
+                                               resources_per_worker={marker: 1}),
+            run_config=train.RunConfig(name="cluster", storage_path=root,
+                                       failure_config=train.FailureConfig(max_failures=1))).fit()
+        out["fit_s"] = time.perf_counter() - t1
+        out["launches_here"] = launch_counts()
+        records = [json.load(open(os.path.join(rec, f))) for f in sorted(os.listdir(rec))]
+        crash = json.load(open(os.path.join(root, "died")))
+        events = [dict(action=e["action"], handle=e["handle"])
+                  for e in rt.api._runtime.controller.reconciler.events]
+        out["replaced_on"] = [api.cards_of(e["handle"]) for e in events
+                              if e["action"] == "replace"]
+        out["reconciler"] = events
+    finally:
+        provider.shutdown()
+        workers, left = stop_runtime(rt)
+        shutil.rmtree(root, ignore_errors=True)
+    layers = getattr(LlamaConfig, preset)().n_layers
+    per = layers if cuda else 0
+    hist = [(m["step"], m["loss"]) for m in result.metrics_history]
+    attempts = [[r for r in records if r["start"] == st] for st in sorted({r["start"]
+                                                                            for r in records})]
+    dead_card = card_of_agent.get(crash["ppid"])
+    second = [m for m in result.metrics_history if m["start"] == ACTORS_SAVE_AT]
+    last = result.metrics_history
+    out.update(history=hist, errors=repr(result.error), records=records, crash=crash,
+               ms_per_step=(last[-1]["t1"] - last[-2]["t0"]) / 2 * 1e3,
+               ms_last_step=(last[-1]["t1"] - last[-1]["t0"]) * 1e3,
+               ms_last_step_single_node=whole["ms_last_step"],
+               kill_to_restart_s=second[0]["loop_start"] - crash["t"] if second else None,
+               kill_to_resumed_step_s=second[0]["t0"] - crash["t"] if second else None)
+    agent_of = lambda group: {r["binding"]["ppid"] for r in group}
+    checks.update({
+        "no error in the fit": result.error is None,
+        f"steps 1-{ACTORS_STEPS} and losses equal the single-node unkilled group's":
+            hist == [tuple(h) for h in whole["history"]],
+        f"two attempts, the second resumed from step {ACTORS_SAVE_AT}, {n} ranks each":
+            [len(a) for a in attempts] == [n, n] and attempts[1][0]["start"] == ACTORS_SAVE_AT,
+        "every rank of an attempt on its own node agent" + (" and card" if cuda else ""): all(
+            len(agent_of(a)) == len(a) and (not cuda or len(
+                {r["binding"]["cuda_visible_devices"] for r in a}) == len(a)) for a in attempts),
+        f"rank {ACTORS_FAIL_RANK}'s node (card {dead_card}) killed and replaced by the "
+        f"reconciler on the same card ({out['replaced_on']})":
+            out["replaced_on"] == [[dead_card]],
+        "every rank's blocks equal the single-node group's (digests)":
+            final_digests(records) == {int(k): v for k, v in whole["digests"].items()}
+            and len(whole["digests"]) == n,
+        f"B1-B3 launched {layers} x the steps each rank's process took, on every rank"
+        + ("" if cuda else " (0 on the CPU)"): all(
+            r["launches"][f] == per * (r["step"] - r["start"]) for r in records
+            for f in FLASH_NAMES),
+        "no kernel launched here": not any(out["launches_here"].values()),
+        f"every worker exited after shutdown() ({workers} workers)": not left,
+    })
+    out["seconds"] = time.perf_counter() - t_group
+    for what, ok in checks.items():
+        log(f"[{tag}] {'ok  ' if ok else 'FAIL'} {what}")
+    if result.error is not None:
+        log(f"[{tag}] the fit's error: {str(result.error)[-4000:]}")
+    log(f"[{tag}] {preset} at {{'fsdp': {n}}} B=1 a card T={seq} over {n} node agents: step "
+        f"{ACTORS_STEPS} {out['ms_last_step']:.1f} ms (the resumed attempt's second step) against "
+        f"{whole['ms_last_step']:.1f} ms on one node's unkilled run; steps {ACTORS_STEPS - 1}-"
+        f"{ACTORS_STEPS} with their reports {out['ms_per_step']:.1f} ms a step (the first after "
+        f"the restart starting NCCL) against {whole['ms_per_step']:.1f}; "
+        f"rank {ACTORS_FAIL_RANK}'s node killed at step {ACTORS_FAIL_AT}, the group restarted "
+        f"{out['kill_to_restart_s'] or 0:.2f} s later, its first step "
+        f"{out['kill_to_resumed_step_s'] or 0:.2f} s after the kill; nodes up in "
+        f"{out['register_s']:.1f} s; fit {out['fit_s']:.1f} s; group {out['seconds']:.1f} s"
+        + (f" ({smi_line()})" if cuda else ""))
+    if not all(checks.values()):
+        raise AssertionError(f"cluster group checks failed: "
+                             f"{[what for what, ok in checks.items() if not ok]}")
+    out.pop("records")
+    return out
+
+
 def main_cards(n, device="cuda", presets=None, max_tokens=32, phases=CARDS_PHASES):
     """`--cards n`: with "runtime", run_runtime_cards in this process; with
     "serve", run_serve_cards in this process (replicas of the port's runtime
     on the cards); with "actors", run_actors_cards in this process (the
     trainer's worker group, build_pipeline and create_collective_group over
-    GPU actors); with "rl_dp", rl_dp_cards in a world of its own whose
+    GPU actors); with "cluster", run_cluster_cards in this process (n node
+    agents a card each under a head owning none, the worker group across
+    them with a node killed and replaced, held to "actors"' unkilled
+    group, run first when "actors" did not run); with "rl_dp", rl_dp_cards in a world of its own whose
     ranks start as torchrun's do (_dp_rank); then one rank per card over
     NCCL, the phases of cards_phases; then, with "seqpipe", MPMD 1F1B in
     this process with stage i on card i
@@ -8293,7 +8747,7 @@ def main_cards(n, device="cuda", presets=None, max_tokens=32, phases=CARDS_PHASE
         raise RuntimeError(f"--cards {n} needs {n} visible cards, have "
                            f"{torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    if device == "cuda" and {"actors", "seqpipe", "tp", "fsdp"} & set(phases):
+    if device == "cuda" and {"actors", "cluster", "seqpipe", "tp", "fsdp"} & set(phases):
         from ray_tpu_torch.ops import _build
         _build.build()      # once, before actors or ranks load it (rl_dp launches none)
     prior = {}
@@ -8305,6 +8759,11 @@ def main_cards(n, device="cuda", presets=None, max_tokens=32, phases=CARDS_PHASE
         (OUT_DIR / CARDS_OUT).write_text(json.dumps(prior, indent=1, default=str))
     if "actors" in phases:
         prior["actors"] = run_actors_cards(n, device, presets)
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / CARDS_OUT).write_text(json.dumps(prior, indent=1, default=str))
+    if "cluster" in phases:
+        prior["cluster"] = run_cluster_cards(n, device, presets,
+                                             (prior.get("actors") or {}).get("group"))
         OUT_DIR.mkdir(exist_ok=True)
         (OUT_DIR / CARDS_OUT).write_text(json.dumps(prior, indent=1, default=str))
     if "rl_dp" in phases:
@@ -8435,6 +8894,7 @@ def main() -> int:
     runtime["init_s"] = session_init_s
     serve_app = run_serve_app(sequential)
     runtime["session_workers"] = close_session("session")
+    cluster = run_cluster(sequential)
     radix_visits = run_radix_visits(sequential)
     tiered = run_tiered()
 
@@ -8458,6 +8918,7 @@ def main() -> int:
     paths = {"serve": summary["launches"], "serve_moe": moe["launches"],
              "serve_pd": pd["launches"], "serve_pd_proc": pd["proc"]["launches"],
              "runtime": runtime["launches"], "serve_app": serve_app["launches"],
+             "cluster": cluster["launches"],
              "serve_tiered": tiered["launches"],
              "ckpt_whole": trainer["ckpt_whole"]["launches"],
              "train": train["launches"], "train_resume": trainer["launches"],
@@ -8467,7 +8928,7 @@ def main() -> int:
              "ring": seqpipe["launches"]["ring"],
              "pipeline": seqpipe["launches"]["pipeline"], **rl["launches"]}
     serve_paths = ("serve", "serve_moe", "serve_pd", "serve_pd_proc", "runtime", "serve_app",
-                   "serve_tiered", "ckpt_whole", "serve_tp", "ring", "pipeline") + RL_PATHS
+                   "cluster", "serve_tiered", "ckpt_whole", "serve_tp", "ring", "pipeline") + RL_PATHS
 
     def flash_row(name, source, replaces, err):
         t = train_t[name]
@@ -8503,7 +8964,7 @@ def main() -> int:
         flash_timing=list(flash_t.values()), train_kernel_timing=train_t,
         paged_timing=paged_t, paged_timing_long=paged_long, paged_plans=paged_plans,
         slice=summary, moe=moe, replica=replica, pd=pd, runtime=runtime, serve_app=serve_app,
-        radix_visits=radix_visits,
+        cluster=cluster, radix_visits=radix_visits,
         tiered=tiered,
         train=train,
         trainer=trainer, mesh=mesh, train_mesh=train_mesh, seqpipe=seqpipe, rl=rl,

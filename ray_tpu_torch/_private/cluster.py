@@ -381,9 +381,12 @@ class ClusterServer:
             return None
         if strat == "SPREAD":
             # round-robin over head + fitting nodes (ref: SPREAD is
-            # best-effort dispersal, scheduling_policy.cc)
-            slots = [None] + [n for n in self._live()
-                              if self._fits(spec.resources, n.available)]
+            # best-effort dispersal, scheduling_policy.cc); the head only
+            # when it could ever run the task (a GPU actor under a head
+            # that owns no card would queue there for good)
+            head = [None] if self._fits(spec.resources, self.c.total) else []
+            slots = head + [n for n in self._live()
+                            if self._fits(spec.resources, n.available)]
             if not slots:
                 return None
             self._rr += 1

@@ -1675,14 +1675,15 @@ class Controller:
         request_resources → autoscaler/_private/autoscaler.py:1-1572). The
         reference records the demand and adds nodes; on one host the
         "cluster" is the worker pool, so meeting the request means warming
-        idle CPU workers up to it, bounded by max_workers. Overwrite
+        idle CPU workers up to it, bounded by max_workers. A bundle's cards
+        are "GPU", the resource GPU nodes advertise (their bound cards). Overwrite
         semantics (a new call replaces the prior request), like the
         reference. Returns what was fulfilled vs clamped."""
         target = int(num_cpus or 0)
         target_gpus = 0.0
         for b in bundles or []:
             target += int(b.get("CPU", 0) or 0)
-            target_gpus += float(b.get("num_gpus", 0) or 0)
+            target_gpus += float(b.get("GPU", 0) or 0)
         self.resource_requests = {
             "num_cpus": num_cpus, "bundles": bundles, "target_cpus": target,
             "target_gpus": target_gpus, "ts": time.time()}
@@ -1704,7 +1705,7 @@ class Controller:
         # without a provider, a GPU demand beyond current capacity can never
         # be met — report it clamped instead of silently "satisfied"
         clamped = (target > want
-                   or target_gpus > self.res_total().get("num_gpus", 0.0)
+                   or target_gpus > self.res_total().get("GPU", 0.0)
                    + 1e-9)
         if (self.cluster is not None and self.node_provider is not None
                 and (target > 0 or target_gpus > 0)):
@@ -1726,7 +1727,7 @@ class Controller:
                 1 for n in self.cluster.nodes.values()
                 if n.alive and n.resources.get(marker))
                 if marker is not None else 0.0)
-            promised = {"CPU": 0.0, "num_gpus": 0.0}
+            promised = {"CPU": 0.0, "GPU": 0.0}
             for h, c in self._provider_nodes.items():
                 pids = pids_of(h) if pids_of is not None else None
                 if pids:
@@ -1743,27 +1744,27 @@ class Controller:
                 else:
                     frac = 0.0 if pid_of(h) in reg_pids else 1.0
                 promised["CPU"] += c.get("CPU", 0.0) * frac
-                promised["num_gpus"] += c.get("num_gpus", 0.0) * frac
+                promised["GPU"] += c.get("GPU", 0.0) * frac
             per_node = {
                 "CPU": float(getattr(self.node_provider, "cpus_per_node",
                                      2.0)),
-                "num_gpus": float(getattr(self.node_provider,
+                "GPU": float(getattr(self.node_provider,
                                           "gpus_per_node", 0.0))}
             totals = self.res_total()
             projected = {
                 "CPU": totals.get("CPU", 0.0) + promised["CPU"],
-                "num_gpus": totals.get("num_gpus", 0.0)
-                + promised["num_gpus"]}
+                "GPU": totals.get("GPU", 0.0)
+                + promised["GPU"]}
 
             def unmet():
                 cpu_short = (projected["CPU"] + 1e-9 < target
                              and per_node["CPU"] > 0)
-                gpu_short = (projected["num_gpus"] + 1e-9 < target_gpus
-                             and per_node["num_gpus"] > 0)
+                gpu_short = (projected["GPU"] + 1e-9 < target_gpus
+                             and per_node["GPU"] > 0)
                 return cpu_short or gpu_short
 
             # zero-valued entries must not reach providers as resources
-            # (a subprocess node would register a pointless num_gpus: 0)
+            # (a subprocess node would register a pointless GPU: 0)
             launch_res = {k: v for k, v in per_node.items() if v > 0}
             while unmet() and len(self._provider_nodes) < \
                     self.provider_max_nodes:
@@ -1777,9 +1778,9 @@ class Controller:
                 self._provider_nodes[handle] = dict(per_node)
                 launched_nodes.append(handle)
                 projected["CPU"] += per_node["CPU"]
-                projected["num_gpus"] += per_node["num_gpus"]
+                projected["GPU"] += per_node["GPU"]
             clamped = (projected["CPU"] + 1e-9 < target
-                       or projected["num_gpus"] + 1e-9 < target_gpus)
+                       or projected["GPU"] + 1e-9 < target_gpus)
         return {"target_cpus": target, "fulfilled_cpus": want,
                 "target_gpus": target_gpus, "clamped": clamped,
                 "spawned_workers": spawned, "launched_nodes": launched_nodes}

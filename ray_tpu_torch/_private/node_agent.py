@@ -1160,6 +1160,12 @@ async def _amain(args) -> int:
     os.environ["RTPT_ADDRESS"] = sock
     resources = {"CPU": float(args.num_cpus), "memory": 32 << 30}
     if args.num_gpus:
+        # the node's cards are the CUDA_VISIBLE_DEVICES it was started
+        # with (node_provider.spawn_agent): an actor's card id indexes them
+        seen = [x for x in os.environ.get("CUDA_VISIBLE_DEVICES", "").split(",") if x.strip()]
+        if "CUDA_VISIBLE_DEVICES" in os.environ and len(seen) < args.num_gpus:
+            raise SystemExit(f"--num-gpus {args.num_gpus:g} but CUDA_VISIBLE_DEVICES "
+                             f"names {len(seen)} cards ({seen})")
         resources["GPU"] = float(args.num_gpus)
     import json
     for k, v in (json.loads(args.resources) if args.resources else {}).items():
@@ -1186,7 +1192,8 @@ def main(argv=None) -> int:
                     "ray_tpu_torch.init(cluster_port=...))")
     ap.add_argument("--address", required=True, help="head HOST:PORT")
     ap.add_argument("--num-cpus", type=float, default=float(os.cpu_count() or 4))
-    ap.add_argument("--num-gpus", type=float, default=0.0)
+    ap.add_argument("--num-gpus", type=float, default=0.0,
+                    help="cards this node owns: the first N of CUDA_VISIBLE_DEVICES")
     ap.add_argument("--resources", default="", help='extra resources, JSON '
                     '(e.g. \'{"worker_node": 1}\')')
     ap.add_argument("--object-store-memory", type=int, default=0)

@@ -120,7 +120,7 @@ class Reconciler:
     def _launch_res(self) -> Dict[str, float]:
         prov = self.c.node_provider
         per_node = {"CPU": float(getattr(prov, "cpus_per_node", 2.0)),
-                    "num_gpus": float(getattr(prov, "gpus_per_node", 0.0))}
+                    "GPU": float(getattr(prov, "gpus_per_node", 0.0))}
         return {k: v for k, v in per_node.items() if v > 0}
 
     def _registered_pids(self, alive_only: bool = True) -> set:

@@ -7,8 +7,9 @@ device ("cuda" by default). Ported: PPO (with its multi-agent mode),
 IMPALA, APPO, DQN, SAC, TQC, BC, MARWIL, CQL, IQL and DreamerV3, the
 replay buffers, and the data-parallel learner group (`num_learners > 1`:
 one rank a learner, `learner.py`), and the sebulba pipeline on the
-port's runtime (`SebulbaPipeline`, `RolloutActor`, `ReplayActor`). Remote
-env runners and evaluation actors are not yet (ROADMAP.md §A, item 5).
+port's runtime (`SebulbaPipeline`, `RolloutActor`, `ReplayActor`), and
+the remote env runners and evaluation actors on that runtime
+(`num_env_runners`, `evaluation_num_env_runners`).
 gymnasium is imported only where an env is made.
 """
 

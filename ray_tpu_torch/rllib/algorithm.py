@@ -12,24 +12,23 @@ one builder chain configures both packages.
 `sebulba.SebulbaPipeline` on the port's runtime (rollout actors and a
 replay actor, the learner here), as JAX's does; it reads the hooks JAX's
 reads (`_supports_sebulba`, `_make_runner_kwargs`, `_sebulba_update`,
-`get_weights`, `learner.jit_cache_size`). Remote env runners
-(`num_env_runners > 0`) and evaluation actors are not ported onto the
-port's runtime yet (ROADMAP queue A, item 5), so they raise
-`NotImplementedError` here.
+`get_weights`, `learner.jit_cache_size`). `num_env_runners > 0` makes
+that many `EnvRunner` actors of the port's runtime (`ray_tpu_torch.init()`
+is called if no session is up), and `evaluation_num_env_runners > 0`
+dedicated greedy evaluation actors, as JAX's does; a remote runner acts on
+its host's CPU, so its kwargs carry no `device`.
 """
 
 import copy
+import math
 import time
 from typing import Any, Callable, Dict, List, Optional, Type, Union
 
 import numpy as np
 
 from ray_tpu_torch.train.checkpoint import Checkpoint
-from .env_runner import EnvRunner, host_env_runner, resolve_env_creator
+from .env_runner import EnvRunner, host_env_runner, host_runner_kwargs, resolve_env_creator
 from .sample_batch import SampleBatch
-
-_RUNTIME = ("runs actors: it is not ported onto ray_tpu_torch's runtime yet (ROADMAP "
-            "queue A, item 5)")
 
 
 class AlgorithmConfig:
@@ -220,17 +219,17 @@ class Algorithm:
     """Iteration driver: `train()` = collect -> learn -> metrics."""
 
     def __init__(self, config: AlgorithmConfig):
-        if config.num_env_runners > 0:
-            raise NotImplementedError(f"num_env_runners > 0 {_RUNTIME}")
-        if config.evaluation_interval and config.evaluation_num_env_runners > 0:
-            raise NotImplementedError(f"evaluation_num_env_runners > 0 {_RUNTIME}")
         self.config = config
         self.iteration = 0
         self._env_steps_iter = 0
         self._env_steps_total = 0
+        self._runner_handles: List = []
         self._local_runner: Optional[EnvRunner] = None
+        self._eval_handles: List = []       # dedicated evaluation actors
         self._local_eval_runner: Optional[EnvRunner] = None
+        self._pending_eval = None           # a parallel evaluation's refs
         self.setup(config)
+        self._setup_eval_runners()
         self._sebulba = None
         if config.sebulba_enabled:
             from .sebulba import SebulbaPipeline
@@ -254,9 +253,34 @@ class Algorithm:
                     device=cfg.device)
 
     def _setup_runners(self):
-        self._local_runner = host_env_runner(self._make_runner_kwargs())
+        cfg = self.config
+        if cfg.num_env_runners <= 0:
+            self._local_runner = host_env_runner(self._make_runner_kwargs())
+            return
+        import ray_tpu_torch as rt
+        if not rt.is_initialized():
+            rt.init()
+        decorator = {"num_cpus": 1}
+        if cfg.env_runner_resources:
+            decorator["resources"] = dict(cfg.env_runner_resources)
+        if cfg.env_runner_scheduling_strategy is not None:
+            decorator["scheduling_strategy"] = cfg.env_runner_scheduling_strategy
+        remote_runner = rt.remote(**decorator)(EnvRunner)
+        kw = host_runner_kwargs(self._make_runner_kwargs())
+        self._runner_handles = [remote_runner.remote(**{**kw, "seed": cfg.seed + i})
+                                for i in range(cfg.num_env_runners)]
+        # a local runner for the module spec only (it never samples)
+        self._local_runner = EnvRunner(**{**kw, "num_envs": 1, "rollout_len": 2})
 
     def _sample_all(self, weights) -> (SampleBatch, Dict):
+        if self._runner_handles:
+            import ray_tpu_torch as rt
+            wref = rt.put(weights)
+            batches = rt.get([r.sample.remote(wref) for r in self._runner_handles])
+            metrics = rt.get([r.pop_metrics.remote() for r in self._runner_handles])
+            batch = SampleBatch.concat(batches)
+            self._env_steps_iter += batch.count
+            return batch, _merge_runner_metrics(metrics)
         b = self._local_runner.sample(weights)
         self._env_steps_iter += b.count
         return b, self._local_runner.pop_metrics()
@@ -269,10 +293,40 @@ class Algorithm:
         raise NotImplementedError
 
     # -- public api ----------------------------------------------------------
+    # algorithms whose evaluate() cannot run on a generic EnvRunner (their
+    # own weight layouts) opt out of the dedicated-actor path
+    _supports_eval_actors = True
+
     def _eval_runner_kwargs(self) -> Dict[str, Any]:
+        """The training runners' construction (SAC's and DQN's module
+        overrides ride along), greedy and with one env."""
         kw = self._make_runner_kwargs()
         kw.update(num_envs=1, explore=False)
         return kw
+
+    def _setup_eval_runners(self):
+        """Dedicated evaluation EnvRunner actors (reference: Algorithm's
+        evaluation worker set). None with `evaluation_num_env_runners` 0:
+        evaluate() then runs a cached inline runner."""
+        cfg = self.config
+        if (not cfg.evaluation_interval or cfg.evaluation_num_env_runners <= 0
+                or not self._supports_eval_actors or cfg.policies):
+            return
+        import ray_tpu_torch as rt
+        if not rt.is_initialized():
+            rt.init()
+        remote_runner = rt.remote(num_cpus=1)(EnvRunner)
+        kw = host_runner_kwargs(self._eval_runner_kwargs())
+        self._eval_handles = [remote_runner.remote(**{**kw, "seed": cfg.seed + 10_000 + i})
+                              for i in range(cfg.evaluation_num_env_runners)]
+
+    def _launch_eval(self) -> List:
+        """Each evaluation actor's run_eval over one put of the weights,
+        ceil(duration / actors) episodes an actor."""
+        import ray_tpu_torch as rt
+        wref = rt.put(self.get_weights())
+        per = math.ceil(self.config.evaluation_duration / len(self._eval_handles))
+        return [h.run_eval.remote(wref, per) for h in self._eval_handles]
 
     def _eval_due(self) -> bool:
         return bool(self.config.evaluation_interval and
@@ -289,14 +343,33 @@ class Algorithm:
         self._env_steps_total += self._env_steps_iter
         result.setdefault("num_env_steps_sampled_this_iter", self._env_steps_iter)
         result.setdefault("num_env_steps_sampled_lifetime", self._env_steps_total)
-        if self._eval_due():
-            result["evaluation"] = self.evaluate()
+        due = self._eval_due()
+        # a parallel evaluation launched in an earlier iteration attaches to
+        # the first result where it has finished (waited for when the next
+        # one is due)
+        if self._pending_eval is not None:
+            import ray_tpu_torch as rt
+            ready, _ = rt.wait(self._pending_eval, num_returns=len(self._pending_eval),
+                               timeout=None if due else 0.0)
+            if len(ready) == len(self._pending_eval):
+                result["evaluation"] = _merge_runner_metrics(rt.get(self._pending_eval))
+                self._pending_eval = None
+        if due:
+            parallel = self._eval_handles and self.config.evaluation_parallel_to_training
+            if parallel and self._pending_eval is None:
+                self._pending_eval = self._launch_eval()
+            elif not parallel:
+                result["evaluation"] = self.evaluate()
         result["time_this_iter_s"] = time.perf_counter() - t0
         return result
 
     def evaluate(self) -> Dict[str, Any]:
-        """Greedy-policy episodes on a cached inline runner."""
+        """Greedy-policy episodes (blocking): on the evaluation actors where
+        there are any, else on a cached inline runner."""
         cfg = self.config
+        if self._eval_handles:
+            import ray_tpu_torch as rt
+            return _merge_runner_metrics(rt.get(self._launch_eval()))
         if self._local_eval_runner is None:
             self._local_eval_runner = host_env_runner(
                 {**self._eval_runner_kwargs(), "seed": cfg.seed + 10_000})
@@ -346,6 +419,11 @@ class Algorithm:
         for runner in (self._local_runner, self._local_eval_runner):
             if runner is not None:
                 runner.close()
+        if self._runner_handles or self._eval_handles:
+            import ray_tpu_torch as rt
+            for h in self._runner_handles + self._eval_handles:
+                rt.kill(h)
+            self._runner_handles, self._eval_handles, self._pending_eval = [], [], None
 
 
 def _merge_runner_metrics(ms: List[Dict]) -> Dict:

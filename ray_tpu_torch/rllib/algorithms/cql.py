@@ -122,6 +122,10 @@ class CQLLearner(SACLearner):
 
 
 class CQL(Algorithm):
+    # its weights are SAC's nets, which a generic EnvRunner cannot act
+    # with: evaluate() is this class's own inline loop
+    _supports_eval_actors = False
+
     def setup(self, config: CQLConfig):
         if config.offline_data is None:
             raise ValueError("CQL needs config.offline_data")

@@ -338,6 +338,8 @@ class _SequenceReplay:
 
 # ----------------------------------------------------------------- algorithm
 class DreamerV3(Algorithm):
+    _supports_eval_actors = False
+
     def setup(self, config: DreamerV3Config):
         if isinstance(config.env, str):
             import gymnasium as gym

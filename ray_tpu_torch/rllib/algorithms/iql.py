@@ -113,6 +113,10 @@ class IQLLearner(SACLearner):
 
 
 class IQL(Algorithm):
+    # its weights are SAC's nets, which a generic EnvRunner cannot act
+    # with: evaluate() is this class's own inline loop
+    _supports_eval_actors = False
+
     def setup(self, config: IQLConfig):
         if config.offline_data is None:
             raise ValueError("IQL needs config.offline_data")

@@ -14,8 +14,9 @@ Sampling draws from a `torch.Generator` seeded with `seed ^ 0x5eed`.
 gymnasium is imported inside the functions that need it. String envs are
 gymnasium ids: the reference also looks up `ray_tpu.tune.registry` names,
 runtime state the port does not import (ROADMAP §C); pass a callable
-instead. The runner is a plain object: `ray_tpu.remote(num_cpus=1)(EnvRunner)`
-makes it an actor.
+instead. The runner is a plain object: `ray_tpu_torch.remote(num_cpus=1)(EnvRunner)`
+makes it an actor, as `Algorithm` does for its remote and evaluation
+runners.
 """
 
 import functools
@@ -219,8 +220,13 @@ class Episodes:
                 "episode_len_mean": float(np.mean(lens))}
 
 
-def host_env_runner(runner_kwargs: Dict) -> EnvRunner:
-    """The EnvRunner of a rollout producer's kwargs
+def host_runner_kwargs(runner_kwargs: Dict) -> Dict:
+    """An EnvRunner's kwargs of a rollout producer's kwargs
     (`Algorithm._make_runner_kwargs`). It acts on the host CPU, so the
     learner's `device` among them is not its own."""
-    return EnvRunner(**{k: v for k, v in runner_kwargs.items() if k != "device"})
+    return {k: v for k, v in runner_kwargs.items() if k != "device"}
+
+
+def host_env_runner(runner_kwargs: Dict) -> EnvRunner:
+    """The inline EnvRunner of a rollout producer's kwargs."""
+    return EnvRunner(**host_runner_kwargs(runner_kwargs))

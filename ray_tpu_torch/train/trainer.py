@@ -26,6 +26,7 @@ Execution model: one process a card. Where the loop runs:
 """
 
 import dataclasses
+import time
 import uuid
 from typing import Any, Callable, Dict, List, Optional
 
@@ -35,6 +36,9 @@ from ray_tpu_torch.train.config import (FailureConfig, RunConfig, ScalingConfig,
                                         TrainingFailedError)
 from ray_tpu_torch.train.worker_group import (TrainWorker, presplit_datasets,
                                               result_after_worker_death, run_training)
+
+# seconds a group retry waits for the cluster to hold its bundles again
+GROUP_REPLACE_WAIT_S = 120.0
 
 
 @dataclasses.dataclass
@@ -164,17 +168,38 @@ class TorchTrainer:
         claims one, gloo on the CPU otherwise."""
         return "cuda" if self.scaling_config.use_gpu else "cpu"
 
+    def _place_group(self, n: int, wait_s: float):
+        """The group's placement group: STRICT_SPREAD over the nodes when
+        there are enough, else SPREAD. A retry waits up to `wait_s` for
+        the cluster to hold its bundles again: when a rank's node died, its
+        replacement (the reconciler's, or one started by hand) registers
+        seconds after the group's failure is seen."""
+        import ray_tpu_torch as rt
+        from ray_tpu_torch.exceptions import PlacementGroupInfeasibleError
+        from ray_tpu_torch.util.placement_group import placement_group
+
+        deadline = time.monotonic() + wait_s
+        while True:
+            alive = [r for r in rt.nodes() if r.get("alive", True)]
+            strategy = "STRICT_SPREAD" if len(alive) >= n else "SPREAD"
+            try:
+                return placement_group([self._worker_bundle() for _ in range(n)],
+                                       strategy=strategy)
+            except PlacementGroupInfeasibleError:
+                if time.monotonic() >= deadline:
+                    raise
+                time.sleep(0.5)
+
     def _fit_worker_group(self, resume_path: Optional[str], run_id: str) -> Dict[str, Any]:
-        """One TrainWorker a bundle of a placement group (STRICT_SPREAD over
-        the nodes when there are enough, else SPREAD), rank 0 picking the
-        process group's address, every rank's fit in that one world. Any
-        rank's death tears the group down, and the whole group retries per
-        FailureConfig, resuming from the newest checkpoint on disk (the
-        shared run_id keeps the resume)."""
+        """One TrainWorker a bundle of a placement group (`_place_group`),
+        rank 0 picking the process group's address, every rank's fit in
+        that one world. Any rank's death tears the group down, and the
+        whole group retries per FailureConfig, resuming from the newest
+        checkpoint on disk (the shared run_id keeps the resume)."""
         import cloudpickle
 
         import ray_tpu_torch as rt
-        from ray_tpu_torch.util.placement_group import placement_group, remove_placement_group
+        from ray_tpu_torch.util.placement_group import remove_placement_group
         from ray_tpu_torch.util.scheduling_strategies import PlacementGroupSchedulingStrategy
 
         n = self.scaling_config.num_workers
@@ -188,10 +213,7 @@ class TorchTrainer:
             pg = None
             workers = []
             try:
-                alive = [r for r in rt.nodes() if r.get("alive", True)]
-                strategy = "STRICT_SPREAD" if len(alive) >= n else "SPREAD"
-                pg = placement_group([self._worker_bundle() for _ in range(n)],
-                                     strategy=strategy)
+                pg = self._place_group(n, GROUP_REPLACE_WAIT_S if attempts else 0.0)
                 rt.get(pg.ready(), timeout=120)
                 for rank in range(n):
                     strat = PlacementGroupSchedulingStrategy(

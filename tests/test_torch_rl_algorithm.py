@@ -4,18 +4,20 @@
 metrics and learner metrics must match JAX's, and whose weights after the
 update must too; inline evaluation; the checkpoint round trip of
 tests/test_rllib.py; multi-agent PPO's build and first iteration; every
-ported config's defaults against JAX's; the `NotImplementedError`s of
-the remote runners the port's runtime does not run yet; PPO's ValueError
-for the sebulba pipeline; and a two-learner group on a world of
-one rank raising JAX's ValueError.
+ported config's defaults against JAX's; remote env runners and an
+evaluation actor of the port's runtime building and sampling; PPO's
+ValueError for the sebulba pipeline; and a two-learner group on a world
+of one rank raising JAX's ValueError.
 
 Tolerances (f32): learner metrics within 1e-4 of max(1, |value|); weights
 as in tests/test_torch_rl_learner.py (the Adam bound, 2 lr a step, on
 each coordinate, and at most 1e-3 of the coordinates lr / 100 apart)."""
 
+import numpy as np
 import pytest
 import torch
 
+import ray_tpu_torch as rt
 from ray_tpu.rllib import APPOConfig as JAPPOConfig, IMPALAConfig as JIMPALAConfig, \
     PPOConfig as JPPOConfig
 from ray_tpu_torch.models.convert import flax_rl_module_to_state_dict
@@ -114,18 +116,47 @@ def _cpu_ppo():
             .env_runners(rollout_fragment_length=8).training(train_batch_size=8))
 
 
-@pytest.mark.parametrize("change,error,match", [
-    (lambda c: c.env_runners(num_env_runners=2), NotImplementedError,
-     r"num_env_runners > 0 .*queue A, item 5"),
+@pytest.fixture
+def port_session():
+    rt.init(num_cpus=2, num_gpus=0)
+    yield rt
+    rt.shutdown()
+
+
+def _remote_runners_sample(algo):
+    assert len(algo._runner_handles) == 2
+    batch, metrics = algo._sample_all(algo.get_weights())
+    assert np.asarray(batch["obs"]).shape == (8, 2, 4) and "episodes_this_iter" in metrics
+    assert algo.train()["num_env_steps_sampled_this_iter"] == 16
+
+
+def _eval_actor_evaluates(algo):
+    assert len(algo._eval_handles) == 1
+    ev = algo.evaluate()
+    assert ev["episodes_this_iter"] >= algo.config.evaluation_duration
+    assert np.isfinite(ev["episode_return_mean"])
+
+
+# these two raised NotImplementedError before the port's runtime ran them
+@pytest.mark.parametrize("change,check", [
+    (lambda c: c.env_runners(num_env_runners=2), _remote_runners_sample),
     (lambda c: c.evaluation(evaluation_interval=1, evaluation_num_env_runners=1),
-     NotImplementedError, r"evaluation_num_env_runners > 0 .*queue A, item 5"),
+     _eval_actor_evaluates),
+], ids=["remote_runners", "eval_actors"])
+def test_runtime_paths_build_and_sample(port_session, change, check):
+    algo = change(_cpu_ppo()).build()
+    check(algo)
+    algo.stop()
+
+
+@pytest.mark.parametrize("change,error,match", [
     # the pipeline runs on the port's runtime now; PPO has no V-trace, so
     # building it raises JAX's ValueError before any runtime starts
     (lambda c: c.sebulba(), ValueError, "PPO does not support the sebulba pipeline"),
     # a group of two learners needs a world of two ranks (JAX's error, with
     # the port's world named)
     (lambda c: c.learners(num_learners=2), ValueError, "num_learners=2 but only 1 ranks"),
-], ids=["remote_runners", "eval_actors", "sebulba", "dp_learners"])
+], ids=["sebulba", "dp_learners"])
 def test_later_and_runtime_paths_raise(fresh_world, change, error, match):
     with pytest.raises(error, match=match):
         change(_cpu_ppo()).build()

@@ -170,3 +170,27 @@ def test_env_runner_as_ray_tpu_actor(ray_session, jax_weights):
     assert ray_session.get(actor.pop_metrics.remote()) == inline.pop_metrics()
     ray_session.kill(actor)
     inline.close()
+
+
+def test_env_runner_as_port_actor(jax_weights):
+    """The same on the port's own runtime: the EnvRunner as a
+    `ray_tpu_torch.remote` actor, its weights through the port's object
+    store, samples equal to the inline runner's."""
+    import ray_tpu_torch as rt
+    weights = flax_rl_module_to_state_dict(jax_weights)
+    kw = dict(num_envs=2, rollout_len=30, seed=9, explore=False)
+    inline = EnvRunner("CartPole-v1", **kw)
+    inline.set_weights(weights)
+    rt.init(num_cpus=2, num_gpus=0)
+    try:
+        actor = rt.remote(num_cpus=1)(EnvRunner).remote("CartPole-v1", **kw)
+        wref = rt.put(weights)
+        for _ in range(2):
+            got = rt.get(actor.sample.remote(wref), timeout=120)
+            want = inline.sample()
+            for k in want:
+                np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        assert rt.get(actor.pop_metrics.remote(), timeout=60) == inline.pop_metrics()
+    finally:
+        rt.shutdown()
+        inline.close()
