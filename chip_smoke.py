@@ -4298,6 +4298,249 @@ def run_train_fit_actor(run_a, device="cuda", preset="llama_1b", batch=4, seq=20
     return out
 
 
+# ---------------------------------------------------------------------- tune
+TUNE_LRS = (1e-4, 1e-5, 1e-6)     # run A's lr (build_llama_trainer's default) first
+TUNE_LRS_CARDS = (1e-4, 1e-5, 1e-6, 3e-5)   # four trials, a card each
+TUNE_MAX_T = 6                    # ASHA's horizon: iterations of one step, run A's steps
+TUNE_ETA = 2                      # ASHA's reduction factor: rungs at 1, 2 and 4
+
+
+def tune_loop(config, batches=None):
+    """A Tune trial (`tune`): run_trainer's build (llama_1b, seeded weights,
+    bf16) with the trial's `lr`, one step an iteration on `batches` (the
+    host batches, through the store by `with_parameters`). Every report
+    carries the step's loss, this process's pid and its launch counts since
+    the loop began, the host times around the step and the loop's start;
+    the first also the card binding."""
+    import torch
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.train.llm_step import build_llama_trainer
+    loop_start = time.time()
+    reset_launch_counts()
+    _, _, step, _, dev = build_llama_trainer(config["preset"], config["batch"], config["seq"],
+                                             device=config["device"], lr=config["lr"])
+    built = time.time()
+    for n, batch in enumerate(batches[:config["max_t"]], 1):
+        t0 = time.time()
+        value = step(torch.tensor(batch, device=dev)).item()   # the store's arrays are read-only
+        t1 = time.time()
+        tune.report({"loss": value, "step": n, "pid": os.getpid(), "loop_start": loop_start,
+                     "built": built, "t0": t0, "t1": t1, "launches": launch_counts(),
+                     "binding": card_binding() if n == 1 else None})
+
+
+def tune_sweep(lrs, device, preset, batch, seq, concurrent, root, tag):
+    """One sweep: Tuner over `lrs` (grid_search), each trial tune_loop in a
+    `with_resources({"cpu": 1, "gpu": 1})` actor, ASHAScheduler(metric=
+    "loss", mode="min", max_t=TUNE_MAX_T, grace_period=1, reduction_factor=
+    TUNE_ETA), `concurrent` trials at once. Returns the grid, the sweep's
+    seconds and a record a trial (lr, losses, pid, binding, last launches,
+    the loop's start, the built model's time, each step's host times)."""
+    import chip_smoke
+    from ray_tpu_torch import train, tune
+    from ray_tpu_torch.models.llama import LlamaConfig
+    from ray_tpu_torch.train.llm_step import host_batches
+    batches = host_batches(getattr(LlamaConfig, preset)().vocab_size, batch, seq)[:TUNE_MAX_T]
+    trainable = tune.with_resources(tune.with_parameters(chip_smoke.tune_loop, batches=batches),
+                                    {"cpu": 1, "gpu": 1})
+    t0 = time.time()
+    grid = tune.Tuner(
+        trainable,
+        param_space=dict(lr=tune.grid_search(list(lrs)), preset=preset, batch=batch, seq=seq,
+                         device=device, max_t=TUNE_MAX_T),
+        tune_config=tune.TuneConfig(
+            metric="loss", mode="min", max_concurrent_trials=concurrent,
+            scheduler=tune.ASHAScheduler(max_t=TUNE_MAX_T, grace_period=1,
+                                         reduction_factor=TUNE_ETA)),
+        run_config=train.RunConfig(name=tag, storage_path=root)).fit()
+    sweep_s = time.time() - t0
+    trials = []
+    for r in grid:
+        h = r.metrics_history
+        trials.append(dict(trial_id=r.trial_id, lr=r.config["lr"], error=r.error,
+                           losses=[m["loss"] for m in h], steps=[m["step"] for m in h],
+                           pids=sorted({m["pid"] for m in h}),
+                           binding=h[0]["binding"] if h else None,
+                           launches=h[-1]["launches"] if h else None,
+                           loop_start=h[0]["loop_start"] if h else None,
+                           built=h[0]["built"] if h else None,
+                           t0=[m["t0"] for m in h], t1=[m["t1"] for m in h]))
+    return grid, t0, sweep_s, trials
+
+
+def tune_checks(trials, layers, cuda):
+    """What every sweep holds: no trial errors; each trial actor's
+    CUDA_VISIBLE_DEVICES its get_gpu_ids() and one card seen; B1-B3
+    launched 16 x the steps it reported, there, and B4 none."""
+    checks = {}
+    per = layers if cuda else 0
+    checks["no trial errors"] = all(t["error"] is None for t in trials)
+    checks[f"B1-B3 launched {layers} x each trial's steps "
+           f"{[len(t['losses']) for t in trials]} in its process, B4 none"
+           + ("" if cuda else " (0 on the CPU)")] = all(
+        t["launches"] is not None
+        and all(t["launches"][f] == per * len(t["losses"]) for f in FLASH_NAMES)
+        and t["launches"]["paged_decode"] == t["launches"]["paged_decode_combine"] == 0
+        for t in trials)
+    bindings = [t["binding"] or {} for t in trials]
+    checks[f"each trial actor's CUDA_VISIBLE_DEVICES == its get_gpu_ids() "
+           f"{[(b.get('cuda_visible_devices'), b.get('gpu_ids')) for b in bindings]}"
+           + (", one card seen" if cuda else "")] = all(
+        b.get("cuda_visible_devices") == ",".join(map(str, b.get("gpu_ids") or [None]))
+        and (b.get("device_count") == 1 or not cuda) for b in bindings)
+    return checks
+
+
+def run_tune(run_a, device="cuda", preset="llama_1b", batch=4, seq=2048):
+    """(g) Path `tune`: a Tune sweep in the session of the port's runtime
+    (`tune.Tuner(...).fit()`): tune_sweep over TUNE_LRS, one trial at a
+    time on the one card. Held: tune_checks; the run A trial's (lr 1e-4)
+    losses equal run A's, bit for bit as floats; ASHA stopped at least one
+    trial before TUNE_MAX_T, and get_best_result() is the trial with the
+    lowest last loss; this process launched no kernel; the card came back
+    after the sweep (a num_gpus=1 actor made afterwards starts). Timed: the
+    sweep's wall time, each trial's actor start (its loop's start after
+    the sweep's start or the previous trial's last step), its build, and
+    ms a step in a trial (its last two steps, each with its report)
+    against run A's bare loop."""
+    import tempfile
+
+    import torch
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.models.llama import LlamaConfig
+
+    cuda = torch.device(device).type == "cuda"
+    smi = smi_line()
+    root = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    out = dict(device=smi, preset=preset, batch=batch, seq=seq, lrs=list(TUNE_LRS),
+               max_t=TUNE_MAX_T, reduction_factor=TUNE_ETA)
+    own = not rt.is_initialized()
+    try:
+        if own:
+            out["init_s"] = open_session(device)
+        if cuda:
+            torch.cuda.empty_cache()
+        reset_launch_counts()
+        grid, start, out["sweep_s"], trials = tune_sweep(TUNE_LRS, device, preset, batch, seq,
+                                                         1, root, "tune")
+        here = launch_counts()
+        t0 = time.perf_counter()
+        after = rt.get(rt.remote(num_gpus=1)(Pinger).remote().binding.remote(), timeout=300)
+        out["card_back_s"] = time.perf_counter() - t0
+        best = grid.get_best_result()
+    finally:
+        if own:
+            out["session_workers"] = close_session("tune")
+        shutil.rmtree(root, ignore_errors=True)
+    want = [x.item() for x in run_a["losses"]][:TUNE_MAX_T]
+    run_a_trial = next(t for t in trials if t["lr"] == TUNE_LRS[0])
+    prev_end = start
+    for t in sorted(trials, key=lambda t: t["loop_start"] or 0):
+        if t["loop_start"] is not None:
+            t["actor_start_s"] = t["loop_start"] - prev_end
+            t["build_s"] = t["built"] - t["loop_start"]
+            prev_end = t["t1"][-1]
+        if len(t["t0"]) >= 2:
+            t["ms_per_step"] = (t["t1"][-1] - t["t0"][-2]) / 2 * 1e3
+    lowest = min(trials, key=lambda t: t["losses"][-1])
+    layers = getattr(LlamaConfig, preset)().n_layers
+    out.update(trials=trials, launches_here=here, card_after=after, best_lr=best.config["lr"],
+               losses_run_a=want, ms_per_step_bare=run_a["ms_per_step"],
+               launches={f: sum(t["launches"][f] for t in trials) for f in here},
+               removed=not os.path.exists(root))
+    checks = tune_checks(trials, layers, cuda)
+    checks.update({
+        f"the run A trial's losses equal run A's as floats ({len(run_a_trial['losses'])} "
+        f"steps)": bool(run_a_trial["losses"])
+        and run_a_trial["losses"] == want[:len(run_a_trial["losses"])],
+        f"ASHA stopped a trial before max_t={TUNE_MAX_T} "
+        f"({[len(t['losses']) for t in trials]})":
+            any(len(t["losses"]) < TUNE_MAX_T for t in trials),
+        f"get_best_result() (lr {best.config['lr']}) is the lowest last loss's trial "
+        f"(lr {lowest['lr']})": best.trial_id == lowest["trial_id"],
+        f"this process launched no kernel ({here})": not any(here.values()),
+        "the card returned after the sweep: a num_gpus=1 actor started"
+        + (" on it" if cuda else ""): bool(after) and (
+            not cuda or after["gpu_ids"] == (run_a_trial["binding"] or {}).get("gpu_ids")),
+        "run directory removed": out["removed"],
+    })
+    for what, ok in checks.items():
+        log(f"[tune] {'ok  ' if ok else 'FAIL'} {what}")
+    for t in trials:
+        log(f"[tune] lr {t['lr']:g}: {len(t['losses'])} steps, losses "
+            f"{[round(x, 4) for x in t['losses']]}, actor start "
+            f"{t.get('actor_start_s', 0):.2f} s (build {t.get('build_s', 0):.2f} s), "
+            f"{t.get('ms_per_step', 0):.1f} ms a step; error {str(t['error'])[-2000:]}")
+    log(f"[tune] {preset} B={batch} T={seq}, {len(trials)} trials one at a time: sweep "
+        f"{out['sweep_s']:.2f} s; ms a step in the run A trial "
+        f"{run_a_trial.get('ms_per_step', 0):.1f} against the bare loop's "
+        f"{run_a['ms_per_step']:.1f}; best lr {best.config['lr']:g}; launches "
+        f"{out['launches']} in the trials' processes, {here} here; a num_gpus=1 actor "
+        f"started {out['card_back_s']:.2f} s after ({smi})")
+    if not all(checks.values()):
+        raise AssertionError(f"tune checks failed: "
+                             f"{[what for what, ok in checks.items() if not ok]}")
+    return out
+
+
+def run_tune_cards(n, device="cuda", presets=None):
+    """Group `tune` of `--cards n`: in a session of the port's runtime that
+    counts the n cards, tune_sweep over TUNE_LRS_CARDS one trial at a time
+    ("alone"), then the same sweep with n trials at once, a card each.
+    Held: tune_checks on both; n distinct get_gpu_ids() at once, the n
+    trials' loops overlapping; each trial's losses equal the same trial's
+    losses alone over the steps both took (ASHA cuts at other points when
+    the trials race). Timed: both sweeps' wall times."""
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.models.llama import LlamaConfig
+    presets = presets or {}
+    preset = presets.get("llama", "llama_1b")
+    seq, batch = presets.get("tune_seq", 2048), presets.get("tune_batch", 4)
+    cuda = device == "cuda"
+    root = tempfile.mkdtemp(prefix="chip_smoke_tune_cards_")
+    lrs = TUNE_LRS_CARDS[:n]
+    t0 = time.perf_counter()
+    rt.init(num_cpus=4 * n, num_gpus=None if cuda else n)
+    try:
+        _, _, alone_s, alone = tune_sweep(lrs, device, preset, batch, seq, 1, root, "alone")
+        _, _, together_s, together = tune_sweep(lrs, device, preset, batch, seq, n, root,
+                                                "together")
+    finally:
+        workers, left = stop_runtime(rt)
+        shutil.rmtree(root, ignore_errors=True)
+    layers = getattr(LlamaConfig, preset)().n_layers
+    by_lr = {t["lr"]: t for t in alone}
+    ids = [tuple((t["binding"] or {}).get("gpu_ids") or ()) for t in together]
+    checks = {f"alone: {k}": v for k, v in tune_checks(alone, layers, cuda).items()}
+    checks.update({f"together: {k}": v
+                   for k, v in tune_checks(together, layers, cuda).items()})
+    common = {t["lr"]: min(len(t["losses"]), len(by_lr[t["lr"]]["losses"])) for t in together}
+    checks.update({
+        f"{n} distinct get_gpu_ids() at once ({ids})": len(set(ids)) == n == len(together),
+        f"the {n} trials' loops overlapped": max(t["loop_start"] for t in together)
+        < min(t["t1"][-1] for t in together),
+        f"each trial's losses equal its losses alone over {list(common.values())} steps":
+            all(c > 0 and t["losses"][:c] == by_lr[t["lr"]]["losses"][:c]
+                for t, c in zip(together, common.values())),
+        f"every worker exited after shutdown() ({workers} workers)": not left,
+    })
+    for what, ok in checks.items():
+        log(f"[cards tune] {'ok  ' if ok else 'FAIL'} {what}")
+    res = dict(lrs=list(lrs), alone_s=alone_s, together_s=together_s, alone=alone,
+               together=together, seconds=time.perf_counter() - t0)
+    log(f"[cards tune] {preset} B={batch} T={seq}: {n} trials one at a time "
+        f"{alone_s:.2f} s, {n} at once {together_s:.2f} s "
+        f"({alone_s / together_s:.2f}x); steps alone {[len(t['losses']) for t in alone]}, "
+        f"at once {[len(t['losses']) for t in together]}; the group took "
+        f"{res['seconds']:.1f} s" + (f" ({smi_line()})" if cuda else ""))
+    if not all(checks.values()):
+        raise AssertionError(f"cards tune checks failed: "
+                             f"{[what for what, ok in checks.items() if not ok]}")
+    return res
+
+
 CKPT_WHOLE_FROM = {"fsdp": 4}              # the mesh the ranks write on
 CKPT_WHOLE_ONTO = {"fsdp": 2, "tp": 2}     # the mesh they restore onto
 CKPT_WHOLE_TOKENS = 16                     # greedy tokens a prompt, both servers
@@ -5578,7 +5821,8 @@ RL_METRIC_TOL = 1e-4     # cuda vs cpu learner metrics, of max(1, |value|)
 RL_FAR_SHARE = 1e-3
 CARTPOLE_TOL = 1e-6      # TorchCartPole.step state, cuda vs cpu, absolute
 RL_BAR = 60.0            # JAX's IMPALA bar (tests/test_rllib_algos.py): best return
-PPO_PROFILE_STEPS = 200  # PPO minibatch steps in the profiled window of `rl_device`
+PPO_PROFILE_STEPS = 50   # PPO minibatch steps in the profiled window of `rl_device` (its
+                         # trace's processing is slow: 37 s for 186 steps)
 
 
 def rl_batch(rng, t, b, obs_shape=(4,), n_actions=2):
@@ -6296,7 +6540,7 @@ class NumpyCartPole:
 
 
 DREAMER_ITERS = 4          # rl_dreamer's train() iterations with an update, after the collection
-DREAMER_PROFILED = 3       # profiled updates (~5,500 launches each; the trace's processing is slow)
+DREAMER_PROFILED = 1       # profiled updates (~5,500 launches each; the trace's processing is slow)
 
 
 def dreamer_batch(rng, b, t, obs_dim=4, n_actions=2):
@@ -6690,7 +6934,8 @@ def run_rl(device="cuda"):
 
 # ------------------------------------------------------------------ cards
 CARDS_OUT = "chip_smoke_cards4.json"
-CARDS_PHASES = ("runtime", "serve", "actors", "cluster", "rl_dp", "seqpipe", "tp", "fsdp")
+CARDS_PHASES = ("runtime", "serve", "actors", "cluster", "tune", "rl_dp", "seqpipe", "tp",
+                "fsdp")
 RING_SEQ_CARDS = 16384          # ring at sp=4: 4096 tokens a card
 
 
@@ -8733,7 +8978,9 @@ def main_cards(n, device="cuda", presets=None, max_tokens=32, phases=CARDS_PHASE
     GPU actors); with "cluster", run_cluster_cards in this process (n node
     agents a card each under a head owning none, the worker group across
     them with a node killed and replaced, held to "actors"' unkilled
-    group, run first when "actors" did not run); with "rl_dp", rl_dp_cards in a world of its own whose
+    group, run first when "actors" did not run); with "tune", run_tune_cards in this
+    process (a Tune sweep one trial at a time, then n trials at once, a card
+    each); with "rl_dp", rl_dp_cards in a world of its own whose
     ranks start as torchrun's do (_dp_rank); then one rank per card over
     NCCL, the phases of cards_phases; then, with "seqpipe", MPMD 1F1B in
     this process with stage i on card i
@@ -8747,7 +8994,7 @@ def main_cards(n, device="cuda", presets=None, max_tokens=32, phases=CARDS_PHASE
         raise RuntimeError(f"--cards {n} needs {n} visible cards, have "
                            f"{torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    if device == "cuda" and {"actors", "cluster", "seqpipe", "tp", "fsdp"} & set(phases):
+    if device == "cuda" and {"actors", "cluster", "tune", "seqpipe", "tp", "fsdp"} & set(phases):
         from ray_tpu_torch.ops import _build
         _build.build()      # once, before actors or ranks load it (rl_dp launches none)
     prior = {}
@@ -8764,6 +9011,10 @@ def main_cards(n, device="cuda", presets=None, max_tokens=32, phases=CARDS_PHASE
     if "cluster" in phases:
         prior["cluster"] = run_cluster_cards(n, device, presets,
                                              (prior.get("actors") or {}).get("group"))
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / CARDS_OUT).write_text(json.dumps(prior, indent=1, default=str))
+    if "tune" in phases:
+        prior["tune"] = run_tune_cards(n, device, presets)
         OUT_DIR.mkdir(exist_ok=True)
         (OUT_DIR / CARDS_OUT).write_text(json.dumps(prior, indent=1, default=str))
     if "rl_dp" in phases:
@@ -8844,10 +9095,19 @@ def main() -> int:
         f"{kind} x{torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 references stay f32
     torch.backends.cudnn.allow_tf32 = False
+    path_seconds = {}   # each path's (or phase's) wall seconds, in the order run
+
+    def timed(name, fn, *args, **kw):
+        t = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            path_seconds[name] = time.perf_counter() - t
 
     t0 = time.perf_counter()
     _build.load_library()
     build_seconds = _build.build_seconds
+    path_seconds["build"] = time.perf_counter() - t0
     log(f"[build] kernels built in {time.perf_counter() - t0:.1f} s")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "build_log.txt").write_text(_build.build_log)
@@ -8856,6 +9116,7 @@ def main() -> int:
 
     rng = np.random.default_rng(0)
     cases = []
+    t0 = time.perf_counter()
     flash_err = check_flash(rng, cases)
     bwd_err, bwd_readings = check_flash_bwd(rng, cases)  # max-abs error of each kernel
     paged_err = check_paged(rng, cases)
@@ -8865,15 +9126,18 @@ def main() -> int:
             f"plain {r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
     train_t = time_flash_train(rng, cases)
+    path_seconds["kernels"] = time.perf_counter() - t0
 
-    summary = run_slice()
+    summary = timed("serve", run_slice)
     # B4 timed at the slice's decode batch (prompt lengths + 16 generated)
     # and at the long shape (every row a full 2048-token table), the latter
     # over 4 input sets (135 MB of K and V, more than the L2 cache holds)
     serve_lengths = [n + 16 for n in summary["prompt_lens"][:8]]
+    t0 = time.perf_counter()
     paged_t = time_paged(rng, serve_lengths)
     paged_long = time_paged(rng, [2048] * 8, copies=4)
     paged_plans = sweep_paged_plan(rng, serve_lengths)
+    path_seconds["paged_timing"] = time.perf_counter() - t0
     for what, r in (("serve lengths", paged_t), ("long, lengths 2048", paged_long)):
         log(f"[kernels] paged_decode B=8 {what}: {r['ms']:.4f} ms (eager call "
             f"{r['eager_ms']:.4f}), plain {r['plain_ms']:.4f} ms, bound "
@@ -8883,33 +9147,40 @@ def main() -> int:
     import gc
     gc.collect()
     torch.cuda.empty_cache()   # the llama_1b server is gone; Mixtral needs the room
-    moe = run_moe(rng)
-    replica = run_replica()
+    moe = timed("serve_moe", run_moe, rng)
+    replica = timed("replica", run_replica)
     # one session of the port's runtime for the paths that use actors: PD's
     # prefill replica, the runtime's checks, then Serve's OpenAI app
-    session_init_s = open_session("cuda")
-    pd = run_pd()
+    session_init_s = timed("session_init", open_session, "cuda")
+    pd = timed("serve_pd", run_pd)
     sequential = pd.pop("sequential")
-    runtime = run_runtime(sequential)
+    runtime = timed("runtime", run_runtime, sequential)
     runtime["init_s"] = session_init_s
-    serve_app = run_serve_app(sequential)
-    runtime["session_workers"] = close_session("session")
-    cluster = run_cluster(sequential)
-    radix_visits = run_radix_visits(sequential)
-    tiered = run_tiered()
+    serve_app = timed("serve_app", run_serve_app, sequential)
+    runtime["session_workers"] = timed("session_close", close_session, "session")
+    cluster = timed("cluster", run_cluster, sequential)
+    radix_visits = timed("radix_visits", run_radix_visits, sequential)
+    tiered = timed("serve_tiered", run_tiered)
 
-    train = dict(grads=check_train_grads(), head_bf16=check_head_bf16(), **run_train())
-    topology, nccl = check_topology(), check_nccl_world()
+    train = timed("train", lambda: dict(grads=check_train_grads(), head_bf16=check_head_bf16(),
+                                        **run_train()))
+    topology, nccl = timed("topology_nccl", lambda: (check_topology(), check_nccl_world()))
     run_a = {}
-    trainer = dict(run_trainer(keep=run_a), topology=topology, nccl=nccl)
-    trainer["fit"] = run_train_fit(run_a)
-    trainer["fit_actor"] = run_train_fit_actor(run_a)
+    trainer = dict(timed("train_resume", run_trainer, keep=run_a), topology=topology, nccl=nccl)
+    trainer["fit"] = timed("train_fit", run_train_fit, run_a)
+    # a second session of the port's runtime: the trainer's actor, then
+    # Tune's trials
+    fit_init_s = timed("session2_init", open_session, "cuda")
+    trainer["fit_actor"] = timed("train_fit_actor", run_train_fit_actor, run_a)
+    trainer["fit_actor"]["init_s"] = fit_init_s
+    tune = timed("tune", run_tune, run_a)
+    tune["session_workers"] = timed("session2_close", close_session, "train_fit_actor+tune")
     del run_a
-    trainer["ckpt_whole"] = run_ckpt_whole()
-    mesh = run_mesh()
-    train_mesh = run_train_mesh()
-    seqpipe = run_seqpipe()
-    rl = run_rl()
+    trainer["ckpt_whole"] = timed("ckpt_whole", run_ckpt_whole)
+    mesh = timed("serve_tp", run_mesh)
+    train_mesh = timed("train_mesh", run_train_mesh)
+    seqpipe = timed("seqpipe", run_seqpipe)
+    rl = timed("rl", run_rl)
 
     # one row per kernel; launches counted on each main path that was driven,
     # timings at the training shape for the flash kernels (the serving shapes
@@ -8923,12 +9194,13 @@ def main() -> int:
              "ckpt_whole": trainer["ckpt_whole"]["launches"],
              "train": train["launches"], "train_resume": trainer["launches"],
              "train_fit": trainer["fit"]["launches"],
-             "train_fit_actor": trainer["fit_actor"]["launches"],
+             "train_fit_actor": trainer["fit_actor"]["launches"], "tune": tune["launches"],
              "serve_tp": mesh["launches"], "train_mesh": train_mesh["launches"],
              "ring": seqpipe["launches"]["ring"],
              "pipeline": seqpipe["launches"]["pipeline"], **rl["launches"]}
     serve_paths = ("serve", "serve_moe", "serve_pd", "serve_pd_proc", "runtime", "serve_app",
-                   "cluster", "serve_tiered", "ckpt_whole", "serve_tp", "ring", "pipeline") + RL_PATHS
+                   "cluster", "serve_tiered", "ckpt_whole", "serve_tp", "ring", "pipeline",
+                   "tune") + RL_PATHS
 
     def flash_row(name, source, replaces, err):
         t = train_t[name]
@@ -8967,9 +9239,11 @@ def main() -> int:
         cluster=cluster, radix_visits=radix_visits,
         tiered=tiered,
         train=train,
-        trainer=trainer, mesh=mesh, train_mesh=train_mesh, seqpipe=seqpipe, rl=rl,
-        kernels=kernels),
+        trainer=trainer, tune=tune, mesh=mesh, train_mesh=train_mesh, seqpipe=seqpipe, rl=rl,
+        kernels=kernels, path_seconds=path_seconds),
         indent=1, default=str))
+    log(f"[paths] seconds a path, in the order run: "
+        f"{json.dumps({k: round(v, 2) for k, v in path_seconds.items()})}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -30,7 +30,7 @@ _LAZY = {**{name: ".api" for name in _API},
          "RemoteFunction": ".remote_function", "get_runtime_context": ".runtime_context",
          "get_gpu_ids": ".runtime_context", "resolve_device": ".device"}
 _LAZY_SUBMODULES = ("api", "exceptions", "parallel", "models", "ops", "train", "serve",
-                    "rllib", "util")
+                    "rllib", "util", "tune", "dag", "workflow")
 
 __all__ = sorted(_LAZY) + ["exceptions"]
 

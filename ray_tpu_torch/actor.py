@@ -45,11 +45,10 @@ class ActorMethod:
         return self._handle._invoke(self._name, args, kwargs, self._num_returns)
 
     def bind(self, *args, **kwargs):
-        """DAG-build spelling (reference: actor.method.bind in ray.dag). The
-        port has no dag module yet: ROADMAP queue A, item 7."""
-        raise NotImplementedError(
-            "ray_tpu_torch has no dag module yet (ROADMAP queue A, item 7: "
-            "Data, Tune, workflow/dag)")
+        """DAG-build spelling (reference: actor.method.bind in ray.dag):
+        returns a ClassMethodNode for `ray_tpu_torch.dag` graphs."""
+        from .dag import ClassMethodNode
+        return ClassMethodNode(self._handle, self._name, args, kwargs)
 
     def __call__(self, *args, **kwargs):
         raise TypeError(f"Actor method '{self._name}' must be called with .remote().")

@@ -181,11 +181,10 @@ class RemoteFunction:
             f"'{self.__name__}.remote()'.")
 
     def bind(self, *args, **kwargs):
-        """DAG-build spelling (reference: task .bind in ray.dag). The port
-        has no dag module yet: ROADMAP queue A, item 7."""
-        raise NotImplementedError(
-            "ray_tpu_torch has no dag module yet (ROADMAP queue A, item 7: "
-            "Data, Tune, workflow/dag)")
+        """DAG-build spelling (reference: task .bind in ray.dag — the node
+        type `ray_tpu_torch.workflow` runs durably)."""
+        from .dag import FunctionNode
+        return FunctionNode(self, args, kwargs)
 
     def options(self, **overrides):
         merged = {**self._options, **overrides}

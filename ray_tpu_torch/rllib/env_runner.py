@@ -11,12 +11,12 @@ finished env's next obs is its reset obs), and a bootstrap value masked
 by the last step's terminal flag.
 
 Sampling draws from a `torch.Generator` seeded with `seed ^ 0x5eed`.
-gymnasium is imported inside the functions that need it. String envs are
-gymnasium ids: the reference also looks up `ray_tpu.tune.registry` names,
-runtime state the port does not import (ROADMAP §C); pass a callable
-instead. The runner is a plain object: `ray_tpu_torch.remote(num_cpus=1)(EnvRunner)`
-makes it an actor, as `Algorithm` does for its remote and evaluation
-runners.
+gymnasium is imported inside the functions that need it. A string env is
+a `ray_tpu_torch.tune.register_env` name first and a gymnasium id
+otherwise, as in the reference; it is resolved in the driver, and the
+creator pickles by value into remote runners. The runner is a plain
+object: `ray_tpu_torch.remote(num_cpus=1)(EnvRunner)` makes it an actor,
+as `Algorithm` does for its remote and evaluation runners.
 """
 
 import functools
@@ -50,10 +50,20 @@ def record_param_version(version: int):
 
 
 def resolve_env_creator(env: Union[str, Callable], env_config: Optional[dict] = None):
-    """A gymnasium id -> a creator of that env with `env_config`'s kwargs; a
-    callable passes through."""
+    """String env -> callable, DRIVER-side: `tune.register_env` names win
+    over gymnasium ids (ref: rllib resolves through tune/registry.py before
+    gym.make); a callable passes through. Must run where the registration
+    happened: the returned CALLABLE then pickles by value into remote
+    runner actors, whose own process-local registry is empty. Each
+    invocation hands the creator a fresh dict copy (vector envs call it N
+    times; a creator that pops keys must not corrupt its siblings'
+    config)."""
     if callable(env):
         return env
+    from ray_tpu_torch.tune.registry import get_env_creator
+    registered = get_env_creator(env)
+    if registered is not None:
+        return lambda: registered(dict(env_config or {}))
     import gymnasium as gym
     return functools.partial(gym.make, env, **(env_config or {}))
 

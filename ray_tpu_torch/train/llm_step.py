@@ -155,7 +155,7 @@ def host_batches(vocab: int, batch: int, seq: int, n: int = 8):
 def build_llama_trainer(preset: str = "llama_1b", batch: int = 4, seq: int = 2048,
                         remat: Optional[bool] = None, device="cuda", seed: int = 0,
                         params=None, dtype: Optional[torch.dtype] = None, mesh=None,
-                        overrides: Optional[dict] = None):
+                        overrides: Optional[dict] = None, lr: float = 1e-4):
     """(model, optimizer, step, host batches, device) as `train_llama` sets them up.
 
     `remat=None` takes bench.py's default: off for llama_1b at batch <= 4,
@@ -163,7 +163,8 @@ def build_llama_trainer(preset: str = "llama_1b", batch: int = 4, seq: int = 204
     bf16 params for llama_1b, the preset's f32 otherwise); a dtype sets both.
     `params` is a flax param tree of numpy arrays (converted by
     `models/convert.py`); without it the weights are drawn from `seed`.
-    `overrides` are further LlamaConfig fields.
+    `overrides` are further LlamaConfig fields; `lr` is AdamW's learning
+    rate (a Tune sweep's knob).
 
     `mesh`: the shard-local model on it (module docstring), this rank's
     card bound first (`bind_card`). Its weights are this rank's blocks of
@@ -193,7 +194,7 @@ def build_llama_trainer(preset: str = "llama_1b", batch: int = 4, seq: int = 204
     else:
         whole = [(k, p.shape) for k, p in Llama(cfg, device="meta").named_parameters()]
         init_params_sharded(model, whole, torch.Generator(device=dev).manual_seed(seed), mesh)
-    optimizer, _ = make_optimizer(model.parameters(), lr=1e-4, optimizer="adamw",
+    optimizer, _ = make_optimizer(model.parameters(), lr=lr, optimizer="adamw",
                                   weight_decay=1e-4)
     step = make_train_step(model, optimizer, chunk_size=512, mesh=mesh)
     return model, optimizer, step, host_batches(cfg.vocab_size, batch, seq), dev

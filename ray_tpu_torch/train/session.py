@@ -9,10 +9,13 @@ checkpoint) back to the trainer; the common pattern is
 model.state_dict(), "optim": opt.state_dict(), "step": i}))` every N steps.
 """
 
-import threading
-from typing import Any, Dict, Optional
+from __future__ import annotations
 
-from ray_tpu_torch.train.checkpoint import Checkpoint
+import threading
+from typing import TYPE_CHECKING, Any, Dict, Optional
+
+if TYPE_CHECKING:   # the session itself needs no torch
+    from ray_tpu_torch.train.checkpoint import Checkpoint
 
 _local = threading.local()
 

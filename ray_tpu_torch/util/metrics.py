@@ -2,7 +2,8 @@
 registry, with quantile summaries of histograms.
 
 The port's own copy of `ray_tpu/util/metrics.py`, with the port runtime's
-control-plane and transfer counters, and the two tallies the serving
+read surface (control-plane frames and round trips, transfers, prefetch
+hits, async results, locality and the spill ladder's tallies), and the two tallies the serving
 plane reads: `kv_ship_counters` (the PD KV-shipment
 plane, `serve/kv_transfer.py`) and `radix_counters` (the radix prefix
 cache and its demotion tier, `serve/radix_cache.py`). The registry is
@@ -332,6 +333,19 @@ def control_plane_counters() -> Dict[str, Dict[str, int]]:
     return protocol.counter_snapshot()
 
 
+def control_roundtrips_total() -> int:
+    """Blocking control calls this process made (worker RPCs that awaited a
+    reply, driver bridge calls into the controller loop)."""
+    from ray_tpu_torch._private import protocol
+    return protocol.roundtrips_total()
+
+
+def control_frames_sent_total() -> int:
+    """Unix-socket frames this process sent."""
+    from ray_tpu_torch._private import protocol
+    return protocol.frames_sent_total()
+
+
 def control_local_gets_total() -> int:
     """Owned objects served from the client-local ownership table — gets
     that never touched the head (zero round trips, zero frames)."""
@@ -358,6 +372,46 @@ def transfer_counters() -> Dict[str, float]:
             "deadline_exceeded":
                 _counter_total("transfer_deadline_exceeded_total"),
             "seconds": seconds}
+
+
+def transfer_bytes_total() -> int:
+    return int(_counter_total("transfer_fetch_bytes"))
+
+
+def prefetch_counters() -> Dict[str, float]:
+    """Dependency-prefetching dispatch tallies (per process: the head sees
+    its own dispatches, each node agent its own). hits/misses are counted
+    at DISPATCH: a hit means a ref arg was shm/inline-resident when the
+    exec frame shipped (the worker resolves it zero-copy); a miss means
+    the worker had to fall back to the blocking exec-time fetch.
+    pulls/pull_bytes/dedup/failures tally the eager pull manager;
+    overlap_saved_ms sums the pull wall-time of args that were prefetched
+    and hit, transfer time taken off the task's critical path."""
+    return {"hits": _counter_total("prefetch_hits"),
+            "misses": _counter_total("prefetch_misses"),
+            "pulls": _counter_total("prefetch_pulls"),
+            "pull_bytes": _counter_total("prefetch_pull_bytes"),
+            "dedup": _counter_total("prefetch_pull_dedup"),
+            "failures": _counter_total("prefetch_pull_failures"),
+            "overlap_saved_ms": _counter_total("prefetch_overlap_saved_ms")}
+
+
+def prefetch_hit_rate() -> float:
+    """hits / (hits + misses); 1.0 when nothing was ever dispatched with
+    ref args (nothing was ever missed)."""
+    c = prefetch_counters()
+    total = c["hits"] + c["misses"]
+    return 1.0 if total == 0 else c["hits"] / total
+
+
+def result_async_counters() -> Dict[str, float]:
+    """Fire-and-forget task-result publication tallies, counted where the
+    batched `task_done` entries are APPLIED (the controller process):
+    tasks whose completion rode a batch frame, result objects registered
+    that way, and their inline bytes."""
+    return {"tasks": _counter_total("result_async_tasks"),
+            "results": _counter_total("result_async_results"),
+            "bytes": _counter_total("result_async_bytes")}
 
 
 def rllib_sebulba_counters() -> Dict[str, float]:
@@ -398,3 +452,42 @@ def sched_locality_counters() -> Dict[str, float]:
     return {"hits": _counter_total("sched_locality_hits"),
             "misses": _counter_total("sched_locality_misses"),
             "bytes": _counter_total("sched_locality_bytes")}
+
+
+def sched_locality_hit_rate() -> float:
+    """hits / (hits + misses); 1.0 when no locality-scored placement has
+    happened yet (nothing was ever missed)."""
+    c = sched_locality_counters()
+    total = c["hits"] + c["misses"]
+    return 1.0 if total == 0 else c["hits"] / total
+
+
+# -- the store's spill ladder: written by `_private/object_store.py` (spill
+# and restore I/O) and `_private/controller.py` (demotions, tier gauges)
+
+def spill_counters() -> Dict[str, float]:
+    """Spill-ladder tallies (per process: the controller that owns the
+    store). spill/restore_bytes tally tier-boundary I/O; spilled/restored
+    count objects demoted to disk and promoted back; pressure_spills counts
+    demotions triggered by the background pressure loop (vs the synchronous
+    over-capacity path); pinned_skips counts demotion candidates spared
+    because prefetch/pull pinning protected them; pinned_demotions counts
+    protected objects that were ABOUT to be demoted anyway, which must
+    stay zero."""
+    return {"spill_bytes": _counter_total("spill_bytes_total"),
+            "restore_bytes": _counter_total("restore_bytes_total"),
+            "spilled_objects": _counter_total("spilled_objects_total"),
+            "restored_objects": _counter_total("restored_objects_total"),
+            "pressure_spills": _counter_total("spill_pressure_total"),
+            "pinned_skips": _counter_total("spill_pinned_skips_total"),
+            "pinned_demotions": _counter_total("spill_pinned_demotions_total"),
+            "range_reads": _counter_total("spill_range_reads_total")}
+
+
+def tier_occupancy() -> Dict[str, float]:
+    """Per-tier occupancy gauges set by the store owner: bytes resident in
+    the shm tier vs demoted to the disk tier, and object counts for each."""
+    return {"shm_bytes": _gauge_total("store_tier_shm_bytes"),
+            "disk_bytes": _gauge_total("store_tier_disk_bytes"),
+            "shm_objects": _gauge_total("store_tier_shm_objects"),
+            "disk_objects": _gauge_total("store_tier_disk_objects")}

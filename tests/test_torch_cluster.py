@@ -8,13 +8,16 @@ worker-node agent (`ray_tpu_torch._private.node_main`, through
 cluster. The node is started bound to the string card "3"
 (CUDA_VISIBLE_DEVICES="3", --num-gpus 1): on the CPU a card is a name, and
 a num_gpus=1 actor placed there must see "3" and get_gpu_ids() [0].
-Programs that share the one-node setup run in one driver. Every get has a
-timeout and every driver a subprocess timeout."""
+Programs that share the one-node setup run in one driver, and the three
+drivers run at once. Every get has a timeout and every driver a time
+limit."""
 
 import os
 import subprocess
 import sys
 import textwrap
+
+import pytest
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -59,31 +62,56 @@ _EPILOGUE = textwrap.dedent("""
 """)
 
 
-def _run_driver(body: str, timeout=120, env_extra=None):
+def _start_driver(body: str, env_extra=None):
     script = _PRELUDE + textwrap.dedent(body) + _EPILOGUE
     env = dict(os.environ)
     for k in ("RTPT_ARENA", "RTPT_ADDRESS", "RTPT_GPU_IDS"):
         env.pop(k, None)
     env["PYTHONPATH"] = _REPO + os.pathsep + env.get("PYTHONPATH", "")
     env.update(env_extra or {})
-    r = subprocess.run([sys.executable, "-c", script], env=env,
-                       capture_output=True, text=True, timeout=timeout)
-    assert r.returncode == 0, \
-        f"driver failed\n--- stdout\n{r.stdout}\n--- stderr\n{r.stderr[-12000:]}"
-    assert "CLUSTER_TEST_OK" in r.stdout
+    return subprocess.Popen([sys.executable, "-c", script], env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
 
 
-def test_cluster_placement_objects_transfer_and_cards():
-    """test_cluster.py's placement_and_objects, placement_groups_span_nodes
-    and direct_node_to_node_transfer in one driver, with torch tensors
-    among the objects, and the node's card binding: registration, cluster
-    resources, custom-resource + NodeAffinity placement, lazy pull of a
-    large remote result, dep shipping head→node, SPREAD across hosts,
-    DEFAULT overflow, STRICT_SPREAD / STRICT_PACK bundles, a num_gpus=1
-    actor bound to the node's card "3", and a second node pulling an
-    array and a tensor straight from the first: head staged_bytes stays 0,
-    the nodes' direct_pull_bytes and direct_serve_bytes cover the blobs."""
-    _run_driver("""
+@pytest.fixture(scope="module")
+def drivers():
+    """Every program's driver started at once, each its own cluster (a head
+    and its node agents): the module takes the slowest driver's time.
+    name -> (process, its time limit)."""
+    procs = {name: (_start_driver(body, env_extra), timeout)
+             for name, (body, timeout, env_extra) in _DRIVERS.items()}
+    yield procs
+    for proc, _ in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
+def _wait_driver(proc, timeout, name="driver"):
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        stdout, stderr = proc.communicate()
+        raise AssertionError(f"{name} exceeded {timeout} s\n--- stdout\n{stdout}"
+                             f"\n--- stderr\n{stderr[-12000:]}")
+    assert proc.returncode == 0, \
+        f"{name} failed\n--- stdout\n{stdout}\n--- stderr\n{stderr[-12000:]}"
+    assert "CLUSTER_TEST_OK" in stdout
+
+
+def _run_driver(body: str, timeout=120, env_extra=None):
+    """One driver run to its end (test_torch_autoscaler.py and
+    test_torch_gcs_chaos.py run theirs so)."""
+    _wait_driver(_start_driver(body, env_extra), timeout)
+
+
+def _finish(drivers, name):
+    proc, timeout = drivers[name]
+    _wait_driver(proc, timeout, f"driver {name}")
+
+
+_PLACEMENT = """
     rows = ray.nodes()
     assert sum(1 for r in rows if r.get("is_head")) == 1
     assert ray.cluster_resources().get("CPU") == 4.0
@@ -259,19 +287,23 @@ def test_cluster_placement_objects_transfer_and_cards():
         if node2_proc.poll() is None:
             os.killpg(node2_proc.pid, signal.SIGKILL)
             node2_proc.wait(timeout=10)
-    """)
+    """
 
 
-def test_cluster_remote_actors_failover_and_heartbeat_death():
-    """test_cluster.py's remote_actors_and_failover and
-    node_death_by_heartbeat_silence in one driver. A second node that stops
-    heartbeating WITHOUT closing its TCP connection (SIGSTOP: no FIN/RST)
-    is declared dead by the head's liveness sweep (RAY_TPU_NODE_DEATH_S=4
-    here, 15 s by default), its card leaving the cluster's totals. Then the
-    remote actor lifecycle (create/mutate/ship-ref/kill) on the first node,
-    and node-death failover: the dead node leaves nodes(), a head-runnable
-    task still runs, the totals shrink back to the head's."""
-    _run_driver("""
+def test_cluster_placement_objects_transfer_and_cards(drivers):
+    """test_cluster.py's placement_and_objects, placement_groups_span_nodes
+    and direct_node_to_node_transfer in one driver, with torch tensors
+    among the objects, and the node's card binding: registration, cluster
+    resources, custom-resource + NodeAffinity placement, lazy pull of a
+    large remote result, dep shipping head→node, SPREAD across hosts,
+    DEFAULT overflow, STRICT_SPREAD / STRICT_PACK bundles, a num_gpus=1
+    actor bound to the node's card "3", and a second node pulling an
+    array and a tensor straight from the first: head staged_bytes stays 0,
+    the nodes' direct_pull_bytes and direct_serve_bytes cover the blobs."""
+    _finish(drivers, "placement")
+
+
+_FAILOVER = """
     silent = spawn_agent(addr, 1, {"silent_node": 1}, env, gpus=["5"])
     wait_for(lambda: len(ray.nodes()) == 3, 60, "the silent node's registration")
     assert ray.cluster_resources().get("GPU") == 2.0
@@ -341,19 +373,22 @@ def test_cluster_remote_actors_failover_and_heartbeat_death():
     assert ray.cluster_resources().get("CPU") == 2.0
     assert ray.cluster_resources().get("worker_node") is None
     assert ray.cluster_resources().get("GPU") in (None, 0.0)
-    """, env_extra={"RAY_TPU_NODE_DEATH_S": "4"})
+    """
 
 
-def test_rllib_runners_spread_and_trainer_across_nodes():
-    """test_cluster.py's rllib_env_runners_spread_across_nodes and
-    trainer_orchestrates_spmd_across_nodes in one driver. PPO's remote
-    EnvRunner actors SPREAD over the head and the node (two distinct parent
-    pids) feed the head's learner for two finite train()s; then a second
-    node joins and TorchTrainer's worker group (ScalingConfig(num_workers=2)
-    with a node-only resource) places one TrainWorker per node agent, the
-    two ranks one gloo world whose losses equal the closed form, the
-    marker files naming the two agents."""
-    _run_driver("""
+def test_cluster_remote_actors_failover_and_heartbeat_death(drivers):
+    """test_cluster.py's remote_actors_and_failover and
+    node_death_by_heartbeat_silence in one driver. A second node that stops
+    heartbeating WITHOUT closing its TCP connection (SIGSTOP: no FIN/RST)
+    is declared dead by the head's liveness sweep (RAY_TPU_NODE_DEATH_S=4
+    here, 15 s by default), its card leaving the cluster's totals. Then the
+    remote actor lifecycle (create/mutate/ship-ref/kill) on the first node,
+    and node-death failover: the dead node leaves nodes(), a head-runnable
+    task still runs, the totals shrink back to the head's."""
+    _finish(drivers, "failover")
+
+
+_RLLIB = """
     from ray_tpu_torch.rllib import PPOConfig
 
     algo = (PPOConfig()
@@ -437,4 +472,22 @@ def test_rllib_runners_spread_and_trainer_across_nodes():
         if node2_proc.poll() is None:
             os.killpg(node2_proc.pid, signal.SIGKILL)
             node2_proc.wait(timeout=10)
-    """, timeout=240)
+    """
+
+
+def test_rllib_runners_spread_and_trainer_across_nodes(drivers):
+    """test_cluster.py's rllib_env_runners_spread_across_nodes and
+    trainer_orchestrates_spmd_across_nodes in one driver. PPO's remote
+    EnvRunner actors SPREAD over the head and the node (two distinct parent
+    pids) feed the head's learner for two finite train()s; then a second
+    node joins and TorchTrainer's worker group (ScalingConfig(num_workers=2)
+    with a node-only resource) places one TrainWorker per node agent, the
+    two ranks one gloo world whose losses equal the closed form, the
+    marker files naming the two agents."""
+    _finish(drivers, "rllib")
+
+
+# name -> (driver body, time limit in s, extra environment)
+_DRIVERS = {"placement": (_PLACEMENT, 120, None),
+            "failover": (_FAILOVER, 120, {"RAY_TPU_NODE_DEATH_S": "4"}),
+            "rllib": (_RLLIB, 240, None)}

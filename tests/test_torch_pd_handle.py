@@ -17,8 +17,9 @@ side reaches a serve `DeploymentHandle` (`ray_tpu/serve/pd.py`
   runs it) on the CPU: equal ids, the segments attached in this process,
   none left in /dev/shm.
 - Through a real handle: a `ray_tpu.serve` deployment of the port's
-  `PrefillServer` under `ray_session`, its `DeploymentHandle` given to the
-  port's `PDServer`: equal ids on both hand-offs.
+  `PrefillServer` under `ray_session` (its weights drawn from the seed in
+  the replica), its `DeploymentHandle` given to the port's `PDServer`:
+  equal ids on both hand-offs.
 
 The servers use `test_torch_pd.py`'s configuration (tiny preset, page 16,
 f32, seed 3); ids are inside the tiny vocab of 256."""
@@ -219,11 +220,15 @@ def test_pd_with_prefill_in_a_child_process(time_limit):
 def test_pd_through_a_serve_deployment_handle(ray_session, time_limit):
     """A `ray_tpu.serve` deployment of the port's PrefillServer: its
     DeploymentHandle is the PDServer's prefill replica, on the streaming
-    plane and the whole-KV hand-off."""
+    plane and the whole-KV hand-off. The replica draws the same weights
+    from the config's seed in its own process: `ray_session` is shared by
+    every file an xdist worker runs, and a store that earlier files left at
+    its demotion threshold demoted a state_dict init argument between
+    restore and read until `register_deployment` failed."""
     from ray_tpu import serve
     plain = tllm.LLMServer(_cfg(tllm))
     sd = plain.model.state_dict()
-    app = serve.deployment(tpd.PrefillServer, name="torch_prefill").bind(_cfg(tllm), sd)
+    app = serve.deployment(tpd.PrefillServer, name="torch_prefill").bind(_cfg(tllm))
     handle = serve.run(app, name="torch-pd")
     try:
         pd = tpd.PDServer(_cfg(tllm), params=sd, prefill=handle)

@@ -14,6 +14,7 @@ of test_rllib_eval_lr.py's three evaluation-actor tests, CQL, IQL and
 DreamerV3 evaluating inline (no actors made), and stop() leaving no
 runner actor alive."""
 
+import contextlib
 import time
 
 import numpy as np
@@ -71,6 +72,19 @@ def _runner_batches(ray_session, jalgo, talgo, start):
                                timeout=60))
 
 
+@contextlib.contextmanager
+def _stop_on_failure(jalgo, talgo):
+    """A case that fails stops both algorithms: runner actors left alive
+    would hold the module session's CPUs, and the next case's actors
+    would wait for them until the suite's time limit."""
+    try:
+        yield
+    except BaseException:
+        talgo.stop()
+        jalgo.stop()
+        raise
+
+
 def _assert_stopped(talgo, handles):
     talgo.stop()
     for h in handles:
@@ -85,20 +99,21 @@ def test_ppo_remote_runners_and_eval_actors_match_jax(ray_session, port_session,
                               evaluation_num_env_runners=2)
                   for c in (JPPOConfig(), PPOConfig()))
     jalgo, talgo, start = _pair(jcfg, tcfg)
-    assert len(talgo._runner_handles) == len(talgo._eval_handles) == 2
-    _runner_batches(ray_session, jalgo, talgo, start)
-    (got, gm), (want, wm) = talgo._sample_all(start), jalgo._sample_all(jalgo.get_weights())
-    assert got.count == want.count and np.asarray(got["obs"]).shape == (32, 4, 4)
-    _assert_batches_equal(got, want)
-    assert gm == pytest.approx(wm)
-    # one train() from the same weights: two minibatch updates, then the
-    # evaluation actors' greedy episodes on the updated weights
-    talgo.set_weights(start)
-    want, got = jalgo.train(), talgo.train()
-    _check(got, want, start, jalgo, talgo, 3e-4, 2)
-    assert got["evaluation"]["episodes_this_iter"] >= 4
-    for k, w in want["evaluation"].items():
-        assert got["evaluation"][k] == pytest.approx(w, rel=1e-6), k
+    with _stop_on_failure(jalgo, talgo):
+        assert len(talgo._runner_handles) == len(talgo._eval_handles) == 2
+        _runner_batches(ray_session, jalgo, talgo, start)
+        (got, gm), (want, wm) = talgo._sample_all(start), jalgo._sample_all(jalgo.get_weights())
+        assert got.count == want.count and np.asarray(got["obs"]).shape == (32, 4, 4)
+        _assert_batches_equal(got, want)
+        assert gm == pytest.approx(wm)
+        # one train() from the same weights: two minibatch updates, then the
+        # evaluation actors' greedy episodes on the updated weights
+        talgo.set_weights(start)
+        want, got = jalgo.train(), talgo.train()
+        _check(got, want, start, jalgo, talgo, 3e-4, 2)
+        assert got["evaluation"]["episodes_this_iter"] >= 4
+        for k, w in want["evaluation"].items():
+            assert got["evaluation"][k] == pytest.approx(w, rel=1e-6), k
     jalgo.stop()
     _assert_stopped(talgo, talgo._runner_handles + talgo._eval_handles)
 
@@ -107,9 +122,10 @@ def test_impala_remote_runners_match_jax(ray_session, port_session, one_torch_th
     jcfg, tcfg = (_chain(c, rollout=16, train_batch_size=64)
                   for c in (JIMPALAConfig(), IMPALAConfig()))
     jalgo, talgo, start = _pair(jcfg, tcfg)
-    _runner_batches(ray_session, jalgo, talgo, start)
-    want, got = jalgo.train(), talgo.train()
-    _check(got, want, start, jalgo, talgo, 5e-4, 1)      # one rollout, one update
+    with _stop_on_failure(jalgo, talgo):
+        _runner_batches(ray_session, jalgo, talgo, start)
+        want, got = jalgo.train(), talgo.train()
+        _check(got, want, start, jalgo, talgo, 5e-4, 1)      # one rollout, one update
     jalgo.stop()
     _assert_stopped(talgo, talgo._runner_handles)
 

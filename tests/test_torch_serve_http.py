@@ -21,6 +21,7 @@ import socket
 import sys
 import textwrap
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import pytest
 
@@ -80,8 +81,10 @@ def sessions(ray_session, port_session):
 
 
 def _on_both(sessions, program):
-    want = program(*sessions["jax"])
-    got = program(*sessions["port"])
+    """The program on both runtimes at once, each from a thread of its own
+    on its own session: the case takes the slower one's time."""
+    with ThreadPoolExecutor(2) as pool:
+        want, got = pool.map(lambda key: program(*sessions[key]), ("jax", "port"))
     assert got == want
     return got
 

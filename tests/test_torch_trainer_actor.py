@@ -177,13 +177,16 @@ def test_worker_group_restart_equals_the_unkilled_group(port_session, tmp_path):
     """Two TrainWorkers on gloo in a placement group: rank 1 kills its own
     process once at iteration 3, the whole group is torn down and retried
     (max_failures=1), resuming from the checkpoint of iteration 2; the
-    history equals an unkilled group's."""
+    history equals an unkilled group's, which runs at the same time."""
     scaling = ttrain.ScalingConfig(num_workers=2)
     base = {"steps": 4, "rank": 1}
-    killed = _fit("ray_tpu_torch", tmp_path, "killed",
-                  dict(base, die_at=3, flag=str(tmp_path / "died")), failures=1,
-                  scaling_config=scaling)
-    whole = _fit("ray_tpu_torch", tmp_path, "whole", base, scaling_config=scaling)
+    with ThreadPoolExecutor(2) as pool:     # the two groups at once, four workers
+        killed = pool.submit(_fit, "ray_tpu_torch", tmp_path, "killed",
+                             dict(base, die_at=3, flag=str(tmp_path / "died")), failures=1,
+                             scaling_config=scaling)
+        whole = pool.submit(_fit, "ray_tpu_torch", tmp_path, "whole", base,
+                            scaling_config=scaling)
+        killed, whole = killed.result(), whole.result()
     assert os.path.exists(tmp_path / "died")
     assert killed.error is None and whole.error is None
     _same_result(killed, whole)
