@@ -88,8 +88,8 @@ Phases, in order; a failing phase raises and the script exits non-zero:
              TTFT p50; the kv_seal pages equal to the pages shipped; beside
              them a stopwatch on the awaited prefill_begin, which no window
              covers) and the seal / install times a page. These paths,
-             `runtime` and `serve_app` share one session of the port's
-             runtime, opened here and shut down after `serve_app` (every
+             `runtime`, `serve_app` and `jobs` share one session of the
+             port's runtime, opened here and shut down after `jobs` (every
              worker gone). Path `serve_pd_proc`: the same checks with the
              PrefillServer a serve deployment of the port's runtime
              (`EngineReplica` "prefill", num_gpus=1: its own process, two
@@ -134,7 +134,20 @@ Phases, in order; a failing phase raises and the script exits non-zero:
              process (this process's counts 0), the replica bound to the
              card; the replica's start, the first SSE event against the
              engine's TTFT, the proxy + ingress + handle ms a request and
-             decode tokens/s logged. Path `cluster` (`run_cluster`), in a
+             decode tokens/s logged. Path `jobs` (`run_jobs`), last in
+             that session: the dashboard on port 0 reports "GPU" total 1,
+             `python -m ray_tpu_torch topology` names the card and
+             `status` (attached through RTPT_ADDRESS) lists the GPU; job
+             A, submitted over HTTP with JobSubmissionClient, is a driver
+             (`job_main`) that attaches, starts one unnamed num_gpus=1
+             EngineReplica "llm" and serves the sequential prompts
+             through an ActorPool of it: SUCCEEDED, its ids (read through
+             /api/jobs/<id>/logs) the colocated server's, its actor's
+             launches the `runtime` path's actor's, none in this process
+             or the job's driver, which sees no card; job B, serving in a
+             loop, is stopped once its first answer shows: STOPPED, the
+             card free again, a new num_gpus=1 actor started on it, the
+             job's actor listed dead. Path `cluster` (`run_cluster`), in a
              session of its own after that one closes: the port's runtime
              across nodes. This process is a head owning no card; a
              SubprocessNodeProvider bound to the card launches one node
@@ -3111,6 +3124,209 @@ def run_serve_app(sequential, device="cuda", preset="llama_1b", max_tokens=16):
         f"the handle's, cut at the tokenizer's eos id, for {same_as_handle} of {n} (second "
         f"visits of each prompt, prefilled after radix hits); launches in the "
         f"replica {launches}" + (f" ({smi_line()})" if cuda else ""))
+    return out
+
+
+# ----------------------------------------------------------------------- jobs
+JOB_ENV = "CHIP_SMOKE_JOB"       # the job's prompts and engine settings (JSON)
+JOB_FREE_LIMIT_S = 60.0          # a stopped job's card is free again within this
+
+
+def job_main(mode):
+    """A submitted job's driver (path `jobs`): attaches to the session
+    (init(address="auto")), starts one unnamed num_gpus=1 EngineReplica
+    "llm" and serves the prompts of JOB_ENV through an ActorPool of it
+    (map, in order) after run_runtime's warm-up, its launch counters reset
+    just before and read just after. Prints one JSON line: the ids, the
+    actor's launches, fresh first chunks, decode steps and plan, its card
+    binding, and this process's own launches and CUDA_VISIBLE_DEVICES.
+    mode "serve" returns then; mode "loop" (the job that is stopped) serves
+    the prompts again and again."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.util import ActorPool
+
+    job = json.loads(os.environ[JOB_ENV])
+    rt.init(address="auto")
+    reset_launch_counts()
+    actor = rt.remote(num_gpus=1)(engine_class()).remote(
+        "llm", serving_config(job["preset"], job["device"]))
+    rt.get(actor.generate.remote(list(range(1, 50)), 8), timeout=600)   # warm-up
+    pool = ActorPool([actor])
+    serve = lambda a, p: a.generate.remote(p, job["max_tokens"])
+    before = rt.get(actor.stats.remote())
+    rt.get(actor.reset_launch_counts.remote())
+    ids = [out["tokens"] for out in pool.map(serve, job["prompts"])]
+    after = rt.get(actor.stats.remote())
+    _, _, _, steps = decode_delta(after, before)
+    print(json.dumps(dict(
+        mode=mode, ids=ids, launches=rt.get(actor.launch_counts.remote()), decode_steps=steps,
+        fresh=after["prefill"]["chunk_local"] - before["prefill"]["chunk_local"],
+        plan=rt.get(actor.plan.remote()), binding=rt.get(actor.binding.remote()),
+        actor_id=actor._actor_id, driver_launches=launch_counts(),
+        driver_cuda_visible_devices=os.environ.get("CUDA_VISIBLE_DEVICES"))), flush=True)
+    while mode == "loop":
+        for _ in pool.map(serve, job["prompts"]):
+            pass
+
+
+def job_line(logs):
+    """The JSON line a job's driver printed, or None."""
+    rows = [ln for ln in logs.splitlines() if ln.startswith('{"mode"')]
+    return json.loads(rows[-1]) if rows else None
+
+
+def wait_job_line(client, jid, timeout, terminal=False):
+    """Polls the job's logs (GET /api/jobs/<id>/logs) until its JSON line
+    shows (and, with `terminal`, the job has ended); returns (line, logs)."""
+    deadline = time.perf_counter() + timeout
+    while True:
+        logs = client.get_job_logs(jid)
+        line = job_line(logs)
+        done = client.get_job_status(jid).is_terminal()
+        if (line is not None and (done or not terminal)) or done \
+                or time.perf_counter() > deadline:
+            return line, logs
+        time.sleep(0.2)
+
+
+def run_jobs(sequential, runtime, device="cuda", preset="llama_1b", max_tokens=16):
+    """Path `jobs`: job submission, the dashboard, the CLI and util's
+    ActorPool and state on the port's runtime, in the caller's session.
+    `sequential` is run_pd's (prompt, colocated ids) list and `runtime`
+    run_runtime's readings. (a) The dashboard on port 0:
+    /api/cluster_status reports "GPU" total 1; `python -m ray_tpu_torch
+    topology` names the card (torch.cuda.get_device_name(0)) and counts
+    one; `python -m ray_tpu_torch status`, attached through RTPT_ADDRESS,
+    lists the GPU. (b) Job A through JobSubmissionClient over HTTP, its
+    entrypoint `python3 -c "import chip_smoke; chip_smoke.job_main('serve')"`
+    with working_dir the repo root: SUCCEEDED, its line (read through
+    /api/jobs/<id>/logs) holds ids equal to the colocated server's, the
+    actor's launches equal the `runtime` path's actor's for the same
+    prompts (launch_checks), the job's actor bound to the card, and no
+    launch in this process or the job's driver, which sees no card. (c)
+    Job B, the same entrypoint serving in a loop, stopped with POST
+    /api/jobs/<id>/stop once its line shows: STOPPED, "GPU" available
+    back to its total within JOB_FREE_LIMIT_S, then a new num_gpus=1 actor
+    starts on the freed card, and util.state lists the job's actor dead.
+    Returns the readings; raises on a failed check."""
+    import torch
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.dashboard import start_dashboard
+    from ray_tpu_torch.job_submission import JobSubmissionClient
+    from ray_tpu_torch.util import state
+
+    cuda = device == "cuda"
+    tag = "jobs"
+    repo = str(Path(__file__).resolve().parent)
+    n_cards = torch.cuda.device_count() if cuda else 1
+    out = {}
+    checks = {}
+
+    # (a) the dashboard and the CLI
+    t0 = time.perf_counter()
+    _actor, port = start_dashboard(port=0)
+    base = f"http://127.0.0.1:{port}"
+    out["dashboard_up_s"] = time.perf_counter() - t0
+    status = json.loads(http_call(port, "GET", "/api/cluster_status")[2])
+    checks[f"/api/cluster_status reports GPU total {status['total_resources'].get('GPU')} == "
+           f"{n_cards}"] = status["total_resources"].get("GPU") == n_cards
+    cli = lambda *a: subprocess.run([sys.executable, "-m", "ray_tpu_torch", *a], cwd=repo,
+                                    capture_output=True, text=True, timeout=120)
+    topo = cli("topology")
+    topology = json.loads(topo.stdout) if topo.returncode == 0 else {"error": topo.stderr[-500:]}
+    want_name = torch.cuda.get_device_name(0) if cuda else None
+    checks[f"`python -m ray_tpu_torch topology` names the card ({topology.get('device_name')!r})"
+           f" and counts {topology.get('num_chips')}"] = (
+        topology.get("device_name") == want_name
+        and topology.get("num_chips") == torch.cuda.device_count())
+    st = cli("status", "--once")
+    gpu_row = re.search(r"^  GPU\s+(\S+) / (\S+) free$", st.stdout, re.M)
+    checks[f"`python -m ray_tpu_torch status` (RTPT_ADDRESS) lists the GPU "
+           f"({gpu_row.group(0).strip() if gpu_row else st.stderr[-300:]!r})"] = (
+        st.returncode == 0 and gpu_row is not None and float(gpu_row.group(2)) == n_cards)
+    out.update(topology=topology, status_gpu_row=gpu_row.group(0).strip() if gpu_row else None)
+
+    # (b) job A over HTTP
+    client = JobSubmissionClient(base)
+    entry = lambda mode: f"{sys.executable} -c \"import chip_smoke; chip_smoke.job_main({mode!r})\""
+    env = {JOB_ENV: json.dumps(dict(prompts=[p for p, _ in sequential], preset=preset,
+                                    device=device, max_tokens=max_tokens))}
+    runtime_env = {"working_dir": repo, "env_vars": env}
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    jid = client.submit_job(entrypoint=entry("serve"), runtime_env=runtime_env)
+    line, logs = wait_job_line(client, jid, 900, terminal=True)
+    out["job_a_s"] = time.perf_counter() - t0
+    status_a = client.get_job_status(jid).value
+    here = launch_counts()
+    if line is None:
+        raise AssertionError(f"{tag}: job A ({status_a}) printed no line: {logs[-3000:]}")
+    launches = line["launches"]
+    binding = line["binding"]
+    checks[f"job A {status_a} == SUCCEEDED"] = status_a == "SUCCEEDED"
+    checks[f"job A's ids through an ActorPool == the colocated server's for all "
+           f"{len(sequential)} sequential requests"] = line["ids"] == [w for _, w in sequential]
+    checks[f"job A's actor launched what the runtime path's actor did "
+           f"({launches} == {runtime['launches']})"] = launches == runtime["launches"]
+    checks[f"no launch in this process ({here}) or the job's driver "
+           f"({line['driver_launches']})"] = not any(here.values()) and not any(
+        line["driver_launches"].values())
+    checks[f"the job's driver sees no card (CUDA_VISIBLE_DEVICES "
+           f"{line['driver_cuda_visible_devices']!r})"] = line["driver_cuda_visible_devices"] == ""
+    if cuda:
+        checks[f"job A's actor bound to one card: CUDA_VISIBLE_DEVICES "
+               f"{binding['cuda_visible_devices']!r} == get_gpu_ids() {binding['gpu_ids']}"] = (
+            binding["cuda_visible_devices"] == ",".join(map(str, binding["gpu_ids"]))
+            and binding["device_count"] == 1)
+
+    # (c) job B, stopped while it holds the card
+    total = rt.cluster_resources()["GPU"]
+    t0 = time.perf_counter()
+    jid_b = client.submit_job(entrypoint=entry("loop"), runtime_env=runtime_env)
+    line_b, logs_b = wait_job_line(client, jid_b, 900)
+    out["job_b_first_answer_s"] = time.perf_counter() - t0
+    if line_b is None:
+        raise AssertionError(f"{tag}: job B printed no line: {logs_b[-3000:]}")
+    held = rt.available_resources().get("GPU", 0)
+    t0 = time.perf_counter()
+    stopped = client.stop_job(jid_b)
+    status_b = client.get_job_status(jid_b).value
+    while (rt.available_resources().get("GPU", 0) < total
+           and time.perf_counter() - t0 < JOB_FREE_LIMIT_S):
+        time.sleep(0.05)
+    out["gpu_free_after_stop_s"] = freed_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    pinger = rt.remote(num_gpus=1)(Pinger).remote()
+    new_binding = rt.get(pinger.binding.remote(), timeout=300)
+    out["new_actor_start_s"] = time.perf_counter() - t1
+    rt.kill(pinger)
+    dead = [a["state"] for a in state.list_actors(filters=[("actor_id", "=", line_b["actor_id"])])]
+    checks[f"job B held the card while serving (GPU available {held})"] = held == 0
+    checks[f"POST /api/jobs/<id>/stop stopped job B: {status_b} == STOPPED"] = (
+        stopped and status_b == "STOPPED")
+    checks[f"GPU available back to its total {total} {freed_s:.2f} s after the stop "
+           f"(limit {JOB_FREE_LIMIT_S:.0f} s)"] = (
+        rt.available_resources().get("GPU", 0) == total and freed_s < JOB_FREE_LIMIT_S)
+    checks[f"then a new num_gpus=1 actor starts on the freed card {new_binding['gpu_ids']}"] = (
+        new_binding["gpu_ids"] == binding["gpu_ids"])
+    checks[f"util.state lists job B's actor as dead ({dead})"] = dead == ["DEAD"]
+    for what, ok in checks.items():
+        log(f"[{tag}] {'ok  ' if ok else 'FAIL'} {what}")
+    if not all(checks.values()):
+        raise AssertionError(f"{tag} checks failed: "
+                             f"{[what for what, ok in checks.items() if not ok]}")
+    launch_checks(tag, launches, line["plan"]["n_layers"], line["fresh"], line["decode_steps"],
+                  line["plan"]["n_split"])
+    out.update(launches=launches, binding=binding, new_binding=new_binding,
+               sequential_requests=len(sequential), ids_equal=True,
+               fresh_first_chunks=line["fresh"], decode_steps=line["decode_steps"],
+               job_a_status=status_a, job_b_status=status_b)
+    log(f"[{tag}] dashboard up in {out['dashboard_up_s']:.2f} s; job A (start, llama_1b "
+        f"actor, warm-up, {len(sequential)} requests x {max_tokens} tokens) "
+        f"{out['job_a_s']:.1f} s; job B's first answer {out['job_b_first_answer_s']:.1f} s after "
+        f"submit, its card free {freed_s:.2f} s after the stop, a new actor up "
+        f"{out['new_actor_start_s']:.2f} s later; launches in job A's actor {launches}"
+        + (f" ({smi_line()})" if cuda else ""))
     return out
 
 
@@ -9150,13 +9366,14 @@ def main() -> int:
     moe = timed("serve_moe", run_moe, rng)
     replica = timed("replica", run_replica)
     # one session of the port's runtime for the paths that use actors: PD's
-    # prefill replica, the runtime's checks, then Serve's OpenAI app
+    # prefill replica, the runtime's checks, Serve's OpenAI app, then jobs
     session_init_s = timed("session_init", open_session, "cuda")
     pd = timed("serve_pd", run_pd)
     sequential = pd.pop("sequential")
     runtime = timed("runtime", run_runtime, sequential)
     runtime["init_s"] = session_init_s
     serve_app = timed("serve_app", run_serve_app, sequential)
+    jobs = timed("jobs", run_jobs, sequential, runtime)
     runtime["session_workers"] = timed("session_close", close_session, "session")
     cluster = timed("cluster", run_cluster, sequential)
     radix_visits = timed("radix_visits", run_radix_visits, sequential)
@@ -9189,7 +9406,7 @@ def main() -> int:
     paths = {"serve": summary["launches"], "serve_moe": moe["launches"],
              "serve_pd": pd["launches"], "serve_pd_proc": pd["proc"]["launches"],
              "runtime": runtime["launches"], "serve_app": serve_app["launches"],
-             "cluster": cluster["launches"],
+             "jobs": jobs["launches"], "cluster": cluster["launches"],
              "serve_tiered": tiered["launches"],
              "ckpt_whole": trainer["ckpt_whole"]["launches"],
              "train": train["launches"], "train_resume": trainer["launches"],
@@ -9199,7 +9416,7 @@ def main() -> int:
              "ring": seqpipe["launches"]["ring"],
              "pipeline": seqpipe["launches"]["pipeline"], **rl["launches"]}
     serve_paths = ("serve", "serve_moe", "serve_pd", "serve_pd_proc", "runtime", "serve_app",
-                   "cluster", "serve_tiered", "ckpt_whole", "serve_tp", "ring", "pipeline",
+                   "jobs", "cluster", "serve_tiered", "ckpt_whole", "serve_tp", "ring", "pipeline",
                    "tune") + RL_PATHS
 
     def flash_row(name, source, replaces, err):
@@ -9236,7 +9453,7 @@ def main() -> int:
         flash_timing=list(flash_t.values()), train_kernel_timing=train_t,
         paged_timing=paged_t, paged_timing_long=paged_long, paged_plans=paged_plans,
         slice=summary, moe=moe, replica=replica, pd=pd, runtime=runtime, serve_app=serve_app,
-        cluster=cluster, radix_visits=radix_visits,
+        jobs=jobs, cluster=cluster, radix_visits=radix_visits,
         tiered=tiered,
         train=train,
         trainer=trainer, tune=tune, mesh=mesh, train_mesh=train_mesh, seqpipe=seqpipe, rl=rl,

@@ -12,9 +12,11 @@ Pallas kernel of the JAX package has a CUDA C++ counterpart under
 numpy and cloudpickle only: never jax, flax or any `ray_tpu` module.
 
 This module imports nothing: the runtime's API (`init`, `remote`, `get`,
-...), `resolve_device` and the subpackages load on first use, so a worker
-that runs a plain task starts without torch, and `import
-ray_tpu_torch.train` needs neither the runtime nor cloudpickle.
+...), `resolve_device`, `__version__` and the subpackages load on first
+use, so a worker that runs a plain task starts without torch, and `import
+ray_tpu_torch.train` needs neither the runtime nor cloudpickle. Job
+submission (`job_submission`), the dashboard (`dashboard`) and the CLI
+(`python -m ray_tpu_torch`) load no torch either.
 Entry points run on `cuda` unless the caller passes `device="cpu"`.
 """
 
@@ -28,9 +30,11 @@ _LAZY = {**{name: ".api" for name in _API},
          "ActorClass": ".actor", "ActorHandle": ".actor", "method": ".actor",
          "exit_actor": ".actor", "LoggingConfig": ".logging_config",
          "RemoteFunction": ".remote_function", "get_runtime_context": ".runtime_context",
-         "get_gpu_ids": ".runtime_context", "resolve_device": ".device"}
+         "get_gpu_ids": ".runtime_context", "resolve_device": ".device",
+         "__version__": "._version"}
 _LAZY_SUBMODULES = ("api", "exceptions", "parallel", "models", "ops", "train", "serve",
-                    "rllib", "util", "tune", "dag", "workflow")
+                    "rllib", "util", "tune", "dag", "workflow", "job_submission",
+                    "dashboard")
 
 __all__ = sorted(_LAZY) + ["exceptions"]
 

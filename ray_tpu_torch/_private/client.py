@@ -28,6 +28,7 @@ import collections
 import concurrent.futures
 import os
 import socket
+import sys
 import threading
 import time
 import asyncio
@@ -854,8 +855,13 @@ class WorkerClient(BaseClient):
         own_ver = _codec.wire_version()
         self._codec_ver = min(own_ver, int(
             _os.environ.get("RTPT_CODEC_VER", "0") or 0))
+        # an attached driver's module directories (a job's working dir is
+        # its cwd) reach the workers the session spawns after it
+        sys_path = ([_os.path.abspath(p or _os.getcwd()) for p in sys.path
+                     if _os.path.isdir(p or ".")] if driver else None)
         protocol.send_msg(self.sock, "register", worker_id=worker_id,
-                          pid=_os.getpid(), driver=driver, codec_ver=own_ver)
+                          pid=_os.getpid(), driver=driver, codec_ver=own_ver,
+                          sys_path=sys_path)
         self._recv_thread = threading.Thread(target=self._recv_loop, daemon=True)
         self._recv_thread.start()
         if driver:

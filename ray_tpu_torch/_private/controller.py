@@ -526,6 +526,11 @@ class Controller:
         self.ready_queue.register_pool(self.available)  # cluster pool = 0
         self.dep_waiters: Dict[str, Set[str]] = collections.defaultdict(set)
         self.workers: Dict[str, WorkerConn] = {}
+        # module directories of attached drivers (a submitted job's working
+        # dir), appended after this process's own sys.path on every worker
+        # spawned later, so an actor class the job pickled by reference
+        # resolves there
+        self.driver_paths: List[str] = []
         # idle pool workers indexed by (gpu_capable, env_key) so
         # _find_idle_worker and the schedule pass's per-class idle counts are
         # O(1) instead of scanning self.workers per dispatch. Maintained at
@@ -769,6 +774,9 @@ class Controller:
         # an attached driver (ray_tpu_torch.init(address=...), e.g. a submitted job)
         # shares the API surface over this socket but never executes tasks
         w.state = "driver" if msg[1].get("driver") else "idle"
+        for p in msg[1].get("sys_path") or ():
+            if p not in self.driver_paths:
+                self.driver_paths.append(p)
         self.workers[wid] = w
         if w.state == "idle":
             self._mark_idle(w)
@@ -1946,6 +1954,7 @@ class Controller:
         # sys.path) — the reference assumes identical envs across the cluster.
         extra = [p if p else os.getcwd() for p in sys.path
                  if p == "" or os.path.isdir(p)]
+        extra += [p for p in self.driver_paths if p not in extra and os.path.isdir(p)]
         if extra:
             env["PYTHONPATH"] = os.pathsep.join(
                 extra + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))

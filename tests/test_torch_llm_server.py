@@ -185,6 +185,10 @@ def test_port_imports_no_jax_flax_or_ray_tpu():
     assert {"ray_tpu_torch/util/tracing.py", "ray_tpu_torch/rllib/sebulba.py"} <= scanned
     assert {f"ray_tpu_torch/train/{m}.py" for m in ("config", "session", "trainer",
                                                     "worker_group")} <= scanned
+    assert {"ray_tpu_torch/__main__.py", "ray_tpu_torch/_version.py", "ray_tpu_torch/dashboard.py",
+            "ray_tpu_torch/job_submission/__init__.py"} <= scanned
+    assert {f"ray_tpu_torch/util/{m}.py" for m in ("actor_pool", "queue", "multiprocessing",
+                                                   "state", "check_serialize")} <= scanned
     banned = ("jax", "jaxlib", "flax", "optax", "orbax", "ray_tpu")
     bad = [(str(f.relative_to(REPO)), mod) for f in files for mod in _imports(f)
            if mod.split(".")[0] in banned]
